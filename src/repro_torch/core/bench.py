@@ -1,0 +1,373 @@
+"""The paper's measurement protocol (§III): run the victim collective for a
+fixed number of iterations under a congestion profile, discard warmup,
+report mean iteration time and the uncongested/congested ratio.
+
+* :func:`run_point` — one heatmap cell (baseline + congested, batched as
+  a 2-cell grid).
+* :func:`run_grid` — a whole (vector size x profile x baseline/congested)
+  grid on ONE flow set, executed as one batched run
+  (simulator.run_cells): all cells advance together, each stops when its
+  primary job has finished.
+
+Both run on the CUDA device unless ``device`` says otherwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core import congestion as cong
+from repro_torch.core import traffic
+from repro_torch.core.fabric.routing import splitmix64
+from repro_torch.core.fabric.simulator import (TDONE_SLOTS, FabricGeometry,
+                                               SimParams, _drop_warmup,
+                                               check_iter_budget,
+                                               make_geometry, make_params,
+                                               resolve_device, run_cells,
+                                               stack_params, summarize)
+from repro_torch.core.fabric.systems import (SystemPreset, default_policy,
+                                             get_system)  # noqa: F401
+
+
+@dataclasses.dataclass
+class BenchResult:
+    system: str
+    n_nodes: int
+    victim: str
+    aggressor: str
+    profile: str
+    vector_bytes: float
+    t_uncongested_s: float
+    t_congested_s: float
+    ratio: float  # uncongested / congested (paper Fig. 5-8; higher = better)
+    victim_goodput_gbps: float
+    n_iters: tuple
+    # per-job mean iteration times of the congested cell:
+    # ((job_name, t_mean_s, n_done), ...)
+    job_times: tuple = ()
+    # False when either lane finished inside its warmup window
+    warmup_ok: bool = True
+    # did-not-finish: a lane completed zero iterations within the budget
+    dnf: bool = False
+
+
+def victim_label(victim_coll: str, phased: bool) -> str:
+    """The reported victim column: the collective kind plus '+phased'
+    when the primary job runs its step schedule."""
+    return victim_coll + ("+phased" if phased else "")
+
+
+def mean_iter_time(res, lat: float) -> float:
+    """Reported per-iteration time of one summarized run: mean simulated
+    iteration + analytic per-step latency + mean queueing delay; NaN when
+    the run completed zero iterations."""
+    if len(res.iter_times) == 0:
+        return float("nan")
+    return float(np.mean(res.iter_times)) + lat + res.mean_qdelay_s
+
+
+_TOPO_CACHE: dict = {}
+
+
+def machine_topology(system: SystemPreset, n_nodes: int = 0):
+    """Full-machine topology, cached per (preset, size). Testbed systems
+    (``machine_nodes == 0``) are built at the allocation size."""
+    n = system.machine_nodes or (n_nodes or 8)
+    key = (system.name, system.fabric, system.machine_nodes, system.k_max,
+           system.static_routing, n)
+    if key not in _TOPO_CACHE:
+        _TOPO_CACHE[key] = system.make_topology(n)
+    return _TOPO_CACHE[key]
+
+
+def allocate(system: SystemPreset, n_nodes: int, seed: int = 7) -> np.ndarray:
+    """A scattered sample of the machine, as a busy batch scheduler hands
+    out; ``seed`` and ``n_nodes`` mix through splitmix64."""
+    machine = system.machine_nodes or n_nodes
+    if n_nodes >= machine:
+        return np.arange(machine)
+    mixed = splitmix64((np.uint64(seed) << np.uint64(32))
+                       | np.uint64(np.uint32(n_nodes)))
+    rng = np.random.RandomState(int(mixed & np.uint64(0xFFFFFFFF)))
+    return np.sort(rng.choice(machine, size=n_nodes, replace=False))
+
+
+# --------------------------------------------------------------------------
+# dt selection
+# --------------------------------------------------------------------------
+
+# power-of-two microsecond ladder: neighboring grid cells snap to shared dt
+DT_LADDER_S = tuple(2.0 ** k * 1e-6 for k in range(8))  # 1us .. 128us
+
+
+def quantize_dt(dt_raw: float) -> float:
+    """Snap down to the nearest ladder step (finer dt = more accurate)."""
+    for dt in reversed(DT_LADDER_S):
+        if dt <= dt_raw:
+            return dt
+    return DT_LADDER_S[0]
+
+
+def choose_dt(topo, n_victims: int, vector_bytes: float, lat: float,
+              n_phases: int = 1) -> float:
+    """dt sized so one uncongested iteration spans ~100 steps, and each
+    of ``n_phases`` barrier-gated phases at least ~8 steps."""
+    per_flow = vector_bytes / max(n_victims, 1)
+    t_est = max(per_flow / (topo.caps.max()), 2e-6) * 2 + lat
+    steps = max(100, 8 * int(n_phases))
+    return quantize_dt(float(np.clip(t_est / steps, 1e-6, 200e-6)))
+
+
+# --------------------------------------------------------------------------
+# Case construction: one flow set, reused across a grid of cells
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GridCase:
+    """One (system, allocation, traffic program) experiment; the
+    unit-vector flow program to be scaled per cell."""
+
+    system: SystemPreset
+    n_nodes: int
+    victim_coll: str
+    aggr_coll: str
+    topo: object
+    geom: FabricGeometry
+    unit_bytes: np.ndarray  # (F,) per-flow bytes at vector_bytes == 1.0
+    is_victim: np.ndarray  # (F,)
+    host_caps: np.ndarray  # (F,)
+    n_victims: int
+    sweep_mask: np.ndarray = None  # (F,) flows whose bytes sweep
+    job_names: List[str] = None
+    max_phases: int = 1
+    primary_phased: bool = False  # job 0 runs a phased step schedule
+    policy: int = 0  # per-cell routing policy id (the system default)
+
+    def __post_init__(self):
+        if self.sweep_mask is None:
+            self.sweep_mask = np.asarray(self.is_victim, bool)
+        if self.job_names is None:
+            self.job_names = ["victim", "aggressor"]
+
+    def cell_params(self, vector_bytes: float, profile: cong.Profile,
+                    dt: float) -> SimParams:
+        """One cell's parameters (no batch axis)."""
+        if profile.faults or profile.node_cap_frac > 0:
+            raise NotImplementedError(
+                "fault events and the intra-node stage are not ported yet "
+                "(ROADMAP Queue 1: fault engine and intra-node stage)")
+        bpi = np.where(self.sweep_mask, self.unit_bytes * vector_bytes,
+                       self.unit_bytes)
+        return make_params(self.system.cc, dt=dt, bytes_per_iter=bpi,
+                           host_caps=self.host_caps, env=profile.params(),
+                           policy=self.policy)
+
+    def lat(self) -> float:
+        return cong.latency_model(self.victim_coll, self.n_victims)
+
+
+def build_case(system: SystemPreset, n_nodes: int, victim_coll: str,
+               aggr_coll: str, topo=None,
+               nodes: Optional[np.ndarray] = None, *,
+               phased: bool = False,
+               jobs: Optional[Sequence[traffic.JobSpec]] = None,
+               policy_tables: bool = False,
+               seed: int = 7) -> GridCase:
+    """Build the flow program + geometry once for a whole grid of cells.
+
+    Default: the paper's two-job victim/aggressor split; ``phased=True``
+    lowers the victim's step schedule; ``jobs`` replaces the split with
+    an explicit multi-job program."""
+    if topo is None:
+        topo = machine_topology(system, n_nodes)
+    if nodes is None:
+        nodes = allocate(system, n_nodes, seed=seed)
+    if jobs is not None:
+        jobs = traffic.split_nodes(nodes, list(jobs))
+        jobs = [dataclasses.replace(j, vector_bytes=1.0)
+                if j.sweep_bytes and not j.endless else j for j in jobs]
+        flows = cong.build_program_flowset(
+            topo, jobs, routing_mode=system.static_routing,
+            k_max=system.k_max, policy_tables=policy_tables)
+        victim_coll = victim_coll or jobs[0].collective
+        aggr_coll = aggr_coll or "+".join(j.name for j in jobs[1:])
+        n_victims = len(jobs[0].nodes)
+    else:
+        # the paper's §III-A interleaved split (applied even with no
+        # aggressor collective, so baseline and congested cells share
+        # the victim set)
+        vidx, aidx = cong.interleaved_split(n_nodes)
+        victims, aggressors = nodes[vidx], nodes[aidx]
+        flows = cong.build_flowset(topo, victims, aggressors, victim_coll,
+                                   aggr_coll, 1.0,
+                                   routing_mode=system.static_routing,
+                                   k_max=system.k_max, phased=phased,
+                                   policy_tables=policy_tables)
+        n_victims = len(victims)
+    geom = make_geometry(topo, flows)
+    return GridCase(system=system, n_nodes=n_nodes, victim_coll=victim_coll,
+                    aggr_coll=aggr_coll, topo=topo, geom=geom,
+                    unit_bytes=flows.bytes_per_iter.copy(),
+                    is_victim=flows.is_victim, host_caps=flows.host_caps,
+                    n_victims=n_victims,
+                    sweep_mask=np.asarray(flows.sweep_mask, bool),
+                    job_names=list(flows.job_names),
+                    max_phases=int(np.max(flows.n_phases)),
+                    primary_phased=bool(jobs[0].phased) if jobs is not None
+                    else phased,
+                    policy=default_policy(system))
+
+
+# --------------------------------------------------------------------------
+# Batched grid runner
+# --------------------------------------------------------------------------
+
+
+def _job_times(out, case: GridCase, *, n_iters, warmup, cell) -> tuple:
+    """Per-job mean iteration times of one cell (jobs that closed at
+    least one program iteration)."""
+    it = np.asarray(out["it"])[cell]
+    td = np.asarray(out["t_done"])[cell]
+    rows = []
+    for ji, name in enumerate(case.job_names):
+        n_done = min(int(it[ji]), n_iters, TDONE_SLOTS)
+        if n_done <= 0:
+            continue
+        times = np.diff(np.concatenate([[0.0], td[ji][:n_done]]))
+        times, _ = _drop_warmup(times, n_done, warmup)
+        if len(times):
+            rows.append((name, float(np.mean(times)), n_done))
+    return tuple(rows)
+
+
+def _cell_dts(case: GridCase, sizes: Sequence[float], n_profiles: int,
+              dt: Optional[float], lat: float) -> List[float]:
+    """One dt per sub-cell (size-major, baseline + profiles per size),
+    chosen per cell on the shared power-of-two ladder."""
+    dts: List[float] = []
+    for v in sizes:
+        cell_dt = dt if dt is not None else choose_dt(
+            case.topo, case.n_victims, float(v), lat,
+            n_phases=case.max_phases)
+        dts.extend([cell_dt] * (1 + n_profiles))
+    return dts
+
+
+def _result(case: GridCase, out: dict, base, res, *, profile: str,
+            vector_bytes: float, n_iters: int, warmup: int,
+            cell: int) -> BenchResult:
+    lat = case.lat()
+    t_u = mean_iter_time(base, lat)
+    t_c = mean_iter_time(res, lat)
+    dnf = base.n_done == 0 or res.n_done == 0
+    return BenchResult(
+        system=case.system.name, n_nodes=case.n_nodes,
+        victim=victim_label(case.victim_coll, case.primary_phased),
+        aggressor=case.aggr_coll or "none", profile=profile,
+        vector_bytes=float(vector_bytes), t_uncongested_s=t_u,
+        t_congested_s=t_c,
+        ratio=float("nan") if dnf else (t_u / t_c if t_c > 0 else 0.0),
+        victim_goodput_gbps=float(
+            np.mean(res.victim_rate_trace[-200:]) * 8 / 1e9)
+        if len(res.victim_rate_trace) else 0.0,
+        n_iters=(base.n_done, res.n_done),
+        job_times=_job_times(out, case, n_iters=n_iters, warmup=warmup,
+                             cell=cell),
+        warmup_ok=base.warmup_ok and res.warmup_ok,
+        dnf=dnf)
+
+
+def _grid_results(case: GridCase, out: dict, sizes: Sequence[float],
+                  profiles: Sequence[cong.Profile], dts: Sequence[float], *,
+                  n_iters: int, warmup: int, chunk: int,
+                  stride: int) -> List[BenchResult]:
+    """Marshal one case's (size x baseline/profile) sub-cells out of a
+    batched run."""
+    per_prof = 1 + len(profiles)
+    results = []
+    for si, v in enumerate(sizes):
+        base_i = si * per_prof
+        base = summarize(out, n_iters=n_iters, warmup=warmup, dt=dts[base_i],
+                         chunk=chunk, stride=stride, cell=base_i)
+        for pi, prof in enumerate(profiles):
+            ci = base_i + 1 + pi
+            res = summarize(out, n_iters=n_iters, warmup=warmup, dt=dts[ci],
+                            chunk=chunk, stride=stride, cell=ci)
+            results.append(_result(case, out, base, res,
+                                   profile=prof.label(), vector_bytes=v,
+                                   n_iters=n_iters, warmup=warmup, cell=ci))
+    return results
+
+
+def run_grid(system: SystemPreset, n_nodes: int,
+             victim_coll: str, aggr_coll: str, sizes: Sequence[float],
+             profiles: Sequence[cong.Profile], *, n_iters: int = 60,
+             warmup: int = 10, dt: Optional[float] = None,
+             max_steps: int = 200_000, chunk: int = 2048,
+             trace_stride: int = 8, phased: bool = False,
+             jobs: Optional[Sequence[traffic.JobSpec]] = None,
+             device=None, core: Optional[str] = None) -> List[BenchResult]:
+    """All (vector size x profile) cells of one experiment in a single
+    batched run: a per-size baseline (aggressors/background jobs off)
+    plus one congested cell per profile, sharing one geometry.
+
+    A list of ``(system, n_nodes)`` cells (the scale-batched engine of the
+    reference) is not ported yet and raises."""
+    if not isinstance(system, SystemPreset):
+        raise NotImplementedError(
+            "scale-batched cell lists (run_scale_grid) are not ported yet "
+            "(ROADMAP Queue 1: hetero/bucketed run_scale_grid)")
+    device = resolve_device(device)
+    check_iter_budget(n_iters)
+    case = build_case(system, n_nodes, victim_coll, aggr_coll,
+                      phased=phased, jobs=jobs)
+    dts = _cell_dts(case, sizes, len(profiles), dt, case.lat())
+    cells = [(float(v), prof) for v in sizes
+             for prof in [cong.no_congestion()] + list(profiles)]
+    params = stack_params([case.cell_params(v, prof, d)
+                           for (v, prof), d in zip(cells, dts)])
+    max_chunks = -(-max_steps // chunk)
+    out = run_cells(case.geom, params, n_iters, chunk=chunk,
+                    max_chunks=max_chunks, stride=trace_stride,
+                    device=device, core=core)
+    return _grid_results(case, out, sizes, profiles, dts, n_iters=n_iters,
+                         warmup=warmup, chunk=chunk, stride=trace_stride)
+
+
+def run_point(system: SystemPreset, n_nodes: int, victim_coll: str,
+              aggr_coll: str, vector_bytes: float,
+              profile: cong.Profile, *, n_iters: int = 60, warmup: int = 10,
+              dt: Optional[float] = None, max_steps: int = 200_000,
+              return_traces: bool = False, phased: bool = False,
+              jobs: Optional[Sequence[traffic.JobSpec]] = None,
+              seed: int = 7, device=None, core: Optional[str] = None):
+    """One heatmap cell: baseline (aggressors off) vs congested run,
+    batched as a 2-cell grid. ``seed`` picks the allocation draw."""
+    device = resolve_device(device)
+    check_iter_budget(n_iters)
+    case = build_case(system, n_nodes, victim_coll, aggr_coll,
+                      phased=phased, jobs=jobs, seed=seed)
+    lat = case.lat()
+    if dt is None:
+        dt = choose_dt(case.topo, case.n_victims, vector_bytes, lat,
+                       n_phases=case.max_phases)
+    chunk, stride = 2048, 8
+    params = stack_params([
+        case.cell_params(vector_bytes, cong.no_congestion(), dt),
+        case.cell_params(vector_bytes, profile, dt)])
+    out = run_cells(case.geom, params, n_iters, chunk=chunk,
+                    max_chunks=-(-max_steps // chunk), stride=stride,
+                    device=device, core=core)
+    base = summarize(out, n_iters=n_iters, warmup=warmup, dt=dt, chunk=chunk,
+                     stride=stride, cell=0)
+    cong_res = summarize(out, n_iters=n_iters, warmup=warmup, dt=dt,
+                         chunk=chunk, stride=stride, cell=1)
+    res = _result(case, out, base, cong_res, profile=profile.kind,
+                  vector_bytes=vector_bytes, n_iters=n_iters,
+                  warmup=warmup, cell=1)
+    if return_traces:
+        return res, base, cong_res
+    return res

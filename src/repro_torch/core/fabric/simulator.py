@@ -1,0 +1,842 @@
+"""Fluid flow-level fabric simulator in PyTorch, batched over cells.
+
+Multi-job flow programs (traffic.py) traverse a :class:`Topology` under
+a congestion-control model (cc.py) and a routing policy. Each step:
+
+  1. injection demand from per-flow CC rate limits, gated by phase
+     membership and the aggressor envelope,
+  2. per-flow path choice by the cell's routing policy (fixed / ECMP /
+     NSLB tables, adaptive min-queue, flowlet re-pathing),
+  3. the fused step core (kernels: NIC limit, backpressure stall, staged
+     FIFO propagation, queue update),
+  4. ECN/credit signals and the CC rate update per fabric kind,
+  5. per-job phase advance, barrier-gated on the slowest member flow,
+     and program-completion bookkeeping.
+
+Two structures carry a run: :class:`FabricGeometry` (static structure of
+one experiment, shared by every cell of a sweep) and :class:`SimParams`
+(everything a sweep varies, with a leading cell axis on every field).
+Where the JAX reference switches on per-cell data (routing policy, CC
+kind) under ``vmap``, this port evaluates the branches that occur in the
+batch and selects with ``torch.where``. Every float is float32, the sim
+clock included.
+
+A run is a host loop over ``chunk``-step Python loops with one device
+sync per chunk; a cell whose primary job has finished is frozen (its
+state and chunk count stop) while the others run on.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.envelopes import (ENV_RANDOM, GROUP_EDGE_DOWN,
+                                        GROUP_EDGE_UP, GROUP_FABRIC,
+                                        GROUP_HOT, GROUP_SWITCH, envelope_at)
+from repro_torch.core.fabric.cc import (KIND_AI_ECN, KIND_DCQCN, KIND_IB,
+                                        KIND_SLINGSHOT)
+from repro_torch.core.fabric.routing import (POLICY_ADAPTIVE, POLICY_ECMP,
+                                             POLICY_FIXED, POLICY_FLOWLET,
+                                             POLICY_NSLB)
+from repro_torch.core.fabric.topology import Topology
+from repro_torch.kernels import ops as kernel_ops
+
+# Fixed iteration-time buffer; completed iterations beyond it fold into
+# the last slot.
+TDONE_SLOTS = 96
+
+# Steps taken by _step_impl since import (or since a caller reset it).
+step_count = 0
+
+_F32 = torch.float32
+_I32 = torch.int32
+_I64 = torch.int64
+
+
+def check_iter_budget(n_iters: int) -> None:
+    if n_iters > TDONE_SLOTS:
+        raise ValueError(
+            f"n_iters={n_iters} exceeds the {TDONE_SLOTS}-slot iteration "
+            "buffer (raise TDONE_SLOTS or lower n_iters)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; without one that is an error, never
+    a silent CPU run. Pass ``device="cpu"`` to run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@dataclasses.dataclass
+class FlowSet:
+    """Static flow structure for one experiment (a packed traffic
+    program: every flow belongs to one phase of one job). Host-side
+    numpy."""
+
+    paths: np.ndarray  # (F, K, H) link ids, pad = L (sink)
+    n_paths: np.ndarray  # (F,)
+    path_len: np.ndarray  # (F, K) hop counts
+    is_victim: np.ndarray  # (F,) bool — flow of a non-envelope-gated job
+    bytes_per_iter: np.ndarray  # (F,) bytes per phase visit
+    fixed_choice: np.ndarray  # (F,) host-side static assignment
+    host_caps: np.ndarray  # (F,) injection-link capacity per flow
+    src_id: np.ndarray  # (F,) source node (NIC injection limiting)
+    ecmp_choice: Optional[np.ndarray] = None  # (F,)
+    nslb_choice: Optional[np.ndarray] = None  # (F,)
+    flow_job: Optional[np.ndarray] = None  # (F,) owning job id
+    flow_phase: Optional[np.ndarray] = None  # (F,) phase within the job
+    n_phases: Optional[np.ndarray] = None  # (J,) program length per job
+    phase_gap: Optional[np.ndarray] = None  # (J, P) compute gap per phase
+    sweep_mask: Optional[np.ndarray] = None  # (F,) bytes scale with sweep
+    job_names: Optional[List[str]] = None
+
+    def __post_init__(self):
+        if self.ecmp_choice is None:
+            self.ecmp_choice = np.asarray(self.fixed_choice, np.int32)
+        if self.nslb_choice is None:
+            self.nslb_choice = np.asarray(self.fixed_choice, np.int32)
+        if self.flow_job is None:
+            self.flow_job = np.where(self.is_victim, 0, 1).astype(np.int32)
+        if self.flow_phase is None:
+            self.flow_phase = np.zeros(len(self.is_victim), np.int32)
+        if self.n_phases is None:
+            n_jobs = int(self.flow_job.max()) + 1 if len(self.flow_job) \
+                else 1
+            self.n_phases = np.ones((n_jobs,), np.int32)
+        if self.phase_gap is None:
+            self.phase_gap = np.zeros((len(self.n_phases), 1), np.float32)
+        if self.sweep_mask is None:
+            self.sweep_mask = np.asarray(self.is_victim, bool)
+        if self.job_names is None:
+            self.job_names = [f"job{j}" for j in range(len(self.n_phases))]
+
+    @property
+    def n_flows(self) -> int:
+        return len(self.is_victim)
+
+    @property
+    def n_jobs(self) -> int:
+        return len(self.n_phases)
+
+
+def pack_paths(paths_per_flow: List[List[List[int]]], sink: int,
+               k_max: int = 4):
+    F = len(paths_per_flow)
+    H = max((len(p) for ps in paths_per_flow for p in ps), default=1)
+    out = np.full((F, k_max, H), sink, np.int32)
+    n_paths = np.zeros((F,), np.int32)
+    plen = np.zeros((F, k_max), np.int32)
+    for f, ps in enumerate(paths_per_flow):
+        ps = ps[:k_max] if ps else [[]]
+        n_paths[f] = len(ps)
+        for k, p in enumerate(ps):
+            out[f, k, : len(p)] = p
+            plen[f, k] = len(p)
+    return out, n_paths, plen
+
+
+# --------------------------------------------------------------------------
+# Static geometry
+# --------------------------------------------------------------------------
+
+# field -> dtype. int32 rows are the kernel's operands (and link ids);
+# int64 rows index tensors in the step.
+GEOMETRY_FIELDS = {
+    "caps_pad": _F32, "caps_finite": _F32, "dst_sw": _I32, "src_sw": _I32,
+    "paths": _I32, "n_paths": _I64, "spray_choice": _I64, "path_len": _F32,
+    "is_victim": torch.bool, "fixed_choice": _I64, "ecmp_choice": _I64,
+    "nslb_choice": _I64, "src_id": _I32, "flow_job": _I64,
+    "flow_phase": _I64, "n_phases": _I64, "phase_gap": _F32,
+    "link_group": _I32, "link_sw_group": _I32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricGeometry:
+    """Link capacities, switch adjacency, packed flow paths and the
+    traffic-program tables, as tensors on one device. Shared by every
+    cell of a batched run. ``from_numpy`` builds one from the JAX
+    package's field arrays."""
+
+    caps_pad: torch.Tensor  # (L+1,) with inf sink
+    caps_finite: torch.Tensor  # (L+1,) with 1.0 sink
+    dst_sw: torch.Tensor  # (L+1,) switch fed by each link (0 = host)
+    src_sw: torch.Tensor  # (L+1,) switch feeding each link (0 = host)
+    paths: torch.Tensor  # (F, K, H)
+    n_paths: torch.Tensor  # (F,)
+    spray_choice: torch.Tensor  # (F,) deterministic sprayed home path
+    path_len: torch.Tensor  # (F, K) float
+    is_victim: torch.Tensor  # (F,) bool
+    fixed_choice: torch.Tensor  # (F,)
+    ecmp_choice: torch.Tensor  # (F,)
+    nslb_choice: torch.Tensor  # (F,)
+    src_id: torch.Tensor  # (F,) dense source ids
+    flow_job: torch.Tensor  # (F,)
+    flow_phase: torch.Tensor  # (F,) phase membership, < 0 = every phase
+    n_phases: torch.Tensor  # (J,)
+    phase_gap: torch.Tensor  # (J, P)
+    link_group: torch.Tensor  # (L+1,) structural fault groups
+    link_sw_group: torch.Tensor  # (L+1,)
+    L: int
+    n_sw: int
+    n_src: int
+    n_jobs: int
+    intra_node: int = 0
+
+    def __post_init__(self):
+        # constants the step derives from the geometry alone, computed once
+        F, K, _ = self.paths.shape
+        dev = self.paths.device
+        derived = {
+            # minimal-path bias of the routing score
+            "path_bias": 0.05 * self.path_len
+            / torch.clamp_min(self.path_len[:, :1], 1),
+            "k_valid": torch.arange(K, device=dev)[None, :]
+            < self.n_paths[:, None],
+            "flow_ar": torch.arange(F, device=dev),
+            "job_ar": torch.arange(self.n_jobs, device=dev),
+            "wildcard": self.flow_phase < 0,
+            "tdone_ar": torch.arange(TDONE_SLOTS, device=dev),
+            "n_victims": torch.clamp_min(self.is_victim.sum(), 1)
+            .to(_F32).reshape(1),
+        }
+        for k, v in derived.items():
+            object.__setattr__(self, k, v)
+
+    @property
+    def n_flows(self) -> int:
+        return self.is_victim.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.paths.device
+
+    def meta(self) -> dict:
+        return {"L": self.L, "n_sw": self.n_sw, "n_src": self.n_src,
+                "n_jobs": self.n_jobs, "intra_node": self.intra_node}
+
+    def to(self, device) -> "FabricGeometry":
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return FabricGeometry(
+            **{k: getattr(self, k).to(device) for k in GEOMETRY_FIELDS},
+            **self.meta())
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, *, L: int, n_sw: int, n_src: int,
+                   n_jobs: int, intra_node: int = 0,
+                   device="cpu") -> "FabricGeometry":
+        return cls(**{k: torch.as_tensor(np.array(arrays[k]), dtype=dt,
+                                         device=device)
+                      for k, dt in GEOMETRY_FIELDS.items()},
+                   L=int(L), n_sw=int(n_sw), n_src=int(n_src),
+                   n_jobs=int(n_jobs), intra_node=int(intra_node))
+
+
+def make_geometry(topo: Topology, flows: FlowSet, prune: bool = True,
+                  intra_node: bool = False, device="cpu") -> FabricGeometry:
+    """Bind a flow set to a topology.
+
+    ``prune=True`` (default) restricts the per-link arrays to the links
+    some flow path references, remapping link ids densely (and likewise
+    switch/source ids); untouched links can never interact with a flow,
+    so flow-visible outputs are unchanged."""
+    L_full = len(topo.caps)
+    paths_np = np.asarray(flows.paths)
+    if prune:
+        used = np.unique(paths_np[paths_np < L_full]).astype(np.int64)
+    else:
+        used = np.arange(L_full, dtype=np.int64)
+    L = len(used)
+    remap = np.full((L_full + 1,), L, np.int32)
+    remap[used] = np.arange(L, dtype=np.int32)
+    paths_np = remap[paths_np]  # old sink (== L_full) -> new sink (== L)
+    caps = np.asarray(topo.caps, np.float64)[used]
+    # link <-> switch adjacency for backpressure spreading
+    sw_ids: dict = {}
+    dst_sw = np.zeros(L + 1, np.int32)
+    src_sw = np.zeros(L + 1, np.int32)
+    for li, gi in enumerate(used):
+        a, b = topo.link_names[int(gi)]
+        if not (isinstance(b, tuple) and b[0] == "h"):
+            dst_sw[li] = 1 + sw_ids.setdefault(b, len(sw_ids))
+        if not (isinstance(a, tuple) and a[0] == "h"):
+            src_sw[li] = 1 + sw_ids.setdefault(a, len(sw_ids))
+    n_sw = len(sw_ids) + 2  # 0 == "no switch" (host endpoints)
+    # structural fault-targeting groups (edge-up / edge-down / fabric, the
+    # most-traversed link promoted to GROUP_HOT, the busiest switch's links
+    # to GROUP_SWITCH); the sink stays GROUP_NONE
+    link_group = np.zeros(L + 1, np.int32)
+    for li, gi in enumerate(used):
+        a, b = topo.link_names[int(gi)]
+        if isinstance(a, tuple) and a[0] == "h":
+            link_group[li] = GROUP_EDGE_UP
+        elif isinstance(b, tuple) and b[0] == "h":
+            link_group[li] = GROUP_EDGE_DOWN
+        else:
+            link_group[li] = GROUP_FABRIC
+    traversals = np.bincount(paths_np[paths_np < L].ravel(), minlength=L)
+    if traversals.size and traversals.max() > 0:
+        link_group[int(np.argmax(traversals))] = GROUP_HOT
+    link_sw_group = np.zeros(L + 1, np.int32)
+    if traversals.size and traversals.max() > 0:
+        sw_load = np.zeros(n_sw, np.float64)
+        np.add.at(sw_load, src_sw[:L], traversals)
+        np.add.at(sw_load, dst_sw[:L], traversals)
+        sw_load[0] = 0.0  # "no switch" (host endpoints) is not a switch
+        if sw_load.max() > 0:
+            hot_sw = int(np.argmax(sw_load))
+            incident = (src_sw[:L] == hot_sw) | (dst_sw[:L] == hot_sw)
+            link_sw_group[:L][incident] = GROUP_SWITCH
+    # source (NIC) ids densified the same way
+    src_raw = np.asarray(flows.src_id, np.int64)
+    if prune and len(src_raw):
+        _, src_dense = np.unique(src_raw, return_inverse=True)
+        n_src = int(src_dense.max()) + 1
+    else:
+        src_dense = src_raw
+        n_src = int(src_raw.max()) + 1 if len(src_raw) else 1
+    # sprayed "home" path per flow: a deterministic hash spread
+    F = flows.n_flows
+    spray = (np.arange(F, dtype=np.int64) * 2654435761 % (1 << 31)) \
+        % np.maximum(flows.n_paths, 1)
+    arrays = {
+        "caps_pad": np.concatenate([caps, [np.inf]]).astype(np.float32),
+        "caps_finite": np.concatenate([caps, [1.0]]).astype(np.float32),
+        "dst_sw": dst_sw, "src_sw": src_sw, "paths": paths_np,
+        "n_paths": flows.n_paths, "spray_choice": spray,
+        "path_len": np.asarray(flows.path_len, np.float32),
+        "is_victim": flows.is_victim, "fixed_choice": flows.fixed_choice,
+        "ecmp_choice": flows.ecmp_choice, "nslb_choice": flows.nslb_choice,
+        "src_id": src_dense, "flow_job": flows.flow_job,
+        "flow_phase": flows.flow_phase, "n_phases": flows.n_phases,
+        "phase_gap": np.asarray(flows.phase_gap, np.float32),
+        "link_group": link_group, "link_sw_group": link_sw_group,
+    }
+    return FabricGeometry.from_numpy(arrays, L=L, n_sw=n_sw, n_src=n_src,
+                                     n_jobs=flows.n_jobs,
+                                     intra_node=int(bool(intra_node)),
+                                     device=device)
+
+
+# --------------------------------------------------------------------------
+# Per-cell sweep parameters
+# --------------------------------------------------------------------------
+
+# field -> dtype; every field carries a leading cell axis once stacked
+PARAM_FIELDS = {
+    "dt": _F32, "bytes_per_iter": _F32, "host_caps": _F32, "env": _F32,
+    "policy": _I64, "flowlet_gap_s": _F32, "flow_start": _F32,
+    "fct_mask": _F32, "fault": _F32, "node_cap": _F32, "kind": _I64,
+    "qmax_bytes": _F32, "kmin": _F32, "kmax": _F32, "md": _F32,
+    "rai_frac": _F32, "cc_interval_s": _F32, "hol_factor": _F32,
+    "hol_start": _F32, "min_rate_frac": _F32, "follow_tau_s": _F32,
+    "follow_gain": _F32, "thresh_adapt": _F32, "burst_jitter": _F32,
+    "iter_drain": _F32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Per-cell parameters, one tensor per field. :func:`make_params`
+    builds one cell (no batch axis); :func:`stack_params` stacks cells
+    along a leading axis, which the step and the runners require."""
+
+    dt: torch.Tensor  # seconds
+    bytes_per_iter: torch.Tensor  # (F,)
+    host_caps: torch.Tensor  # (F,)
+    env: torch.Tensor  # (ENV_COMPONENTS, 5) congestion-envelope rows
+    policy: torch.Tensor  # routing.POLICY_*
+    flowlet_gap_s: torch.Tensor
+    flow_start: torch.Tensor  # () or (F,) seconds
+    fct_mask: torch.Tensor  # () or (F,)
+    fault: Optional[torch.Tensor]  # fault table or None (not ported)
+    node_cap: torch.Tensor  # intra-node stage capacity (not ported)
+    kind: torch.Tensor  # () or (F,) cc.KIND_*
+    qmax_bytes: torch.Tensor
+    kmin: torch.Tensor
+    kmax: torch.Tensor
+    md: torch.Tensor
+    rai_frac: torch.Tensor
+    cc_interval_s: torch.Tensor
+    hol_factor: torch.Tensor
+    hol_start: torch.Tensor
+    min_rate_frac: torch.Tensor
+    follow_tau_s: torch.Tensor
+    follow_gain: torch.Tensor
+    thresh_adapt: torch.Tensor
+    burst_jitter: torch.Tensor
+    iter_drain: torch.Tensor
+
+    def _map(self, fn) -> "SimParams":
+        return SimParams(**{k: None if getattr(self, k) is None
+                            else fn(getattr(self, k)) for k in PARAM_FIELDS})
+
+    def to(self, device) -> "SimParams":
+        return self._map(lambda x: x.to(device))
+
+    def take(self, idx: torch.Tensor) -> "SimParams":
+        """The cells ``idx`` of a stacked SimParams."""
+        return self._map(lambda x: x[idx])
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, device="cpu") -> "SimParams":
+        return cls(**{k: None if arrays.get(k) is None
+                      else torch.as_tensor(np.array(arrays[k]), dtype=dt,
+                                           device=device)
+                      for k, dt in PARAM_FIELDS.items()})
+
+
+def make_params(cc, *, dt: float, bytes_per_iter: np.ndarray,
+                host_caps: np.ndarray, env: np.ndarray,
+                policy: int = POLICY_FIXED,
+                flowlet_gap_s: float = 200e-6,
+                flow_start=0.0, fct_mask=0.0,
+                fault=None, node_cap=np.inf) -> SimParams:
+    """One cell's parameters (no batch axis) on the CPU."""
+    return SimParams.from_numpy({
+        "dt": dt, "bytes_per_iter": bytes_per_iter, "host_caps": host_caps,
+        "env": env, "policy": policy, "flowlet_gap_s": flowlet_gap_s,
+        "flow_start": flow_start, "fct_mask": fct_mask, "fault": fault,
+        "node_cap": node_cap, "kind": cc.kind, "qmax_bytes": cc.qmax_bytes,
+        "kmin": cc.kmin, "kmax": cc.kmax, "md": cc.md,
+        "rai_frac": cc.rai_frac, "cc_interval_s": cc.cc_interval_s,
+        "hol_factor": cc.hol_factor, "hol_start": cc.hol_start,
+        "min_rate_frac": cc.min_rate_frac, "follow_tau_s": cc.follow_tau_s,
+        "follow_gain": cc.follow_gain,
+        "thresh_adapt": 1.0 if cc.thresh_adapt else 0.0,
+        "burst_jitter": cc.burst_jitter, "iter_drain": cc.iter_drain})
+
+
+def stack_params(params: List[SimParams]) -> SimParams:
+    """Stack per-cell SimParams along a new leading cell axis."""
+    return SimParams(**{
+        k: None if getattr(params[0], k) is None
+        else torch.stack([getattr(p, k) for p in params])
+        for k in PARAM_FIELDS})
+
+
+# --------------------------------------------------------------------------
+# State and step
+# --------------------------------------------------------------------------
+
+
+def _per_flow(x: torch.Tensor) -> torch.Tensor:
+    """A (B,) per-cell or (B, F) per-flow parameter, broadcastable to
+    (B, F)."""
+    return x if x.dim() == 2 else x[:, None]
+
+
+def init_state(geom: FabricGeometry, p: SimParams) -> dict:
+    """Initial state of a stacked batch of cells (leading cell axis)."""
+    return _base_state(geom, p)
+
+
+def _base_state(geom: FabricGeometry, p: SimParams) -> dict:
+    B = p.dt.shape[0]
+    F, J, L1 = geom.n_flows, geom.n_jobs, geom.L + 1
+    dev = p.dt.device
+
+    def zeros(*shape, dtype=_F32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "c": p.host_caps.clone(),
+        "rem": p.bytes_per_iter.clone(),
+        "q": zeros(B, L1),
+        "arr": zeros(B, L1),
+        "thresh": torch.ones((B, L1), dtype=_F32, device=dev)
+        * p.kmin[:, None] * p.qmax_bytes[:, None],
+        "last_dec": zeros(B, F),
+        # routing state: flowlet current path + idle time, per-flow
+        # delivered-bytes accumulator
+        "rc": geom.spray_choice.expand(B, F).clone(),
+        "idle": zeros(B, F),
+        "fbytes": zeros(B, F),
+        # traffic-program state: per-job phase counter, remaining compute
+        # gap of the current phase, completed program iterations
+        "ph": zeros(B, J, dtype=_I64),
+        "gap": geom.phase_gap[:, 0].expand(B, J).clone(),
+        "it": zeros(B, J, dtype=_I64),
+        "t_done": zeros(B, J, TDONE_SLOTS),
+        "qd_acc": zeros(B),
+        "t": zeros(B),
+    }
+
+
+def run_constants(p: SimParams) -> dict:
+    """What the step derives from the parameters alone, computed once per
+    run instead of once per step:
+
+    * the CC update's additive increase and credit-follower gain, on the
+      CPU (where a division by a scalar rounds exactly), then moved;
+    * the products of scalar knobs the signals and clip read, and the
+      step core's packed scalar block;
+    * which routing policies, CC kinds and envelope kinds occur in the
+      batch. The step evaluates only those branches; a branch no cell
+      selects cannot change any result.
+    """
+    dev = p.dt.device
+    dt, tau = p.dt.cpu(), p.follow_tau_s.cpu()
+    inc = p.rai_frac.cpu()[:, None] * p.host_caps.cpu() * (dt / 1e-3)[:, None]
+    f = 1.0 - torch.exp(-dt / torch.clamp_min(tau, 1e-9))
+    policies = sorted(set(p.policy.cpu().tolist()))
+    kinds = sorted(set(p.kind.cpu().reshape(-1).tolist()))
+    if not set(policies) <= set(range(5)) or not set(kinds) <= set(range(4)):
+        raise ValueError(f"unknown routing policy in {policies} or CC kind "
+                         f"in {kinds}")
+    col = lambda x: x[:, None]  # noqa: E731
+    return {
+        "inc": inc.to(dev), "f": col(f).to(dev),
+        "kq": col(p.kmin * p.qmax_bytes), "kmax_q": col(p.kmax * p.qmax_bytes),
+        "q05": col(0.05 * p.qmax_bytes),
+        "min_c": col(p.min_rate_frac) * p.host_caps,
+        "scalars": kernel_ops.pack_scalars(p.dt, p.qmax_bytes, p.hol_factor,
+                                           p.hol_start, p.burst_jitter),
+        "policies": policies, "kinds": kinds,
+        "has_random": bool((p.env[..., 0].cpu() == ENV_RANDOM).any()),
+    }
+
+
+def _select(key: torch.Tensor, branches: dict):
+    """``branches[key]`` elementwise: the value of the branch whose id
+    equals ``key``. Branches are given as callables and evaluated only
+    here; the last one is the default."""
+    ids = list(branches)
+    out = branches[ids[-1]]()
+    for i in reversed(ids[:-1]):
+        out = torch.where(key == i, branches[i](), out)
+    return out
+
+
+def _cc_update(p: SimParams, c, a, fmark, fstrength, can_dec, consts):
+    """Per-fabric rate update: each kind present in the batch is evaluated
+    and the cell's (or flow's) kind selects one, as the reference does
+    under ``vmap``."""
+    inc, f = consts["inc"], consts["f"]
+    md = p.md[:, None]
+    dec = fmark & can_dec
+    bottlenecked = fmark & (a < 0.95 * c)
+
+    def ib():
+        # credit semantics: the send window tracks what actually drains
+        c2 = (1 - f) * c + f * torch.maximum(a * p.follow_gain[:, None],
+                                             consts["min_c"])
+        return torch.where(dec, c2 * md, c2 + inc)
+
+    rules = {
+        KIND_DCQCN: lambda: torch.where(dec, c * md, c + inc),
+        KIND_IB: ib,
+        # slingshot: throttle only flows actually bottlenecked
+        KIND_SLINGSHOT: lambda: torch.where(
+            bottlenecked, (1 - f) * c + f * a * p.follow_gain[:, None],
+            c + inc),
+        KIND_AI_ECN: lambda: torch.where(
+            dec, c * (1.0 - (1.0 - md) * fstrength), c + inc),
+    }
+    kind = _per_flow(p.kind)
+    c_new = _select(kind, {k: rules[k] for k in consts["kinds"]})
+    if KIND_SLINGSHOT in consts["kinds"]:
+        dec = torch.where(kind == KIND_SLINGSHOT, bottlenecked & can_dec,
+                          dec)
+    return c_new, dec
+
+
+def step(geom: FabricGeometry, p: SimParams, state: dict,
+         core: Optional[str] = None):
+    """One step of every cell; returns (new_state, victim goodput (B,))."""
+    return _step_impl(geom, p, state, with_aux=False, core=core)
+
+
+def step_debug(geom: FabricGeometry, p: SimParams, state: dict,
+               core: Optional[str] = None):
+    """Like :func:`step` but also returns an aux dict of internal rates
+    (injection, served-stage maxima, effective capacities, ...). The state
+    update is the identical computation."""
+    return _step_impl(geom, p, state, with_aux=True, core=core)
+
+
+def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
+               with_aux: bool, core: Optional[str] = None,
+               consts: Optional[dict] = None):
+    global step_count
+    if p.fault is not None:
+        raise NotImplementedError(
+            "link-fault tables are not ported yet (ROADMAP Queue 1: fault "
+            "engine and intra-node stage)")
+    if geom.intra_node:
+        raise NotImplementedError(
+            "the intra-node stage is not ported yet (ROADMAP Queue 1: "
+            "fault engine and intra-node stage)")
+    step_count += 1
+    if consts is None:
+        consts = run_constants(p)
+    B = p.dt.shape[0]
+    F, K, H = geom.paths.shape
+    dt = p.dt
+    dtc = dt[:, None]
+    t = state["t"]
+    # aggressor envelope at sim time t, per cell
+    env_t = envelope_at(p.env, t, with_random=consts["has_random"])[:, None]
+    # phase membership; negative phase id = member of every phase
+    in_phase = (geom.flow_phase == state["ph"][:, geom.flow_job]) \
+        | geom.wildcard
+    alive = (state["rem"] > 0) & in_phase & (t[:, None]
+                                             >= _per_flow(p.flow_start))
+    active = (geom.is_victim | (env_t > 0)) & alive
+    gate = torch.where(geom.is_victim, 1.0, env_t) * alive
+    inject = state["c"] * gate
+
+    # ---- routing: the cell's policy selects one candidate table ----
+    # Static tables are read as they are; the dynamic policies score
+    # candidates by queue occupancy (``occ`` is shared with the core).
+    occ = state["q"] / p.qmax_bytes[:, None]
+    rc = state["rc"]
+    policies = consts["policies"]
+    if POLICY_ADAPTIVE in policies or POLICY_FLOWLET in policies:
+        score = occ[:, geom.paths].amax(dim=3) + geom.path_bias
+        score = torch.where(geom.k_valid, score, float("inf"))
+        best_score, best = score.min(dim=2)
+
+        def hysteresis(anchor):
+            # leave the anchor path only when clearly worse than the best
+            a_score = score.gather(2, anchor.expand(B, F)[..., None])[..., 0]
+            return torch.where(a_score > best_score + 0.10, best, anchor)
+
+        flowlet = torch.where(state["idle"] >= p.flowlet_gap_s[:, None],
+                              hysteresis(rc), rc) \
+            if POLICY_FLOWLET in policies else None
+    routes = {POLICY_FIXED: lambda: geom.fixed_choice,
+              POLICY_ECMP: lambda: geom.ecmp_choice,
+              POLICY_NSLB: lambda: geom.nslb_choice,
+              POLICY_ADAPTIVE: lambda: hysteresis(geom.spray_choice),
+              POLICY_FLOWLET: lambda: flowlet}
+    pol = p.policy[:, None]
+    choice = _select(pol, {k: routes[k] for k in policies}).expand(B, F)
+    rc_new = rc if POLICY_FLOWLET not in policies else \
+        torch.where(pol == POLICY_FLOWLET, flowlet, rc)
+    idle_new = torch.where(active, 0.0, state["idle"] + dtc)
+    plinks = geom.paths[geom.flow_ar, choice]  # (B, F, H) int32
+    valid = plinks < geom.L
+    pl_flat = plinks.reshape(B, F * H).to(_I64)
+
+    # ---- fused step core (kernels/) ----
+    out = kernel_ops.fabric_step_core(
+        plinks, inject, geom.src_id, p.host_caps, state["q"], occ,
+        geom.caps_finite, geom.src_sw, geom.dst_sw, dt, p.qmax_bytes,
+        p.hol_factor, p.hol_start, p.burst_jitter, n_src=geom.n_src,
+        n_sw=geom.n_sw, with_aux=with_aux, core=core or "kernel",
+        scalars=consts["scalars"])
+    a = out["achieved"]
+    q = out["q_new"]
+
+    # ---- signals ----
+    # AI-ECN: the threshold tracks a fraction of the observed queue;
+    # thresh_adapt == 0 keeps the static kmin threshold
+    adapted = torch.minimum(
+        torch.maximum(0.9 * state["thresh"] + 0.1 * (0.5 * q + consts["kq"]),
+                      consts["q05"]),
+        consts["kmax_q"])
+    thresh = torch.where(p.thresh_adapt[:, None] > 0, adapted,
+                         state["thresh"])
+    over_thresh = (q > thresh).gather(1, pl_flat).view(B, F, H)
+    fmark = (over_thresh & valid).any(dim=2)
+    # proportional mark strength (ai_ecn) in [0, 1]
+    strength_l = torch.clamp((q - thresh) / (consts["kmax_q"] - thresh + 1.0),
+                             0.0, 1.0)
+    fstrength = torch.where(valid, strength_l.gather(1, pl_flat)
+                            .view(B, F, H), 0.0).amax(dim=2)
+
+    # ---- CC update ----
+    c0 = state["c"]
+    can_dec = state["last_dec"] >= p.cc_interval_s[:, None]
+    c, dec = _cc_update(p, c0, a, fmark, fstrength, can_dec, consts)
+    # CC state only evolves for flows that are actually transmitting
+    c = torch.where(active, c, c0)
+    dec = dec & active
+    c = torch.minimum(torch.maximum(c, consts["min_c"]), p.host_caps)
+    last_dec = torch.where(dec, 0.0, state["last_dec"] + dtc)
+
+    # ---- progress + phase/program bookkeeping ----
+    rem = state["rem"] - a * dtc
+    done_now = alive & (rem <= 0)
+    t_new = t + dt
+    # per-job barrier: a phase completes when its slowest flow has drained
+    pending = (in_phase & (rem > 0)).to(_I32)
+    busy = torch.zeros((B, geom.n_jobs), dtype=_I32, device=dt.device) \
+        .scatter_reduce_(1, geom.flow_job.expand(B, F), pending, "amax",
+                         include_self=True) > 0
+    gap = state["gap"] - dtc * (~busy)
+    advance = ~busy & (gap <= 0)
+    ph = state["ph"]
+    ph_next = torch.where(advance, (ph + 1) % geom.n_phases, ph)
+    wrap = advance & (ph + 1 >= geom.n_phases)
+    gap = torch.where(advance, geom.phase_gap[geom.job_ar, ph_next], gap)
+    # flows of the newly entered phase reload their byte budget
+    enter = advance[:, geom.flow_job] \
+        & ((geom.flow_phase == ph_next[:, geom.flow_job]) | geom.wildcard)
+    rem = torch.where(enter, p.bytes_per_iter, rem)
+    # a job wrapping its last phase completed one program iteration
+    it = state["it"]
+    slot = torch.clamp_max(it, TDONE_SLOTS - 1)
+    onehot = geom.tdone_ar == slot[..., None]
+    t_done = torch.where(wrap[..., None] & onehot, t_new[:, None, None],
+                         state["t_done"])
+    it = it + wrap.to(it.dtype)
+    # the gap between iterations of the primary job partially drains queues
+    q = torch.where(wrap[:, :1], q * p.iter_drain[:, None], q)
+
+    # queueing delay experienced by victim flows (seconds)
+    qdel = torch.where(valid, (q / geom.caps_finite).gather(1, pl_flat)
+                       .view(B, F, H), 0.0).amax(dim=2)
+    mean_qdel = (qdel * geom.is_victim).sum(1) / geom.n_victims
+    vict_goodput = (a * geom.is_victim).sum(1)
+
+    new_state = {"c": c, "rem": rem, "q": q, "arr": out["arrival"],
+                 "thresh": thresh, "last_dec": last_dec,
+                 "rc": rc_new, "idle": idle_new,
+                 "fbytes": state["fbytes"] + a * dtc,
+                 "ph": ph_next, "gap": gap, "it": it, "t_done": t_done,
+                 "qd_acc": state["qd_acc"] + mean_qdel * dt, "t": t_new}
+    if with_aux:
+        aux = {"inject": out["inject"], "achieved": a,
+               "arrival": out["arrival"],
+               "served_stage_max": out["served_stage_max"],
+               "caps_eff": out["caps_eff"], "active": active,
+               "advance": advance, "wrap": wrap, "qdel": qdel,
+               "done": done_now}
+        return new_state, vict_goodput, aux
+    return new_state, vict_goodput
+
+
+# --------------------------------------------------------------------------
+# Runners
+# --------------------------------------------------------------------------
+
+
+def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
+              chunk: int, max_chunks: int, stride: int,
+              core: Optional[str] = None, with_trace: bool = True) -> dict:
+    """Run a stacked batch of cells to ``n_iters`` iterations of each
+    cell's primary job (or the step budget), in chunks of ``chunk`` steps.
+
+    Before every chunk one device sync reads which cells still run
+    (``it[:, 0] < n_iters``); finished cells are frozen, so their state
+    and chunk count stop where they were, and only the running cells are
+    stepped."""
+    assert chunk % stride == 0, (chunk, stride)
+    trace_chunk = chunk // stride
+    B = p.dt.shape[0]
+    dev = p.dt.device
+    state = init_state(geom, p)
+    buf = torch.zeros((B, max_chunks * trace_chunk if with_trace else 1),
+                      dtype=_F32, device=dev)
+    chunks = np.zeros((B,), np.int64)
+    running = np.ones((B,), bool)
+    for k in range(max_chunks):
+        running &= (state["it"][:, 0] < n_iters).cpu().numpy()
+        if not running.any():
+            break
+        idx = torch.as_tensor(np.flatnonzero(running), device=dev)
+        whole = bool(running.all())
+        sub = state if whole else {n: v[idx] for n, v in state.items()}
+        sp = p if whole else p.take(idx)
+        consts = run_constants(sp)
+        gps = []
+        for s in range(chunk):
+            sub, gp = _step_impl(geom, sp, sub, with_aux=False, core=core,
+                                 consts=consts)
+            if s % stride == 0:
+                gps.append(gp)
+        if with_trace:
+            buf[idx, k * trace_chunk:(k + 1) * trace_chunk] = \
+                torch.stack(gps, 1)
+        if whole:
+            state = sub
+        else:
+            for n, v in sub.items():
+                state[n][idx] = v
+        chunks[running] += 1
+    out = {"t_done": state["t_done"], "it": state["it"],
+           "qd_acc": state["qd_acc"], "t": state["t"],
+           "fbytes": state["fbytes"], "trace": buf}
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["chunks"] = chunks
+    return out
+
+
+def run_cells(geom: FabricGeometry, params: SimParams, n_iters: int,
+              *, chunk: int = 2048, max_chunks: int = 98, stride: int = 8,
+              device=None, core: Optional[str] = None,
+              with_trace: bool = True) -> dict:
+    """Batched engine: ``params`` has a leading cell axis on every field;
+    all cells share ``geom``. Runs on ``device`` (default: the CUDA
+    device) and returns numpy arrays with a leading cell axis."""
+    device = resolve_device(device)
+    return _run_cell(geom.to(device), params.to(device), int(n_iters),
+                     chunk, max_chunks, stride, core, with_trace)
+
+
+def run_cell(geom: FabricGeometry, p: SimParams, n_iters: int, **kw) -> dict:
+    """One unstacked cell through :func:`run_cells`; outputs lose the
+    cell axis."""
+    out = run_cells(geom, stack_params([p]), n_iters, **kw)
+    return {k: v[0] for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# Result marshalling (host side)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SimResult:
+    iter_times: np.ndarray  # (n_done - warmup,) seconds per victim iteration
+    n_done: int
+    mean_qdelay_s: float  # mean victim queueing delay per step
+    victim_rate_trace: np.ndarray  # (T_sub,) aggregate victim goodput B/s
+    time_trace: np.ndarray
+    # False when the run finished too few iterations to discard the full
+    # warmup prefix: iter_times then holds only the last iteration
+    warmup_ok: bool = True
+
+
+def _drop_warmup(times: np.ndarray, n_done: int, warmup: int):
+    """Discard the warmup prefix; with fewer than warmup+1 iterations keep
+    only the last one and report ``warmup_ok=False``."""
+    if n_done > warmup:
+        return times[warmup:], True
+    return times[max(0, n_done - 1):], False
+
+
+def summarize(out: dict, *, n_iters: int, warmup: int, dt: float,
+              chunk: int, stride: int, cell: Optional[int] = None,
+              job: int = 0) -> SimResult:
+    """Build a :class:`SimResult` from (optionally batched) run outputs;
+    ``job`` selects which job's completions to report."""
+    pick = (lambda x: np.asarray(x)) if cell is None else \
+        (lambda x: np.asarray(x)[cell])
+    n_done = min(int(pick(out["it"])[job]), n_iters, TDONE_SLOTS)
+    t_done = pick(out["t_done"])[job][:n_done]
+    iter_times = np.diff(np.concatenate([[0.0], t_done]))
+    iter_times, warmup_ok = _drop_warmup(iter_times, n_done, warmup)
+    total_t = float(pick(out["t"])) or 1e-9
+    n_valid = int(pick(out["chunks"])) * (chunk // stride)
+    trace = pick(out["trace"])[:n_valid]
+    return SimResult(
+        iter_times=iter_times,
+        n_done=n_done,
+        mean_qdelay_s=float(pick(out["qd_acc"])) / total_t,
+        victim_rate_trace=trace,
+        time_trace=np.arange(n_valid) * stride * dt,
+        warmup_ok=warmup_ok,
+    )

@@ -1,0 +1,144 @@
+"""Declarative scenario registry: named sweeps over the batched engine.
+
+A :class:`Scenario` is a list of :class:`Grid` specs (each one
+``bench.run_grid`` call: one flow set, every size x profile x
+baseline/congested cell batched) or a tuple of ``points`` that a benchmark
+script interprets. The port registers the paper's characterization pipeline so
+far: Fig. 4 (NSLB on/off) and Fig. 5 (steady congestion at scale).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Tuple
+
+from repro_torch.core import bench
+from repro_torch.core import congestion as cong
+from repro_torch.core.envelopes import Profile
+from repro_torch.core.fabric import systems
+from repro_torch.core.traffic import JobSpec
+
+KiB = 2 ** 10
+MiB = 2 ** 20
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One flow-program's worth of cells: sizes x profiles (plus the
+    implied per-size baselines), batched by bench.run_grid.
+    ``cells`` (a scale-batched cell list) is not ported yet."""
+
+    system: str
+    n_nodes: int
+    aggressor: str
+    sizes: Tuple[float, ...]
+    profiles: Tuple[Profile, ...]
+    victim: str = "ring_allgather"
+    phased: bool = False
+    jobs: Tuple[JobSpec, ...] = ()
+    cells: Tuple[Tuple[str, int], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    name: str
+    description: str
+    grids: Tuple[Grid, ...]
+    n_iters: int = 25
+    warmup: int = 5
+    # non-grid figures (fig4) declare their sweep points here
+    points: Tuple[tuple, ...] = ()
+
+
+SCENARIOS: Dict[str, Callable[[bool], Scenario]] = {}
+
+
+def register(make: Callable[[bool], Scenario]):
+    probe = make(False)
+    SCENARIOS[probe.name] = make
+    return make
+
+
+def get(name: str, quick: bool = False) -> Scenario:
+    return SCENARIOS[name](quick)
+
+
+def run_grid_spec(scenario: Scenario, grid: Grid, *, device=None,
+                  core=None) -> List[bench.BenchResult]:
+    if grid.cells:
+        raise NotImplementedError(
+            "scale-batched grids are not ported yet (ROADMAP Queue 1: "
+            "hetero/bucketed run_scale_grid)")
+    return bench.run_grid(
+        systems.get_system(grid.system), grid.n_nodes, grid.victim,
+        grid.aggressor, grid.sizes, grid.profiles,
+        n_iters=scenario.n_iters, warmup=scenario.warmup,
+        phased=grid.phased, jobs=list(grid.jobs) or None, device=device,
+        core=core)
+
+
+def result_row(grid: Grid, r: bench.BenchResult) -> dict:
+    """Flatten a BenchResult to the CSV row shape the benchmarks print."""
+    row = {
+        "system": r.system, "n_nodes": r.n_nodes, "victim": r.victim,
+        "aggressor": r.aggressor, "vector_bytes": r.vector_bytes,
+        "profile": r.profile,
+        "ratio": round(r.ratio, 4),
+        "t_uncongested_us": round(r.t_uncongested_s * 1e6, 1),
+        "t_congested_us": round(r.t_congested_s * 1e6, 1),
+    }
+    prof = next((p for p in grid.profiles if p.label() == r.profile), None)
+    if prof is not None and prof.kind in ("bursty", "random"):
+        row["burst_ms"] = round(prof.burst_s * 1e3, 4)
+        row["pause_ms"] = round(prof.pause_s * 1e3, 4)
+    if r.job_times:
+        row["job_times"] = ";".join(
+            f"{name}:{t * 1e6:.1f}us:{n}" for name, t, n in r.job_times)
+    return row
+
+
+# --------------------------------------------------------------------------
+# Paper sweeps
+# --------------------------------------------------------------------------
+
+FIG5_SYSTEMS = ("cresco8", "leonardo", "lumi")
+FIG5_AGGRESSORS = ("alltoall", "incast")
+FIG5_NODES = (16, 32, 64, 128, 256)
+FIG5_SIZES = (512, 32 * KiB, 2 * MiB, 16 * MiB)
+
+
+@register
+def fig5_steady(quick: bool = False) -> Scenario:
+    nodes = (16, 64, 256) if quick else FIG5_NODES
+    sizes = (32 * KiB, 2 * MiB) if quick else FIG5_SIZES
+    grids = tuple(Grid(s, n, a, sizes, (cong.steady(),))
+                  for s in FIG5_SYSTEMS for a in FIG5_AGGRESSORS
+                  for n in nodes)
+    return Scenario(
+        "fig5_steady",
+        "Paper Fig. 5 / Obs. 2: steady congestion at scale — ratio heatmaps "
+        "(nodes x vector size) per system x aggressor, AllGather victim.",
+        grids)
+
+
+@register
+def fig4_nslb(quick: bool = False) -> Scenario:
+    sizes = (4 * MiB, 16 * MiB) if quick else \
+        (MiB, 4 * MiB, 16 * MiB, 64 * MiB)
+    return Scenario(
+        "fig4_nslb",
+        "Paper Fig. 4: NSLB on/off under steady AlltoAll congestion "
+        "(4+4 nodes, Nanjing CE9855 leaf-spine).",
+        grids=(), points=tuple((m, s) for m in ("nslb", "ecmp")
+                               for s in sizes))
+
+
+def run_fig4_point(mode: str, vector_bytes: float, *, device=None,
+                   core=None) -> bench.BenchResult:
+    """One Fig. 4 point as the reference's benchmarks/fig4_nslb.py runs it: 4 victim +
+    4 aggressor nodes on the Nanjing leaf-spine, steady AlltoAll on
+    AlltoAll, NSLB or ECMP static routing."""
+    sysp = systems.get_system("nanjing_nslb" if mode == "nslb"
+                              else "nanjing_ecmp")
+    return bench.run_point(sysp, 8, "alltoall", "alltoall",
+                           float(vector_bytes), cong.steady(), n_iters=25,
+                           warmup=5, device=device, core=core)

@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function here is the kernel's specification: the CPU path runs it,
+and ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _flat_index(idx: torch.Tensor, B: int, n: int) -> torch.Tensor:
+    """(…) segment ids, shared (1-D) or per cell (B, …), as flat ids into a
+    (B * n) buffer: cell b's segments occupy [b*n, (b+1)*n)."""
+    idx = idx.to(torch.int64)
+    off = torch.arange(B, device=idx.device).view(-1, *([1] * max(
+        idx.dim() - 1, 1))) * n
+    if idx.dim() == 1:
+        idx = idx[None]
+    return (idx + off).reshape(-1)
+
+
+def _segment_sum(vals: torch.Tensor, flat: torch.Tensor, B: int,
+                 n: int) -> torch.Tensor:
+    out = torch.zeros(B * n, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, flat, vals.reshape(-1)).view(B, n)
+
+
+def fabric_step_core(plinks, inject, src_id, host_caps, q, occ, caps_finite,
+                     src_sw, dst_sw, dt, qmax_bytes, hol_factor, hol_start,
+                     burst_jitter, *, n_src: int, n_sw: int,
+                     with_aux: bool = False):
+    """The memory-bound core of one simulator step, batched over cells.
+
+    Shapes: ``plinks`` (B, F, H) link ids with pad == sink ==
+    ``q.shape[1] - 1``; ``inject``/``host_caps`` (B, F); ``src_id`` (F,)
+    or (B, F); ``q``/``occ`` (B, L+1) with ``occ == q / qmax_bytes``;
+    ``caps_finite``/``src_sw``/``dst_sw`` (L+1,) or (B, L+1); the five
+    scalars (B,). Follows ``repro/kernels/ref.py::fabric_step_core``
+    statement for statement, in this order (DESIGN.md §13):
+
+    * NIC limit — ``src_load`` segment-sum over ``src_id``;
+    * backpressure — ``hot_q``/``tot_q`` segment sums and the ``sw_sat``
+      segment max over ``src_sw``, the stall gathered through ``dst_sw``
+      into per-link effective capacities;
+    * H-hop staged propagation — per hop a link-load scatter, the FIFO
+      over-subscription divide, arrival accumulation (and the served-rate
+      observer when ``with_aux``);
+    * the queue update, clipped to [0, qmax], sink pinned to 0.
+
+    Segment sums go through ``index_add_`` over the flattened (cell x
+    segment) index. Returns ``inject`` (NIC-scaled), ``achieved``,
+    ``arrival``, ``q_new``, ``caps_eff`` and ``served_stage_max`` (None
+    unless ``with_aux``)."""
+    B, F, H = plinks.shape
+    L1 = q.shape[1]
+    sink = L1 - 1
+    valid = plinks < sink
+    col = lambda x: x[:, None]  # noqa: E731  (B,) scalar -> (B, 1)
+    # ---- NIC limit: a source's flows share its injection link ----
+    src_flat = _flat_index(src_id, B, n_src)
+    src_load = _segment_sum(inject, src_flat, B, n_src)
+    scale = torch.clamp_max(
+        host_caps / torch.clamp_min(src_load.view(-1)[src_flat].view(B, F),
+                                    1.0), 1.0)
+    inject = inject * scale
+    # ---- lossless backpressure (credit/PFC head-of-line stall) ----
+    sat_l = torch.clamp((occ - col(hol_start)) / (1.0 - col(hol_start)),
+                        0.0, 1.0)
+    sw_flat = _flat_index(src_sw, B, n_sw)
+    hot_q = _segment_sum(q * sat_l, sw_flat, B, n_sw)
+    tot_q = _segment_sum(q, sw_flat, B, n_sw)
+    share = hot_q / torch.clamp_min(tot_q, 1.0)
+    sw_sat = torch.zeros(B * n_sw, dtype=q.dtype, device=q.device) \
+        .scatter_reduce_(0, sw_flat, sat_l.reshape(-1), "amax",
+                         include_self=True).view(B, n_sw)
+    stall = 1.0 - col(hol_factor) * sw_sat * share
+    stall[:, 0] = 1.0  # 0 == host endpoint
+    caps_eff = caps_finite * stall.view(-1)[
+        _flat_index(dst_sw, B, n_sw)].view(B, L1)
+    # ---- staged propagation + queues ----
+    lk_flat = _flat_index(plinks.reshape(B, F * H), B, L1).view(B, F, H)
+    r = inject
+    arrival = torch.zeros_like(q)
+    served_stage_max = torch.zeros_like(q)
+    for h in range(H):
+        lk = lk_flat[:, :, h].reshape(-1)
+        vh = valid[:, :, h]
+        # a padded hop contributes 0, also for a NaN rate: the reference's
+        # ``r * valid`` runs as a select under XLA
+        load = _segment_sum(torch.where(vh, r, 0.0), lk, B, L1)
+        arrival = arrival + load
+        over = torch.clamp_min(load / caps_eff, 1.0)
+        r = torch.where(vh, r / over.view(-1)[lk].view(B, F), r)
+        if with_aux:
+            served = _segment_sum(torch.where(vh, r, 0.0), lk, B, L1)
+            served_stage_max = torch.maximum(served_stage_max, served)
+    q_new = torch.minimum(
+        torch.clamp_min(q + (arrival * (1.0 + col(burst_jitter))
+                             - caps_eff) * col(dt), 0.0),
+        col(qmax_bytes))
+    q_new[:, sink] = 0.0
+    return {"inject": inject, "achieved": r, "arrival": arrival,
+            "q_new": q_new, "caps_eff": caps_eff,
+            "served_stage_max": served_stage_max if with_aux else None}

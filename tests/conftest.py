@@ -82,6 +82,11 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def host_mesh():
     from repro.launch.mesh import make_host_mesh

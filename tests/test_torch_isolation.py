@@ -1,0 +1,78 @@
+"""The port stands alone: every repro_torch module and chip_smoke.py
+import with JAX and the JAX package made unimportable, and chip_smoke.py
+refuses to report a result without a CUDA card."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def test_port_imports_without_jax_or_reference():
+    mods = _port_modules()
+    assert "repro_torch.core.fabric.simulator" in mods
+    assert "repro_torch.kernels.fabric_step" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+        "import importlib\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None "
+        "and (m in ('jax', 'repro') or m.startswith(('jax.', 'jaxlib', "
+        "'repro.'))))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_sources_name_neither_package():
+    files = [SMOKE] + [os.path.join(d, f)
+                       for d, _, fs in os.walk(os.path.join(SRC,
+                                                            "repro_torch"))
+                       for f in fs if f.endswith(".py")]
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, SMOKE], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
