@@ -2,21 +2,36 @@
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]``
 
-Runs the fig4_nslb quick points and the fig5_steady quick grids that
-``chip_smoke.py`` drives through ``repro_torch``, on the JAX package as it
-stands, and writes ``artifacts/bench_cache_torch/jax_reference.json``: per
-row the ratio, both iteration times, the completed iteration counts, dt,
-the jax version and the git commit. It calls the benchmarks' row functions
-directly and never ``cached_sweep``, so the committed CSVs under
-``artifacts/bench_cache/`` are left as they are.
+Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
+package as it stands, and writes
+``artifacts/bench_cache_torch/jax_reference.json`` with the jax version and
+the git commit:
+
+* fig4_nslb quick points and four fig5_steady quick grids: per row the
+  ratio, both iteration times, the completed iteration counts and dt;
+* fig1_breakdown, the three registry sizes: the simulated network time,
+  its iteration counts and the wire bytes;
+* fig3_sawtooth, the six registry points: goodput, CV, the length and a
+  sha256 of the cut goodput trace;
+* fig6_bursty quick, all six grids, and the full burst x pause grid of
+  leonardo/64/incast at 2 MiB: per cell the ratio, both times and the
+  iteration counts.
+
+It calls the benchmarks' row functions directly and never
+``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
+are left as they are.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import os
 import subprocess
 import time
+
+import numpy as np
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                    "bench_cache_torch", "jax_reference.json")
@@ -24,6 +39,9 @@ OUT = os.path.join(os.path.dirname(__file__), "..", "artifacts",
 # fig5_steady quick grids the port is held to: (system, n_nodes, aggressor)
 FIG5_GRIDS = (("leonardo", 64, "incast"), ("leonardo", 256, "incast"),
               ("lumi", 256, "incast"), ("cresco8", 256, "incast"))
+# the fig6 grid whose full burst x pause table the port is held to, and
+# its vector size: long enough that the runs cross burst/pause edges
+FIG6_BURST_PAUSE = ("leonardo", 64, "incast", 2 << 20)
 
 
 def _commit() -> str:
@@ -97,6 +115,95 @@ def fig5_rows() -> list:
     return rows
 
 
+def fig1_rows() -> list:
+    from benchmarks import fig1_breakdown
+    from repro.core import bench, congestion as cong, scenarios
+    from repro.core.collectives import wire_bytes_model
+    from repro.core.fabric import systems
+
+    rows = []
+    for (v,) in scenarios.get("fig1_breakdown", False).points:
+        t0 = time.time()
+        # the network half of benchmarks.fig1_breakdown.run_size
+        r = bench.run_point(systems.get_system("haicgu_ib"),
+                            fig1_breakdown.N_NODES, "ring_allreduce", "",
+                            v, cong.no_congestion(), n_iters=15, warmup=3)
+        rows.append({
+            "vector_bytes": float(v), "t_uncongested_s": r.t_uncongested_s,
+            "n_iters": list(r.n_iters),
+            "wire_bytes": wire_bytes_model(
+                "ring_all_reduce", fig1_breakdown.N_NODES, v)["bytes"],
+            "wall_s": time.time() - t0})
+        print(f"fig1 {v}: t_network {r.t_uncongested_s * 1e6:.1f} us "
+              f"n_iters {r.n_iters}", flush=True)
+    return rows
+
+
+def fig3_rows() -> list:
+    from repro.core import bench, scenarios
+    from repro.core.fabric import systems
+
+    rows = []
+    for system, v in scenarios.get("fig3_sawtooth", False).points:
+        t0 = time.time()
+        # benchmarks.fig3_sawtooth.run_point, kept whole for the trace
+        res = bench.goodput_trace(systems.get_system(system), 4,
+                                  "ring_allgather", v, n_iters=25)
+        tr = np.asarray(res.victim_rate_trace, np.float32)
+        tr = tr[len(tr) // 3:]
+        tr = tr[tr > 0]
+        rows.append({
+            "system": system, "vector_bytes": float(v),
+            "goodput_gbps": float(tr.mean() * 8 / 1e9),
+            "cv": float(tr.std() / tr.mean()), "trace_len": int(len(tr)),
+            "trace_sha256": hashlib.sha256(tr.tobytes()).hexdigest(),
+            "n_iters": int(res.n_done), "wall_s": time.time() - t0})
+        print(f"fig3 {system} {v}: {rows[-1]['goodput_gbps']:.2f} Gb/s "
+              f"cv {rows[-1]['cv']:.4g} len {len(tr)}", flush=True)
+    return rows
+
+
+def _grid_rows(scen, grid) -> list:
+    from repro.core import bench, scenarios
+
+    t0 = time.time()
+    results = scenarios.run_grid_spec(scen, grid)
+    seconds = time.time() - t0
+    case = bench.build_case(bench.get_system(grid.system), grid.n_nodes,
+                            grid.victim, grid.aggressor)
+    rows = []
+    for r in results:
+        shown = scenarios.result_row(grid, r)
+        prof = next(p for p in grid.profiles if p.label() == r.profile)
+        dt = bench.choose_dt(case.topo, case.n_victims, r.vector_bytes,
+                             case.lat(), n_phases=case.max_phases)
+        rows.append({**_row(r, dt, seconds),
+                     "burst_ms": shown["burst_ms"],
+                     "pause_ms": shown["pause_ms"],
+                     "burst_s": prof.burst_s, "pause_s": prof.pause_s})
+    print(f"fig6 {grid.system}/{grid.n_nodes}/{grid.aggressor} "
+          f"{grid.sizes}: {[round(r.ratio, 4) for r in results]} "
+          f"({seconds:.1f}s)", flush=True)
+    return rows
+
+
+def fig6_rows() -> list:
+    from repro.core import scenarios
+
+    scen = scenarios.get("fig6_bursty", True)
+    return [row for grid in scen.grids for row in _grid_rows(scen, grid)]
+
+
+def fig6_burst_pause_rows() -> list:
+    from repro.core import scenarios
+
+    system, n, aggr, v = FIG6_BURST_PAUSE
+    scen = scenarios.get("fig6_bursty", False)
+    grid = next(g for g in scen.grids
+                if (g.system, g.n_nodes, g.aggressor) == (system, n, aggr))
+    return _grid_rows(scen, dataclasses.replace(grid, sizes=(v,)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=OUT)
@@ -108,7 +215,11 @@ def main() -> None:
            "jax_backend": jax.default_backend(),
            "commit": _commit(),
            "fig4_nslb": fig4_rows(),
-           "fig5_steady": fig5_rows()}
+           "fig5_steady": fig5_rows(),
+           "fig1_breakdown": fig1_rows(),
+           "fig3_sawtooth": fig3_rows(),
+           "fig6_bursty_quick": fig6_rows(),
+           "fig6_burst_pause": fig6_burst_pause_rows()}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(doc, f, indent=1)

@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's CUDA kernel from ``src/repro_torch/csrc`` (into
-``build/`` on first use), then:
+Builds the port's two CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/`` on first use, both nvcc runs started together), then:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the fabric-step kernel and reports the build time;
-3. holds the kernel against its plain PyTorch version on the card at the
-   characterization grids' shapes and on random shapes, with and without
-   the aux observer (DESIGN.md §13 tolerance, bit-exact where every
-   segment has one contributor) and checks two launches agree bitwise;
-4. runs 50 lock-step engine steps with the kernel and with the plain
+2. builds the fabric-step and fused-accumulate kernels and reports the
+   build time;
+3. holds the fabric-step kernel against its plain PyTorch version on the
+   card at the characterization grids' shapes, at the shapes and batch
+   sizes each figure path gives it (Fig. 1's 8-node ring AllReduce, Fig.
+   3's three 4-node single cells, Fig. 6's six quick grids and its 2 MiB
+   burst x pause grid) and on random shapes, with and without the aux
+   observer (DESIGN.md §13 tolerance, bit-exact where every segment has
+   one contributor) and checks two launches agree bitwise;
+4. holds the fused-accumulate kernel bit-equal to its plain version at
+   the fig1 tiles and (300, 640), in four type pairs and two scales, with
+   acc unaligned, and in the bfloat16 256 + 1 case;
+5. runs 50 lock-step engine steps with the kernel and with the plain
    version on leonardo/64/incast and cresco8/256/alltoall;
-5. drives the main path: the fig4_nslb quick points and four fig5_steady
+6. drives the main path: the fig4_nslb quick points and four fig5_steady
    quick grids through ``repro_torch.core.scenarios`` on the card, held to
    ``artifacts/bench_cache_torch/jax_reference.json`` (equal iteration
    counts, times within 2%) and to the paper's behaviour pins, and checks
    that every engine step launched the kernel once;
-6. times the kernel, its plain version and its memory bound per shape.
+7. drives the figure runner's paths, each with the launch counts reset
+   before it and read after it: Fig. 1 at its three sizes through
+   ``benchmarks/pt_fig1_breakdown.run_size`` (network time, iteration
+   counts and wire bytes against JAX; kernel 2 launched), Fig. 3's six
+   goodput traces through ``benchmarks/pt_fig3_sawtooth.run_point``
+   (trace length, goodput and CV against JAX; the Obs. 1 pin) and Fig. 6's
+   six quick grids plus the leonardo/64/incast 2 MiB burst x pause grid
+   (iteration counts and times against JAX; the Obs. 3 pin);
+8. times both kernels, their plain versions, their bounds and, for the
+   fused accumulate, the library call ``torch.add``, per shape.
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -51,6 +67,26 @@ INT_LEAVES = ("rc", "ph", "it", "active", "advance", "wrap", "done")
 KERNEL = {"name": "fabric_step_core", "route": "cuda",
           "source": "src/repro_torch/csrc/fabric_step.cu",
           "replaces": "src/repro/kernels/fabric_step.py:175"}
+KERNEL2 = {"name": "fused_accumulate", "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_reduce.cu",
+           "replaces": "src/repro/kernels/fused_reduce.py:27"}
+# kernel 2's float32 tiles on the fig1 path (1, 16 and 128 MiB), the
+# reference's edge-tile test shape, and the tile the kernels line reports
+FIG1_TILES = ((64, 512), (1024, 512), (8192, 512))
+EDGE_TILE = (300, 640)
+MAIN_TILE = (8192, 512)
+# (acc, x) type pairs and scales kernel 2 is checked at
+FR_TYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+            ("float32", "bfloat16"), ("bfloat16", "float32"))
+FR_SCALES = (1.0, 0.25)
+# Fig. 3 CV against JAX: within CV_ATOL + CV_RTOL * |cv|. The port has
+# agreed to 1.5e-8; a wrong run moves nanjing_nslb's CV, the Obs. 1 pin's
+# denominator, by far more (PERF.md §6)
+CV_RTOL, CV_ATOL = 1e-3, 1e-5
+# Obs. 3 in the 2 MiB burst x pause grid: short bursts hurt less; the
+# longest bursts approach steady congestion (fig5 leonardo/64/incast)
+OBS3_SHORT_BURST_MS, OBS3_SHORT_MIN = 0.5, 0.9
+OBS3_LONG_BURST_MS = 8.0
 # fig5_steady quick grids on the main path: (system, n_nodes, aggressor)
 FIG5_GRIDS = (("leonardo", 64, "incast"), ("leonardo", 256, "incast"),
               ("lumi", 256, "incast"), ("cresco8", 256, "incast"))
@@ -114,32 +150,72 @@ class Smoke:
 
     # ---------------------------------------------------------------- 2
     def build(self):
+        from concurrent.futures import ThreadPoolExecutor
+        from repro_torch.kernels import _build
         from repro_torch.kernels import fabric_step as fs
+        from repro_torch.kernels import fused_reduce as fr
         t0 = time.time()
-        lib = fs.build()
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source
+            libs = list(pool.map(lambda k: _build.build(k.SOURCE),
+                                 (fs, fr)))
         fs._load()
+        fr._load()
         self.report["build_s"] = time.time() - t0
-        log(f"built {os.path.relpath(lib, ROOT)} in {time.time() - t0:.1f}s")
-        for line in fs.build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log("   ptxas:", line.strip())
+        for k, lib in zip((fs, fr), libs):
+            log(f"built {os.path.relpath(lib, ROOT)}")
+            for line in _build.log(k.SOURCE).splitlines():
+                if "registers" in line or "smem" in line or "spill" in line:
+                    log("   ptxas:", line.strip())
+        log(f"   both built in {time.time() - t0:.1f}s")
 
     # ------------------------------------------------------------ inputs
-    def grid_case(self, system, n, victim, aggr):
+    def grid_case(self, system, n, victim, aggr, sizes=None, profiles=None):
         """A grid's geometry and stacked params on the card, as run_grid
-        builds them (sizes x baseline/steady)."""
+        builds them (sizes x baseline/profiles; by default the fig5 sizes
+        and the steady profile)."""
         from repro_torch.core import bench, congestion as cong
         from repro_torch.core.fabric import simulator as sim, systems
         case = bench.build_case(systems.get_system(system), n, victim, aggr)
-        sizes = (4 << 20, 16 << 20) if system.startswith("nanjing") \
-            else (32 << 10, 2 << 20)
-        profiles = (cong.steady(),)
-        dts = bench._cell_dts(case, sizes, 1, None, case.lat())
+        if sizes is None:
+            sizes = (4 << 20, 16 << 20) if system.startswith("nanjing") \
+                else (32 << 10, 2 << 20)
+        if profiles is None:
+            profiles = (cong.steady(),)
+        dts = bench._cell_dts(case, sizes, len(profiles), None, case.lat())
         cells = [(float(v), pr) for v in sizes
                  for pr in [cong.no_congestion(), *profiles]]
         params = sim.stack_params([case.cell_params(v, pr, d) for (v, pr), d
                                    in zip(cells, dts)])
         return case, case.geom.to(self.dev), params.to(self.dev)
+
+    def path_cases(self):
+        """(label, geometry, stacked params) on the card of every figure
+        path's kernel-1 inputs, as its driver builds them: Fig. 1's run_point
+        (baseline + uncongested, B=2), Fig. 3's goodput_trace per system
+        (B=1), Fig. 6's quick grids (B=5) and its 2 MiB burst x pause grid
+        (B=10)."""
+        from benchmarks import pt_fig1_breakdown as fig1
+        from benchmarks import pt_fig3_sawtooth as fig3
+        from benchmarks import pt_fig6_bursty as fig6
+        from repro_torch.core import bench, congestion as cong, scenarios
+        from repro_torch.core.fabric import simulator as sim, systems
+        _, geom, p = self.grid_case("haicgu_ib", fig1.N_NODES,
+                                    "ring_allreduce", "", (16 << 20,),
+                                    (cong.no_congestion(),))
+        yield f"fig1 haicgu_ib/{fig1.N_NODES}/ring_allreduce", geom, p
+        for system in fig3.SYSTEMS:
+            geom, p = bench.goodput_case(systems.get_system(system),
+                                         fig3.N_NODES, fig3.COLLECTIVE,
+                                         16 << 20)
+            yield (f"fig3 {system}/{fig3.N_NODES}/{fig3.COLLECTIVE}",
+                   geom.to(self.dev), sim.stack_params([p]).to(self.dev))
+        grids = scenarios.get("fig6_bursty", True).grids + (
+            fig6.grid_at_size("leonardo", "incast", 2 << 20),)
+        for g in grids:
+            _, geom, p = self.grid_case(g.system, g.n_nodes, g.victim,
+                                        g.aggressor, g.sizes, g.profiles)
+            yield (f"fig6 {g.system}/{g.n_nodes}/{g.aggressor} "
+                   f"{g.sizes[0]:.0f}", geom, p)
 
     def core_inputs(self, geom, p, seed):
         """Step-core operands at a grid's shapes: each flow on one of its
@@ -263,6 +339,13 @@ class Smoke:
                 err = self.compare(label, args, kw, aux)
                 if label == MAIN_SHAPE and not aux:
                     self.main_err = err
+        for i, (label, geom, p) in enumerate(self.path_cases()):
+            args, kw = self.core_inputs(geom, p, seed=200 + i)
+            B, F, H = args[0].shape
+            log(f"   {label}: B={B} F={F} H={H} L={geom.L} "
+                f"n_sw={geom.n_sw} n_src={geom.n_src}")
+            for aux in (False, True):
+                self.compare(label, args, kw, aux)
         for i, shape in enumerate(RANDOM_SHAPES):
             args, kw = self.random_inputs(shape, seed=i)
             for aux in (False, True):
@@ -275,7 +358,67 @@ class Smoke:
         self.compare(f"random {RANDOM_SHAPES[1]}, zero-capacity links",
                      self.zero_capacity(args, n_zero=30, silent=40), kw, True)
 
-    # ---------------------------------------------------------------- 4
+    # ------------------------------------------------------------- 4
+    def fr_inputs(self, shape, acc_t, x_t, seed, offset=0):
+        """Normal values at ``shape`` in the two types, on the card;
+        ``offset`` > 0 starts acc that many elements into its storage, so
+        the kernel takes its unaligned scalar loop."""
+        torch = self.torch
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        n = shape[0] * shape[1]
+        a = torch.as_tensor(rng.standard_normal(n + offset) * 8,
+                            dtype=torch.float32, device=self.dev)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=self.dev)
+        acc = a.to(getattr(torch, acc_t))[offset:].view(shape)
+        return acc, x.to(getattr(torch, x_t)).view(shape)
+
+    def fr_compare(self, label, acc, x, scale):
+        """Kernel 2 vs plain on the same card tensors, held bit-equal: both
+        round the product, then the sum, then the cast. Returns the max
+        abs err."""
+        torch = self.torch
+        from repro_torch.kernels import fused_reduce as fr, ref
+        got = fr.fused_accumulate(acc, x, scale)
+        want = ref.fused_accumulate(acc, x, scale)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            self.check(False, f"{label}: dtype/shape {got.dtype} "
+                       f"{tuple(got.shape)}, plain {want.dtype} "
+                       f"{tuple(want.shape)}")
+            return float("inf")
+        mabs = float((got.float() - want.float()).abs().max())
+        self.check(bool(torch.equal(got, want)),
+                   f"{label}: not bit-equal, max abs err {mabs}")
+        return mabs
+
+    def fr_vs_plain(self):
+        torch = self.torch
+        n = 0
+        self.fr_main_err = 0.0
+        for shape in FIG1_TILES + (EDGE_TILE,):
+            for acc_t, x_t in FR_TYPES:
+                for scale in FR_SCALES:
+                    acc, x = self.fr_inputs(shape, acc_t, x_t, seed=n)
+                    err = self.fr_compare(f"{shape} {acc_t}/{x_t} x{scale}",
+                                          acc, x, scale)
+                    if shape == MAIN_TILE and acc_t == x_t == "float32":
+                        self.fr_main_err = max(self.fr_main_err, err)
+                    n += 1
+        for acc_t, x_t in FR_TYPES:  # unaligned acc: the scalar loop
+            acc, x = self.fr_inputs(EDGE_TILE, acc_t, x_t, seed=n, offset=1)
+            self.fr_compare(f"{EDGE_TILE} {acc_t}/{x_t} unaligned", acc, x,
+                            0.25)
+            n += 1
+        acc = torch.full((8, 128), 256.0, dtype=torch.bfloat16,
+                         device=self.dev)
+        one = torch.ones_like(acc)
+        self.fr_compare("bf16 256 + 1", acc, one, 1.0)
+        log(f"   {n + 1} cases held bit-equal")
+        self.report["fused_accumulate_cases"] = n + 1
+
+    # ---------------------------------------------------------------- 5
     def lockstep(self):
         torch = self.torch
         from repro_torch.core.fabric import simulator as sim
@@ -305,19 +448,17 @@ class Smoke:
                 f"vs plain, worst error less tolerance {worst:.3g} "
                 f"(<= 0 passes), it {state['it'][:, 0].tolist()}")
 
-    # ---------------------------------------------------------------- 5
+    # ---------------------------------------------------------------- 6
     def main_path(self):
         torch = self.torch
         from repro_torch.core import scenarios
         from repro_torch.core.fabric import simulator as sim
-        from repro_torch.kernels import fabric_step as fs
-        with open(REFERENCE) as f:
-            ref = json.load(f)
+        from repro_torch.kernels import fabric_step as fs, fused_reduce as fr
+        ref = self.reference()
         log(f"   reference: jax {ref['jax_version']} "
             f"({ref['jax_backend']}) commit {ref['commit'][:12]}")
         rows = []
-        fs.launches = 0
-        sim.step_count = 0
+        fs.launches = fr.launches = sim.step_count = 0
         t_main = time.time()
         for want in ref["fig4_nslb"]:
             t0, s0 = time.time(), sim.step_count
@@ -351,6 +492,10 @@ class Smoke:
         log(f"   main path: {sim.step_count} engine steps, "
             f"{fs.launches} kernel launches, "
             f"{time.time() - t_main:.1f}s wall")
+        self.report.setdefault("paths", {})["main_path"] = {
+            "wall_s": time.time() - t_main, "steps": sim.step_count,
+            "launches": {"fabric_step_core": fs.launches,
+                         "fused_accumulate": fr.launches}}
         self.check(fs.launches == sim.step_count and fs.launches > 0,
                    f"kernel launches {fs.launches} != engine steps "
                    f"{sim.step_count}")
@@ -389,7 +534,159 @@ class Smoke:
                 "rel_err_t_c": dc, "grid_wall_s": wall,
                 "grid_steps": steps}
 
-    # ---------------------------------------------------------------- 6
+    # ---------------------------------------------------------------- 7
+    def path(self, name, fn):
+        """Drive one path with every launch count set to 0 just before it
+        and read just after; each kernel of the path must have launched,
+        and kernel 1 once per engine step."""
+        from repro_torch.core.fabric import simulator as sim
+        from repro_torch.kernels import fabric_step as fs, fused_reduce as fr
+        fs.launches = fr.launches = sim.step_count = 0
+        t0 = time.time()
+        kernels = fn()
+        wall = time.time() - t0
+        counts = {"fabric_step_core": fs.launches,
+                  "fused_accumulate": fr.launches}
+        log(f"   {name}: {sim.step_count} engine steps, launches {counts}, "
+            f"{wall:.1f}s wall")
+        self.check(fs.launches == sim.step_count,
+                   f"{name}: kernel 1 launches {fs.launches} != engine "
+                   f"steps {sim.step_count}")
+        for k in kernels:
+            self.check(counts[k] > 0, f"{name}: {k} never launched")
+        self.report.setdefault("paths", {})[name] = {
+            "wall_s": wall, "steps": sim.step_count, "launches": counts}
+        return counts
+
+    def reference(self):
+        with open(REFERENCE) as f:
+            return json.load(f)
+
+    def fig1(self):
+        from benchmarks import pt_fig1_breakdown as fig1
+        ref = self.reference()["fig1_breakdown"]
+        rows = []
+
+        def run():
+            for want in ref:
+                v = want["vector_bytes"]
+                r = fig1.run_size(v, device=self.dev)
+                dn = r["t_network_us"] / (want["t_uncongested_s"] * 1e6) - 1
+                log(f"   fig1 {v:.0f}: network {r['t_network_us']:.1f} us "
+                    f"(jax {want['t_uncongested_s'] * 1e6:.1f}, {dn:+.2e}) "
+                    f"n_iters {r['n_iters']}; reduce "
+                    f"{r['t_reduce_us']:.1f} us, memcpy "
+                    f"{r['t_memcpy_us']:.1f} us, fused "
+                    f"{r['t_fused_reduce_us']:.1f} us, compute fraction "
+                    f"{r['compute_fraction']:.4f}")
+                self.check(list(r["n_iters"]) == want["n_iters"],
+                           f"fig1 {v}: n_iters {r['n_iters']} != "
+                           f"{want['n_iters']}")
+                self.check(abs(dn) <= TIME_RTOL,
+                           f"fig1 {v}: network time off by {dn:+.3%}")
+                self.check(r["wire_bytes"] == want["wire_bytes"],
+                           f"fig1 {v}: wire bytes {r['wire_bytes']} != "
+                           f"{want['wire_bytes']}")
+                rows.append({**r, "vector_bytes": v, "rel_err_t_network": dn})
+            return ("fabric_step_core", "fused_accumulate")
+
+        self.fr_path_launches = self.path("fig1", run)["fused_accumulate"]
+        self.report["fig1"] = rows
+
+    def fig3(self):
+        from benchmarks import pt_fig3_sawtooth as fig3
+        ref = self.reference()["fig3_sawtooth"]
+        rows = []
+
+        def run():
+            for want in ref:
+                r = fig3.run_point(want["system"], want["vector_bytes"],
+                                   device=self.dev)
+                label = f"fig3 {want['system']} {want['vector_bytes']:.0f}"
+                dg = r["goodput_gbps"] / want["goodput_gbps"] - 1
+                dcv = r["cv"] - want["cv"]
+                cv_tol = CV_ATOL + CV_RTOL * abs(want["cv"])
+                log(f"   {label}: {r['goodput_gbps']:.2f} Gb/s ({dg:+.2e}) "
+                    f"cv {r['cv']:.4g} (jax {want['cv']:.4g}) len "
+                    f"{r['trace_len']} (jax {want['trace_len']}) "
+                    f"n_iters {r['n_iters']}")
+                self.check(r["trace_len"] == want["trace_len"],
+                           f"{label}: trace length {r['trace_len']} != "
+                           f"{want['trace_len']}")
+                self.check(abs(dg) <= TIME_RTOL,
+                           f"{label}: goodput off by {dg:+.3%}")
+                self.check(abs(dcv) <= cv_tol,
+                           f"{label}: cv {r['cv']} vs {want['cv']} (limit "
+                           f"{cv_tol:.3g})")
+                rows.append({**want, **r, "jax_cv": want["cv"], "cv_err": dcv,
+                             "jax_goodput_gbps": want["goodput_gbps"]})
+            return ("fabric_step_core",)
+
+        self.path("fig3", run)
+        for v in sorted({r["vector_bytes"] for r in rows}):
+            ce = [r["cv"] for r in rows if r["vector_bytes"] == v
+                  and r["system"] == "haicgu_ce8850"]
+            others = [r["cv"] for r in rows if r["vector_bytes"] == v
+                      and r["system"] != "haicgu_ce8850"]
+            self.check(min(ce) > fig3.OBS1_FACTOR * max(others),
+                       f"pin Obs. 1 at {v:.0f}: CE8850 cv {ce} <= "
+                       f"{fig3.OBS1_FACTOR} x {max(others)}")
+        self.report["fig3"] = rows
+
+    def fig6(self):
+        from benchmarks import pt_fig6_bursty as fig6
+        from repro_torch.core import scenarios
+        from repro_torch.core.fabric import simulator as sim
+        ref = self.reference()
+        rows = []
+
+        def run_grid(scen, grid, wants):
+            t0, s0 = time.time(), sim.step_count
+            results = scenarios.run_grid_spec(scen, grid, device=self.dev)
+            self.torch.cuda.synchronize()
+            wall, steps = time.time() - t0, sim.step_count - s0
+            log(f"   fig6 {grid.system}/{grid.n_nodes}/{grid.aggressor} "
+                f"{grid.sizes}: {steps} steps in {wall:.1f}s")
+            for r in results:
+                want = next(w for w in wants if (
+                    w["system"], w["aggressor"], w["vector_bytes"],
+                    w["profile"]) == (grid.system, grid.aggressor,
+                                      r.vector_bytes, r.profile))
+                row = self.hold(f"fig6 {grid.system}/{grid.n_nodes}/"
+                                f"{grid.aggressor} {r.vector_bytes:.0f} "
+                                f"{r.profile}", r, want, wall, steps)
+                rows.append({**row, "burst_ms": want["burst_ms"],
+                             "pause_ms": want["pause_ms"]})
+
+        def run():
+            quick = scenarios.get("fig6_bursty", True)
+            for grid in quick.grids:
+                run_grid(quick, grid, ref["fig6_bursty_quick"])
+            system, aggr = "leonardo", "incast"
+            full = scenarios.get("fig6_bursty", False)
+            grid = fig6.grid_at_size(system, aggr, 2 << 20)
+            run_grid(full, grid, ref["fig6_burst_pause"])
+            return ("fabric_step_core",)
+
+        self.path("fig6", run)
+        steady = next(w["ratio"] for w in ref["fig5_steady"] if (
+            w["system"], w["n_nodes"], w["aggressor"], w["vector_bytes"]) ==
+            ("leonardo", 64, "incast", 2 << 20))
+        grid2 = [r for r in rows if r["label"].startswith(
+            f"fig6 leonardo/64/incast {2 << 20}")]
+        self.check(len(grid2) == 9, f"burst x pause grid: {len(grid2)} rows")
+        for r in grid2:
+            if r["burst_ms"] == OBS3_SHORT_BURST_MS:
+                self.check(r["ratio"] >= OBS3_SHORT_MIN,
+                           f"pin Obs. 3: {r['label']} ratio {r['ratio']} < "
+                           f"{OBS3_SHORT_MIN}")
+            if r["burst_ms"] == OBS3_LONG_BURST_MS:
+                self.check(abs(r["ratio"] / steady - 1) <= TIME_RTOL,
+                           f"pin Obs. 3: {r['label']} ratio {r['ratio']} "
+                           f"vs steady {steady}")
+        self.report["fig6"] = rows
+
+    # ---------------------------------------------------------------- 8
     def timing(self):
         import numpy as np
         torch = self.torch
@@ -448,6 +745,25 @@ class Smoke:
             log(f"   {label:26s} {k:10.4f} {pl:10.4f} {bound:10.6f}  {by}"
                 f"  ({k_span:.4f} / {pl_span:.4f})")
         self.report["timing"] = self.timings
+
+        from repro_torch.kernels import fused_reduce as fr
+        self.fr_timings = {}
+        log(f"   {'fused_accumulate f32':26s} {'kernel ms':>10s} "
+            f"{'plain ms':>10s} {'add ms':>10s} {'bound ms':>10s}")
+        for shape in FIG1_TILES:
+            acc, x = self.fr_inputs(shape, "float32", "float32", seed=1)
+            k, k_span = med_ms(lambda: fr.fused_accumulate(acc, x, 1.0))
+            pl, pl_span = med_ms(lambda: ref.fused_accumulate(acc, x, 1.0))
+            lib, lib_span = med_ms(lambda: torch.add(acc, x, alpha=1.0))
+            bound, by = fr_bound_ms(acc, x)
+            self.fr_timings[str(shape)] = {
+                "ms": k, "plain_ms": pl, "library_ms": lib,
+                "bound_ms": bound, "bound_by": by, "span_ms": k_span,
+                "plain_span_ms": pl_span, "library_span_ms": lib_span}
+            log(f"   {str(shape):26s} {k:10.4f} {pl:10.4f} {lib:10.4f} "
+                f"{bound:10.6f}  {by}  ({k_span:.4f} / {pl_span:.4f} / "
+                f"{lib_span:.4f})")
+        self.report["timing_fused_accumulate"] = self.fr_timings
 
     # ------------------------------------------------------- diagnostic
     def profile_steps(self, n_steps=200):
@@ -535,6 +851,18 @@ def bound_ms(args, kw):
         else "operations"
 
 
+def fr_bound_ms(acc, x):
+    """Least time for one fused accumulate: acc and x read once, out
+    written once, over HBM bandwidth; or its two float operations per
+    element over the FP32 peak. The larger bounds it."""
+    n = acc.numel()
+    t_bytes = n * (2 * acc.element_size() + x.element_size()) \
+        / HBM_BYTES_PER_S
+    t_ops = 2 * n / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def main() -> int:
     try:
         import torch
@@ -559,7 +887,9 @@ def main() -> int:
         log("\n".join(s.failures))
         return 1
     for name, fn in (("kernel_vs_plain", s.kernel_vs_plain),
+                     ("fused_accumulate_vs_plain", s.fr_vs_plain),
                      ("lockstep", s.lockstep), ("main_path", s.main_path),
+                     ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
                      ("timing", s.timing)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
@@ -574,10 +904,15 @@ def main() -> int:
         log(f"chip_smoke: {len(s.failures)} failure(s)")
         return 1
     t = s.timings[MAIN_SHAPE]
+    t2 = s.fr_timings[str(MAIN_TILE)]
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": s.main_launches, "max_abs_err": s.main_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]}))
+        "bound_by": t["bound_by"], "library_ms": None}, {
+        **KERNEL2, "launches": s.fr_path_launches,
+        "max_abs_err": s.fr_main_err, "ms": t2["ms"],
+        "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]}]}))
     print(s.smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ report mean iteration time and the uncongested/congested ratio.
   grid on ONE flow set, executed as one batched run
   (simulator.run_cells): all cells advance together, each stops when its
   primary job has finished.
+* :func:`goodput_trace` — one aggressor-free run and its victim goodput
+  trace (paper Fig. 3 self-congestion).
 
-Both run on the CUDA device unless ``device`` says otherwise.
+All run on the CUDA device unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from repro_torch.core.fabric.simulator import (TDONE_SLOTS, FabricGeometry,
                                                SimParams, _drop_warmup,
                                                check_iter_budget,
                                                make_geometry, make_params,
-                                               resolve_device, run_cells,
-                                               stack_params, summarize)
+                                               resolve_device, run_cell,
+                                               run_cells, stack_params,
+                                               summarize)
 from repro_torch.core.fabric.systems import (SystemPreset, default_policy,
                                              get_system)  # noqa: F401
 
@@ -371,3 +374,41 @@ def run_point(system: SystemPreset, n_nodes: int, victim_coll: str,
     if return_traces:
         return res, base, cong_res
     return res
+
+
+# --------------------------------------------------------------------------
+# Single-trace helpers
+# --------------------------------------------------------------------------
+
+
+def goodput_case(system: SystemPreset, n_nodes: int, coll: str,
+                 vector_bytes: float, *, dt: float = 20e-6):
+    """The geometry and one-cell parameters of a self-congestion run:
+    ``coll`` on all ``n_nodes`` allocated nodes, no aggressors."""
+    topo = machine_topology(system) if system.machine_nodes \
+        else system.make_topology(n_nodes)
+    nodes = allocate(system, n_nodes)
+    flows = cong.build_flowset(topo, nodes, [], coll, "", vector_bytes,
+                               routing_mode=system.static_routing,
+                               k_max=system.k_max)
+    params = make_params(system.cc, dt=dt,
+                         bytes_per_iter=flows.bytes_per_iter,
+                         host_caps=flows.host_caps,
+                         env=cong.no_congestion().params(),
+                         policy=default_policy(system))
+    return make_geometry(topo, flows), params
+
+
+def goodput_trace(system: SystemPreset, n_nodes: int, coll: str,
+                  vector_bytes: float, *, n_iters: int = 40,
+                  dt: float = 20e-6, max_steps: int = 200_000, device=None):
+    """Self-congestion run (no aggressors) — Fig. 3 sawtooth experiments."""
+    device = resolve_device(device)
+    check_iter_budget(n_iters)
+    geom, params = goodput_case(system, n_nodes, coll, vector_bytes, dt=dt)
+    chunk, stride = 2048, 8
+    out = run_cell(geom, params, n_iters, chunk=chunk,
+                   max_chunks=-(-max_steps // chunk), stride=stride,
+                   device=device)
+    return summarize(out, n_iters=n_iters, warmup=5, dt=dt, chunk=chunk,
+                     stride=stride)

@@ -3,8 +3,10 @@
 A :class:`Scenario` is a list of :class:`Grid` specs (each one
 ``bench.run_grid`` call: one flow set, every size x profile x
 baseline/congested cell batched) or a tuple of ``points`` that a benchmark
-script interprets. The port registers the paper's characterization pipeline so
-far: Fig. 4 (NSLB on/off) and Fig. 5 (steady congestion at scale).
+script interprets. The port registers the paper's figures so far: Fig. 1
+(ring AllReduce breakdown), Fig. 3 (self-congestion sawtooth), Fig. 4 (NSLB
+on/off), Fig. 5 (steady congestion at scale) and Fig. 6 (bursty
+congestion).
 """
 from __future__ import annotations
 
@@ -105,6 +107,15 @@ FIG5_AGGRESSORS = ("alltoall", "incast")
 FIG5_NODES = (16, 32, 64, 128, 256)
 FIG5_SIZES = (512, 32 * KiB, 2 * MiB, 16 * MiB)
 
+BURSTS_MS = (0.5, 2.0, 8.0)
+PAUSES_MS = (0.2, 1.0, 8.0)
+FIG6_SIZES = (512, 32 * KiB, 2 * MiB)
+
+
+def _bursty_grid(bursts_ms, pauses_ms) -> Tuple[Profile, ...]:
+    return tuple(cong.bursty(b * 1e-3, p * 1e-3)
+                 for b in bursts_ms for p in pauses_ms)
+
 
 @register
 def fig5_steady(quick: bool = False) -> Scenario:
@@ -118,6 +129,47 @@ def fig5_steady(quick: bool = False) -> Scenario:
         "Paper Fig. 5 / Obs. 2: steady congestion at scale — ratio heatmaps "
         "(nodes x vector size) per system x aggressor, AllGather victim.",
         grids)
+
+
+@register
+def fig6_bursty(quick: bool = False) -> Scenario:
+    sizes = (32 * KiB,) if quick else FIG6_SIZES
+    bursts = (0.5, 8.0) if quick else BURSTS_MS
+    pauses = (0.2, 8.0) if quick else PAUSES_MS
+    grids = tuple(Grid(s, 64, a, sizes, _bursty_grid(bursts, pauses))
+                  for s in FIG5_SYSTEMS for a in FIG5_AGGRESSORS)
+    return Scenario(
+        "fig6_bursty",
+        "Paper Fig. 6 / Obs. 3: bursty congestion at 64 nodes — "
+        "(burst x pause) duty-cycle heatmaps per system x aggressor x size.",
+        grids)
+
+
+# --------------------------------------------------------------------------
+# Non-grid paper figures (fig1/fig3/fig4): the matching benchmark driver
+# interprets the ``points`` tuples.
+# --------------------------------------------------------------------------
+
+
+@register
+def fig1_breakdown(quick: bool = False) -> Scenario:
+    sizes = (MiB, 16 * MiB) if quick else (MiB, 16 * MiB, 128 * MiB)
+    return Scenario(
+        "fig1_breakdown",
+        "Paper Fig. 1: ring AllReduce cost breakdown (reduce/memcpy vs "
+        "simulated EDR wire time) on 8 nodes.",
+        grids=(), points=tuple((s,) for s in sizes))
+
+
+@register
+def fig3_sawtooth(quick: bool = False) -> Scenario:
+    sizes = (16 * MiB,) if quick else (16 * MiB, 128 * MiB)
+    syss = ("haicgu_ce8850", "haicgu_ib", "nanjing_nslb")
+    return Scenario(
+        "fig3_sawtooth",
+        "Paper Fig. 3 / Obs. 1: CE8850 self-congestion sawtooth on 4-node "
+        "AllGather; EDR IB and CE9855 stay stable.",
+        grids=(), points=tuple((s, v) for s in syss for v in sizes))
 
 
 @register

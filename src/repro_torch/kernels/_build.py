@@ -1,0 +1,76 @@
+"""nvcc build and ctypes load shared by the hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled with nvcc for ``sm_90a`` into its own
+shared library with a plain C interface, ``build/lib<stem>_<key>.so`` at
+the repository root, at first use; ``key`` hashes the source and the
+flags, so an edit to either builds a new library. nvcc's output (with
+``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
+beside the library as ``.log`` and returned by :func:`log`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_libs: dict = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels are built on first use")
+    return path
+
+
+def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{key}.so"
+
+
+def build(source: Path, flags=NVCC_FLAGS) -> Path:
+    """Compile ``source`` into ``build/`` unless a library built from the
+    same source and flags is already there; returns its path."""
+    lib = library_path(source, flags)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([nvcc(), *flags, "-o", tmp, str(source)],
+                          capture_output=True, text=True)
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source}:\n{text}")
+    lib.with_suffix(".log").write_text(text)
+    os.replace(tmp, lib)
+    return lib
+
+
+def log(source: Path, flags=NVCC_FLAGS) -> str:
+    """nvcc's output for the library built from ``source``, or '' when it
+    has not been built."""
+    path = library_path(source, flags).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def load(source: Path, flags=NVCC_FLAGS) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if need be; one
+    handle per library for the life of the process."""
+    lib = build(source, flags)
+    if lib not in _libs:
+        _libs[lib] = ctypes.CDLL(str(lib))
+    return _libs[lib]

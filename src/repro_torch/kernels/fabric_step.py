@@ -2,8 +2,9 @@
 
 ``csrc/fabric_step.cu`` is compiled with nvcc for ``sm_90a`` into a shared
 library with a plain C interface (``build/`` at the repository root, at
-first use) and called through ``ctypes`` on PyTorch's current stream. It
-replaces the TPU kernel ``repro/kernels/fabric_step.py::fabric_step_core``;
+first use, by ``_build``) and called through ``ctypes`` on PyTorch's
+current stream. It replaces the TPU kernel
+``repro/kernels/fabric_step.py::fabric_step_core``;
 ``kernels/ref.py::fabric_step_core`` is its plain version, and this
 wrapper has the same signature and return dict.
 
@@ -14,63 +15,24 @@ counts the kernel launches since import (or since a caller reset it).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fabric_step.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "fabric_step.cu"
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 THREADS = 1024
 
 launches = 0
-build_log = ""
 _lib = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the fabric-step kernel is built on first use")
-    return nvcc
-
-
-def build() -> Path:
-    """Compile the kernel into ``build/`` unless a library built from the
-    same source and flags is already there; returns its path."""
-    global build_log
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfabric_step_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, lib)
-    return lib
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load(SOURCE)
         fn = lib.fabric_step_core_launch
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
             + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3 \

@@ -7,11 +7,24 @@ kernel raises on what it does not take, with no fallback.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import fabric_step as _fs
+from repro_torch.kernels import fused_reduce as _fr
 from repro_torch.kernels import ref
 
 CORES = ("kernel", "plain")
 pack_scalars = _fs.pack_scalars
+
+
+def _use_plain(device: torch.device, core: str, name: str) -> bool:
+    if core not in CORES:
+        raise ValueError(f"core must be one of {CORES}, got {core!r}")
+    if device.type == "cpu" or core == "plain":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no {name} for device {device}")
+    return False
 
 
 def fabric_step_core(*args, core: str = "kernel", scalars=None, **kw):
@@ -19,11 +32,14 @@ def fabric_step_core(*args, core: str = "kernel", scalars=None, **kw):
     as :func:`repro_torch.kernels.ref.fabric_step_core`. ``scalars`` is
     the kernel's packed (B, 5) block of the five scalar arguments
     (:func:`pack_scalars`); the plain version reads the arguments."""
-    if core not in CORES:
-        raise ValueError(f"core must be one of {CORES}, got {core!r}")
-    device = args[1].device  # inject
-    if device.type == "cpu" or core == "plain":
+    if _use_plain(args[1].device, core, "fabric_step_core"):  # inject
         return ref.fabric_step_core(*args, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"no fabric_step_core for device {device}")
     return _fs.fabric_step_core(*args, scalars=scalars, **kw)
+
+
+def fused_accumulate(acc, x, scale: float = 1.0, core: str = "kernel"):
+    """Ring-AllReduce receive-accumulate ``acc + scale * x`` in float32,
+    rounded to ``acc.dtype`` (paper Fig. 1)."""
+    if _use_plain(acc.device, core, "fused_accumulate"):
+        return ref.fused_accumulate(acc, x, scale)
+    return _fr.fused_accumulate(acc, x, scale)

@@ -8,6 +8,14 @@ from __future__ import annotations
 import torch
 
 
+def fused_accumulate(acc: torch.Tensor, x: torch.Tensor,
+                     scale: float = 1.0) -> torch.Tensor:
+    """Ring-AllReduce receive-accumulate: ``acc + scale * x`` in float32
+    whatever the input types, rounded to ``acc.dtype`` (paper Fig. 1).
+    Follows ``repro/kernels/ref.py::fused_accumulate``."""
+    return (acc.float() + scale * x.float()).to(acc.dtype)
+
+
 def _flat_index(idx: torch.Tensor, B: int, n: int) -> torch.Tensor:
     """(…) segment ids, shared (1-D) or per cell (B, …), as flat ids into a
     (B * n) buffer: cell b's segments occupy [b*n, (b+1)*n)."""

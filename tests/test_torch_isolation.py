@@ -1,6 +1,8 @@
-"""The port stands alone: every repro_torch module and chip_smoke.py
-import with JAX and the JAX package made unimportable, and chip_smoke.py
-refuses to report a result without a CUDA card."""
+"""The port stands alone: every repro_torch module, every port benchmark
+driver (``benchmarks/pt_*.py`` but ``pt_jax_reference.py``, which runs the
+JAX package by design) and chip_smoke.py import with JAX and the JAX
+package made unimportable, and chip_smoke.py refuses to report a result
+without a CUDA card."""
 import ast
 import os
 import pkgutil
@@ -14,6 +16,15 @@ pytest.importorskip("torch")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+BENCH = os.path.join(ROOT, "benchmarks")
+# imports both packages: it writes the JAX rows the port is held to
+REFERENCE_DRIVER = "pt_jax_reference.py"
+
+
+def _driver_files():
+    return sorted(os.path.join(BENCH, f) for f in os.listdir(BENCH)
+                  if f.startswith("pt_") and f.endswith(".py")
+                  and f != REFERENCE_DRIVER)
 
 
 def _port_modules():
@@ -28,6 +39,12 @@ def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.core.fabric.simulator" in mods
     assert "repro_torch.kernels.fabric_step" in mods
+    assert "repro_torch.kernels.fused_reduce" in mods
+    drivers = ["benchmarks." + os.path.basename(f)[:-3]
+               for f in _driver_files()]
+    assert "benchmarks.pt_run" in drivers
+    assert "benchmarks.pt_fig1_breakdown" in drivers
+    mods = mods + drivers
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -52,19 +69,24 @@ def _imports(path):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module == "benchmarks":
+            yield from ("benchmarks." + a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
 
 
 def test_sources_name_neither_package():
-    files = [SMOKE] + [os.path.join(d, f)
-                       for d, _, fs in os.walk(os.path.join(SRC,
-                                                            "repro_torch"))
-                       for f in fs if f.endswith(".py")]
+    files = [SMOKE] + _driver_files() + [
+        os.path.join(d, f)
+        for d, _, fs in os.walk(os.path.join(SRC, "repro_torch"))
+        for f in fs if f.endswith(".py")]
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+            # a driver may import only the port's own drivers
+            if top == "benchmarks":
+                assert mod.startswith("benchmarks.pt_"), (path, mod)
 
 
 def test_chip_smoke_refuses_without_a_card():
