@@ -1,9 +1,10 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
-``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]``
+``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
+[--only fabric|lm]``
 
 Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
-package as it stands, and writes
+package as it stands. ``fabric`` (the default part of the run) writes
 ``artifacts/bench_cache_torch/jax_reference.json`` with the jax version and
 the git commit:
 
@@ -20,6 +21,16 @@ the git commit:
 It calls the benchmarks' row functions directly and never
 ``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
 are left as they are.
+
+``lm`` writes ``artifacts/bench_cache_torch/jax_lm_reference.json``:
+hymba-1.5b at full width, 2 layers, float32 (``benchmarks.pt_serve.
+LM_REFERENCE``), with the parameters of
+``repro_torch.models.layers.numpy_params``; a prefill of two 1280-token
+prompts (crossing the 1024-token window), then 8 decode steps fed JAX's
+own greedy tokens. Per step and row it keeps the greedy token, its top-2
+margin, the top-16 ids and logits, the logsumexp and the logits at 64
+fixed vocabulary indices, never whole logit rows. Without ``--only``
+both parts run.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ FIG5_GRIDS = (("leonardo", 64, "incast"), ("leonardo", 256, "incast"),
 # the fig6 grid whose full burst x pause table the port is held to, and
 # its vector size: long enough that the runs cross burst/pause edges
 FIG6_BURST_PAUSE = ("leonardo", 64, "incast", 2 << 20)
+LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 
 
 def _commit() -> str:
@@ -204,27 +216,83 @@ def fig6_burst_pause_rows() -> list:
     return _grid_rows(scen, dataclasses.replace(grid, sizes=(v,)))
 
 
+def lm_reference() -> dict:
+    """The LM reference rows (module docstring), on the JAX package."""
+    import jax
+    import jax.numpy as jnp
+
+    from benchmarks import pt_serve
+    from repro.configs import get_config
+    from repro.models.api import build_model
+    from repro.models.layers import single_device_rules
+    from repro_torch.models.layers import numpy_params
+
+    r = pt_serve.LM_REFERENCE
+    cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
+                              param_dtype=r["dtype"],
+                              compute_dtype=r["dtype"], remat="none")
+    tcfg = pt_serve.reference_config()
+    model = build_model(cfg, single_device_rules(), None)
+    params = jax.tree.map(jnp.asarray, numpy_params(tcfg, r["param_seed"]))
+    prompts = pt_serve.reference_prompts(tcfg)
+    probe = pt_serve.probe_ids(tcfg)
+    t0 = time.time()
+    logits, cache = jax.jit(model.prefill)(params,
+                                           {"tokens": jnp.asarray(prompts)})
+    steps = [pt_serve.logit_summary(np.asarray(logits), probe)]
+    print(f"lm prefill {prompts.shape}: {time.time() - t0:.1f}s", flush=True)
+    decode = jax.jit(model.decode)
+    S = prompts.shape[1]
+    for t in range(r["decode_steps"]):
+        tokens = np.array([[row["token"]] for row in steps[-1]], np.int32)
+        logits, cache = decode(params, cache, jnp.asarray(tokens),
+                               jnp.int32(S + t))
+        steps.append(pt_serve.logit_summary(np.asarray(logits), probe))
+    print(f"lm {r['decode_steps']} decode steps: {time.time() - t0:.1f}s; "
+          f"greedy {[[row['token'] for row in st] for st in steps]}",
+          flush=True)
+    return {"source": "benchmarks/pt_jax_reference.py --only lm",
+            "jax_version": jax.__version__,
+            "jax_backend": jax.default_backend(), "commit": _commit(),
+            "config": {**r, "name": cfg.name, "d_model": cfg.d_model,
+                       "vocab_padded": cfg.vocab_padded,
+                       "sliding_window": cfg.sliding_window},
+            "probe_ids": [int(i) for i in probe],
+            "prompts": prompts.tolist(),
+            "steps": steps, "wall_s": time.time() - t0}
+
+
+def _write(doc: dict, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"wrote {path}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=None,
+                    help="output file (default: the part's file under "
+                         "artifacts/bench_cache_torch/)")
+    ap.add_argument("--only", choices=("fabric", "lm"), default=None)
     args = ap.parse_args()
     import jax
 
-    doc = {"source": "benchmarks/pt_jax_reference.py",
-           "jax_version": jax.__version__,
-           "jax_backend": jax.default_backend(),
-           "commit": _commit(),
-           "fig4_nslb": fig4_rows(),
-           "fig5_steady": fig5_rows(),
-           "fig1_breakdown": fig1_rows(),
-           "fig3_sawtooth": fig3_rows(),
-           "fig6_bursty_quick": fig6_rows(),
-           "fig6_burst_pause": fig6_burst_pause_rows()}
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(doc, f, indent=1)
-        f.write("\n")
-    print(f"wrote {args.out}")
+    if args.only in (None, "fabric"):
+        doc = {"source": "benchmarks/pt_jax_reference.py",
+               "jax_version": jax.__version__,
+               "jax_backend": jax.default_backend(),
+               "commit": _commit(),
+               "fig4_nslb": fig4_rows(),
+               "fig5_steady": fig5_rows(),
+               "fig1_breakdown": fig1_rows(),
+               "fig3_sawtooth": fig3_rows(),
+               "fig6_bursty_quick": fig6_rows(),
+               "fig6_burst_pause": fig6_burst_pause_rows()}
+        _write(doc, args.out or OUT)
+    if args.only in (None, "lm"):
+        _write(lm_reference(), (args.only and args.out) or LM_OUT)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's two CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/`` on first use, both nvcc runs started together), then:
+Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/`` on first use, the four nvcc runs started together), then:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the fabric-step and fused-accumulate kernels and reports the
-   build time;
+2. builds the fabric-step, fused-accumulate, flash-attention and
+   selective-scan kernels and reports the build time;
 3. holds the fabric-step kernel against its plain PyTorch version on the
    card at the characterization grids' shapes, at the shapes and batch
    sizes each figure path gives it (Fig. 1's 8-node ring AllReduce, Fig.
@@ -34,8 +34,27 @@ Builds the port's two CUDA kernels from ``src/repro_torch/csrc`` (into
    (trace length, goodput and CV against JAX; the Obs. 1 pin) and Fig. 6's
    six quick grids plus the leonardo/64/incast 2 MiB burst x pause grid
    (iteration counts and times against JAX; the Obs. 3 pin);
-8. times both kernels, their plain versions, their bounds and, for the
-   fused accumulate, the library call ``torch.add``, per shape.
+8. times kernels 1 and 2, their plain versions, their bounds and, for the
+   fused accumulate, the library call ``torch.add``, per shape;
+9. holds the flash-attention kernel (kernel 7) against its plain version
+   at hymba-1.5b's head shapes (25 query heads over 5 KV heads of 64) at
+   S = 128, 1000, 1024 and 1280 (the 1024-token window binds), float32
+   and bfloat16, and at the serve shape; plus a G = 1, a D = 128 and a
+   non-causal case;
+10. holds the selective-scan kernel (kernel 6) against its plain version
+   at d_inner 3200, N 16, T = 1, 256 and 1280, x in float32 and
+   bfloat16, at the serve shape, and at a d_inner no block divides;
+11. ``lm_vs_jax``: hymba-1.5b at full width, 2 layers, float32 (TF32 off
+   for matmuls and cuDNN) through the kernels, held to
+   ``artifacts/bench_cache_torch/jax_lm_reference.json``: prefill and 8
+   teacher-forced decode steps;
+12. ``serve``: full-depth bfloat16 hymba-1.5b through ``BatchedServer``
+   (12 requests, 2 waves; ``benchmarks/pt_serve.py``), with the launch
+   counts reset before and read after (each new kernel 32 x 2 times), and
+   wave 1's prefill logits held kernel vs plain on the same weights;
+13. times kernels 6 and 7 at the serve shape (B = 8, S = 1280, bfloat16)
+   beside their plain versions, bounds and, for attention, PyTorch's
+   ``scaled_dot_product_attention`` at S = 1024.
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -53,11 +72,15 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
                          "jax_reference.json")
+LM_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
+                            "jax_lm_reference.json")
 REPORT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense tensor-core peak
+SFU_EXP_PER_SM_CLOCK = 16  # special-function units: exps per SM per clock
 FS_TOL = dict(rtol=2e-4, atol=1.0)  # DESIGN.md §13
 TIME_RTOL = 0.02
 # lock-step leaves held tighter than §13's atol: times in seconds, and
@@ -70,6 +93,37 @@ KERNEL = {"name": "fabric_step_core", "route": "cuda",
 KERNEL2 = {"name": "fused_accumulate", "route": "cuda",
            "source": "src/repro_torch/csrc/fused_reduce.cu",
            "replaces": "src/repro/kernels/fused_reduce.py:27"}
+KERNEL6 = {"name": "fused_selective_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssm_scan.cu",
+           "replaces": "src/repro/kernels/ssm_scan.py:87"}
+KERNEL7 = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:74"}
+# hymba-1.5b's attention heads (H, KH, D), its window, its SSM (Di, N)
+# and the serve shape (B, S)
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_WINDOW = 1024
+HYMBA_SSM = (3200, 16)
+SERVE_B, SERVE_S = 8, 1280
+# kernel 7 vs plain: float32 within 1e-5 absolute (outputs of order one;
+# only the summation order differs); bfloat16 within one bfloat16 step of
+# the plain value (2**-7 relative) + 1e-5, as both round one float32
+# result. Kernel 6 vs plain: 2e-6 of the largest |y| or |h_T| (float32
+# throughout; the y contraction's order differs)
+FA_F32_ATOL = 1e-5
+FA_BF16_RTOL = 2.0 ** -7
+SCAN_REL = 2e-6
+# lm_vs_jax: logits within LM_TOL absolute of the JAX rows; greedy tokens
+# equal wherever JAX's top-2 margin exceeds 10 x LM_TOL
+LM_TOL = 8e-6
+# serve: prefill logits, kernel vs plain on the same weights, relative to
+# the largest |logit|. In bfloat16 (wave 1) rounding alone moves them
+# 0.035 through 32 layers, as much as a window one key too wide (0.048):
+# the bfloat16 limit catches gross faults only. In float32 (both waves)
+# the two are 8.9e-6 apart and that window fault moves wave 1's 1.5e-2
+# (H100, PERF.md §6)
+SERVE_BF16_REL = 0.1
+SERVE_F32_REL = 1e-4
 # kernel 2's float32 tiles on the fig1 path (1, 16 and 128 MiB), the
 # reference's edge-tile test shape, and the tile the kernels line reports
 FIG1_TILES = ((64, 512), (1024, 512), (8192, 512))
@@ -143,6 +197,13 @@ class Smoke:
         self.smi = smi.stdout.strip().splitlines()[0] if smi.stdout \
             else "nvidia-smi: unavailable"
         log(self.smi)
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        self.sm_clock_hz = float(clock[0]) * 1e6 if clock else 1.98e9
+        self.n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        log(f"max SM clock {self.sm_clock_hz / 1e6:.0f} MHz, {self.n_sm} SMs")
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} "
             f"count {torch.cuda.device_count()}")
@@ -153,20 +214,23 @@ class Smoke:
         from concurrent.futures import ThreadPoolExecutor
         from repro_torch.kernels import _build
         from repro_torch.kernels import fabric_step as fs
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_reduce as fr
+        from repro_torch.kernels import ssm_scan as ss
+        kernels = (fs, fr, fa, ss)
         t0 = time.time()
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source
-            libs = list(pool.map(lambda k: _build.build(k.SOURCE),
-                                 (fs, fr)))
-        fs._load()
-        fr._load()
+        with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
+            libs = list(pool.map(lambda k: _build.build(k.SOURCE, k.FLAGS),
+                                 kernels))
+        for k in kernels:
+            k._load()
         self.report["build_s"] = time.time() - t0
-        for k, lib in zip((fs, fr), libs):
+        for k, lib in zip(kernels, libs):
             log(f"built {os.path.relpath(lib, ROOT)}")
-            for line in _build.log(k.SOURCE).splitlines():
+            for line in _build.log(k.SOURCE, k.FLAGS).splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("   ptxas:", line.strip())
-        log(f"   both built in {time.time() - t0:.1f}s")
+        log(f"   all four built in {time.time() - t0:.1f}s")
 
     # ------------------------------------------------------------ inputs
     def grid_case(self, system, n, victim, aggr, sizes=None, profiles=None):
@@ -541,12 +605,16 @@ class Smoke:
         and kernel 1 once per engine step."""
         from repro_torch.core.fabric import simulator as sim
         from repro_torch.kernels import fabric_step as fs, fused_reduce as fr
-        fs.launches = fr.launches = sim.step_count = 0
+        from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+        fs.launches = fr.launches = fa.launches = ss.launches = 0
+        sim.step_count = 0
         t0 = time.time()
         kernels = fn()
         wall = time.time() - t0
         counts = {"fabric_step_core": fs.launches,
-                  "fused_accumulate": fr.launches}
+                  "fused_accumulate": fr.launches,
+                  "flash_attention": fa.launches,
+                  "fused_selective_scan": ss.launches}
         log(f"   {name}: {sim.step_count} engine steps, launches {counts}, "
             f"{wall:.1f}s wall")
         self.check(fs.launches == sim.step_count,
@@ -687,57 +755,60 @@ class Smoke:
         self.report["fig6"] = rows
 
     # ---------------------------------------------------------------- 8
-    def timing(self):
+    def graphed(self, fn):
+        """One call of fn captured as a CUDA graph, so a replay costs the
+        host a few microseconds whatever fn's Python overhead."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return g.replay
+
+    def med_ms(self, fn, n=60):
+        """Median device time of one call between CUDA events, over n
+        graph replays enqueued while the card sleeps, so no event pair
+        spans host launch overhead. A failed capture fails the phase."""
         import numpy as np
         torch = self.torch
-        from repro_torch.kernels import fabric_step as fs, ref
-
-        def graphed(fn):
-            """One call of fn captured as a CUDA graph, so a replay costs
-            the host a few microseconds whatever fn's Python overhead."""
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    fn()
-            torch.cuda.current_stream().wait_stream(side)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                fn()
-            return g.replay
-
-        def med_ms(fn, n=60):
-            """Median device time of one call between CUDA events, over n
-            graph replays enqueued while the card sleeps, so no event pair
-            spans host launch overhead. A failed capture fails the phase."""
-            run = graphed(fn)
+        run = self.graphed(fn)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
             run()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                run()
-            torch.cuda.synchronize()
-            host_s = (time.perf_counter() - t0) / 5
-            torch.cuda._sleep(int(2e9 * host_s * n * 4) + 20_000_000)
-            pairs = []
-            for _ in range(n):
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                run()
-                e.record()
-                pairs.append((s, e))
-            torch.cuda.synchronize()
-            times = [s.elapsed_time(e) for s, e in pairs]
-            span = pairs[0][0].elapsed_time(pairs[-1][1])
-            return float(np.median(times)), span / n
+        torch.cuda.synchronize()
+        host_s = (time.perf_counter() - t0) / 5
+        torch.cuda._sleep(int(2e9 * host_s * n * 4) + 20_000_000)
+        pairs = []
+        for _ in range(n):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            run()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in pairs]
+        span = pairs[0][0].elapsed_time(pairs[-1][1])
+        return float(np.median(times)), span / n
 
+    def timing(self):
+        torch = self.torch
+        from repro_torch.kernels import fabric_step as fs, ref
         self.timings = {}
         log(f"   {'shape':26s} {'kernel ms':>10s} {'plain ms':>10s} "
             f"{'bound ms':>10s}  bound by  (mean of the event span)")
         for label, (args, kw) in self.shapes.items():
-            k, k_span = med_ms(lambda: fs.fabric_step_core(*args, **kw))
-            pl, pl_span = med_ms(lambda: ref.fabric_step_core(*args, **kw))
+            k, k_span = self.med_ms(
+                lambda: fs.fabric_step_core(*args, **kw))
+            pl, pl_span = self.med_ms(
+                lambda: ref.fabric_step_core(*args, **kw))
             bound, by = bound_ms(args, kw)
             self.timings[label] = {
                 "ms": k, "plain_ms": pl, "bound_ms": bound, "bound_by": by,
@@ -752,9 +823,12 @@ class Smoke:
             f"{'plain ms':>10s} {'add ms':>10s} {'bound ms':>10s}")
         for shape in FIG1_TILES:
             acc, x = self.fr_inputs(shape, "float32", "float32", seed=1)
-            k, k_span = med_ms(lambda: fr.fused_accumulate(acc, x, 1.0))
-            pl, pl_span = med_ms(lambda: ref.fused_accumulate(acc, x, 1.0))
-            lib, lib_span = med_ms(lambda: torch.add(acc, x, alpha=1.0))
+            k, k_span = self.med_ms(
+                lambda: fr.fused_accumulate(acc, x, 1.0))
+            pl, pl_span = self.med_ms(
+                lambda: ref.fused_accumulate(acc, x, 1.0))
+            lib, lib_span = self.med_ms(
+                lambda: torch.add(acc, x, alpha=1.0))
             bound, by = fr_bound_ms(acc, x)
             self.fr_timings[str(shape)] = {
                 "ms": k, "plain_ms": pl, "library_ms": lib,
@@ -764,6 +838,317 @@ class Smoke:
                 f"{bound:10.6f}  {by}  ({k_span:.4f} / {pl_span:.4f} / "
                 f"{lib_span:.4f})")
         self.report["timing_fused_accumulate"] = self.fr_timings
+
+    # ---------------------------------------------------------------- 9
+    def attn_inputs(self, B, S, heads, dtype, seed):
+        """Normal q (B, S, H, D), k and v (B, S, KH, D) on the card."""
+        torch = self.torch
+        H, KH, D = heads
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        return [torch.randn(B, S, h, D, generator=g, device=self.dev)
+                .to(dtype) for h in (H, KH, KH)]
+
+    def fa_compare(self, label, q, k, v, causal=True, window=0):
+        """Kernel 7 vs plain on the same card tensors; returns the max abs
+        error."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if q.dtype == torch.float32:
+            ok = bool((err <= FA_F32_ATOL).all())
+        else:
+            ok = bool((err <= FA_BF16_RTOL * want.float().abs()
+                       + FA_F32_ATOL).all())
+        ok = ok and got.dtype == q.dtype and bool(torch.isfinite(got).all())
+        mabs = float(err.max())
+        self.check(ok, f"flash_attention {label}: max abs err {mabs}")
+        log(f"   {label:44s} max abs err {mabs:.3g}")
+        return mabs
+
+    def fa_vs_plain(self):
+        torch = self.torch
+        H, KH, D = HYMBA_HEADS
+        n = 0
+        for S in (128, 1000, 1024, 1280):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = self.attn_inputs(2, S, HYMBA_HEADS, dtype, seed=n)
+                self.fa_compare(f"B=2 S={S} {H}/{KH}x{D} {dtype} w="
+                                f"{HYMBA_WINDOW}", q, k, v,
+                                window=HYMBA_WINDOW)
+                n += 1
+        q, k, v = self.attn_inputs(SERVE_B, SERVE_S, HYMBA_HEADS,
+                                   torch.bfloat16, seed=n)
+        self.fa_main_err = self.fa_compare(
+            f"serve B={SERVE_B} S={SERVE_S} bfloat16", q, k, v,
+            window=HYMBA_WINDOW)
+        for label, B, S, heads, causal, window in (
+                ("G=1", 2, 300, (4, 4, 64), True, 0),
+                ("D=128", 2, 256, (8, 2, 128), True, 0),
+                ("non-causal", 2, 300, HYMBA_HEADS, False, 0),
+                ("non-causal, window 100", 1, 300, HYMBA_HEADS, False, 100),
+                ("serve wave 2", SERVE_B // 2, 256, HYMBA_HEADS, True,
+                 HYMBA_WINDOW)):
+            for dtype in (torch.float32, torch.bfloat16):
+                n += 1
+                q, k, v = self.attn_inputs(B, S, heads, dtype, seed=n)
+                self.fa_compare(f"{label} B={B} S={S} {heads} {dtype}", q, k,
+                                v, causal=causal, window=window)
+
+    # --------------------------------------------------------------- 10
+    def scan_inputs(self, B, T, Di, N, x_dtype, seed):
+        """Selective-scan operands on the card: dt = softplus(normal), A =
+        -exp(normal), normal B, C, x and h0."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+
+        def f(*shape):
+            return torch.randn(*shape, generator=g, device=self.dev)
+
+        return (torch.nn.functional.softplus(f(B, T, Di)),
+                -torch.exp(f(Di, N)), f(B, T, N), f(B, T, N),
+                f(B, T, Di).to(x_dtype), f(B, Di, N))
+
+    def scan_compare(self, label, args):
+        torch = self.torch
+        from repro_torch.kernels import ref, ssm_scan as ss
+        got = ss.fused_selective_scan(*args)
+        want = ref.fused_selective_scan(*args)
+        torch.cuda.synchronize()
+        worst, parts = 0.0, []
+        for name, g, w in zip(("y", "h_T"), got, want):
+            mabs = float((g - w).abs().max())
+            rel = mabs / max(float(w.abs().max()), 1e-30)
+            self.check(rel <= SCAN_REL and bool(torch.isfinite(g).all()),
+                       f"fused_selective_scan {label}: {name} rel err {rel}")
+            worst = max(worst, mabs)
+            parts.append(f"{name} {mabs:.3g} ({rel:.2g} of max)")
+        log(f"   {label:40s} max abs err {', '.join(parts)}")
+        return worst
+
+    def scan_vs_plain(self):
+        torch = self.torch
+        Di, N = HYMBA_SSM
+        n = 0
+        for T in (1, 256, 1280):
+            for x_dtype in (torch.float32, torch.bfloat16):
+                self.scan_compare(f"B=2 T={T} Di={Di} N={N} x {x_dtype}",
+                                  self.scan_inputs(2, T, Di, N, x_dtype, n))
+                n += 1
+        self.scan_main_err = self.scan_compare(
+            f"serve B={SERVE_B} T={SERVE_S} x bfloat16",
+            self.scan_inputs(SERVE_B, SERVE_S, Di, N, torch.bfloat16, n))
+        for label, shape in (("ragged Di", (2, 200, 3000, 16)),
+                             ("N=8", (1, 100, 1000, 8))):
+            n += 1
+            self.scan_compare(f"{label} {shape}",
+                              self.scan_inputs(*shape, torch.float32, n))
+        n += 1
+        self.scan_compare(
+            f"serve wave 2 B={SERVE_B // 2} T=256 x bfloat16",
+            self.scan_inputs(SERVE_B // 2, 256, Di, N, torch.bfloat16, n))
+
+    # --------------------------------------------------------------- 11
+    def lm_vs_jax(self):
+        torch = self.torch
+        import numpy as np
+        from benchmarks import pt_serve
+        from repro_torch import convert
+        from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+        from repro_torch.models.api import build_model
+        from repro_torch.models.layers import numpy_params
+        # float32 means float32 here: no TF32 in matmuls or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(LM_REFERENCE) as f:
+            ref = json.load(f)
+        log(f"   reference: jax {ref['jax_version']} ({ref['jax_backend']}) "
+            f"commit {ref['commit'][:12]}; TF32 off (matmul and cuDNN)")
+        cfg = pt_serve.reference_config()
+        model = build_model(cfg, device=self.dev).load_params(
+            convert.lm_params_from_jax(
+                numpy_params(cfg, ref["config"]["param_seed"]), cfg))
+        prompts = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
+        probe = np.array(ref["probe_ids"])
+        fa.launches = ss.launches = 0
+        logits, cache = model.prefill({"tokens": prompts})
+        self.check(fa.launches == ss.launches == cfg.n_layers,
+                   f"lm_vs_jax prefill launches {fa.launches} / "
+                   f"{ss.launches} != {cfg.n_layers}")
+        S, rows = prompts.shape[1], []
+        for t, want in enumerate(ref["steps"]):
+            res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
+                                            LM_TOL)
+            rows.append(res)
+            log(f"   step {t}: max abs err {res['max_abs_err']:.3g}, greedy "
+                f"{[w['token'] for w in want]} margins "
+                f"{[round(w['margin'], 4) for w in want]}, mismatched rows "
+                f"{res['greedy_mismatch']}")
+            self.check(res["max_abs_err"] <= LM_TOL,
+                       f"lm_vs_jax step {t}: max abs err "
+                       f"{res['max_abs_err']} > {LM_TOL}")
+            self.check(not res["greedy_mismatch"],
+                       f"lm_vs_jax step {t}: greedy tokens differ in rows "
+                       f"{res['greedy_mismatch']}")
+            if t + 1 < len(ref["steps"]):
+                tok = torch.as_tensor([[w["token"]] for w in want],
+                                      device=self.dev)
+                logits, cache = model.decode(cache, tok, S + t)
+        self.report["lm_vs_jax"] = rows
+        del model, cache
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 12
+    def prefill_both(self, model, batch):
+        """The model's prefill logits through the kernels and through
+        their plain versions."""
+        lk, _ = model.prefill(batch)
+        model.core = "plain"
+        lp, _ = model.prefill(batch)
+        model.core = "kernel"
+        self.torch.cuda.synchronize()
+        return lk, lp
+
+    def held_rel(self, label, lk, lp, limit):
+        """Kernel-path logits vs plain-path ones, relative to the largest
+        |logit|, held to ``limit``; returns the relative difference."""
+        torch = self.torch
+        top = float(lp.abs().max())
+        rel = float((lk - lp).abs().max()) / top
+        log(f"   {label} prefill logits, kernel vs plain: "
+            f"{rel:.3g} of the largest |logit| {top:.3g} (limit {limit}); "
+            f"greedy equal {bool(torch.equal(lk.argmax(-1), lp.argmax(-1)))}")
+        self.check(rel <= limit, f"serve: {label} prefill kernel vs "
+                   f"plain {rel} of the largest logit > {limit}")
+        return rel
+
+    def serve(self):
+        torch = self.torch
+        import dataclasses
+        from benchmarks import pt_serve
+        from repro_torch.configs import get_config
+        from repro_torch.models.api import build_model
+        cfg = get_config("hymba-1.5b")
+        out = {}
+
+        def run():
+            server, model = pt_serve.serve(cfg, self.dev)
+            torch.cuda.synchronize()
+            out.update(server=server, model=model)
+            return ("flash_attention", "fused_selective_scan")
+
+        counts = self.path("serve", run)
+        server, model = out["server"], out["model"]
+        st = server.stats
+        want = 2 * cfg.n_layers
+        for k in ("flash_attention", "fused_selective_scan"):
+            self.check(counts[k] == want,
+                       f"serve: {k} launched {counts[k]} times, not {want}")
+        mix = pt_serve.request_mix(cfg.vocab_size)
+        self.check(st.requests_done == len(mix) and st.waves == 2,
+                   f"serve: {st.requests_done} requests in {st.waves} waves")
+        self.check(st.nonfinite_logits == 0,
+                   f"serve: {st.nonfinite_logits} non-finite logits")
+        for r, (prompt, n_new, _) in zip(server.done, mix):
+            self.check(len(r.tokens) == n_new and r.finish_reason == "length",
+                       f"serve: request {r.uid} gave {len(r.tokens)} of "
+                       f"{n_new} tokens ({r.finish_reason})")
+        # each wave's prefill, kernel vs plain on the same weights: wave 1
+        # in bfloat16 as served, then both waves in float32
+        waves = [server.done[:pt_serve.MAX_BATCH],
+                 server.done[pt_serve.MAX_BATCH:]]
+        batches = [server.make_batch_inputs(w, max(len(r.prompt) for r in w))
+                   for w in waves]
+        wave1 = waves[0]
+        lk, lp = self.prefill_both(model, batches[0])
+        rel = self.held_rel("wave 1 bfloat16", lk, lp, SERVE_BF16_REL)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m32 = build_model(dataclasses.replace(
+            cfg, param_dtype="float32", compute_dtype="float32"),
+            device=self.dev).load_params(
+                {k: v.float() for k, v in model.state_dict().items()})
+        rel32 = [self.held_rel(f"wave {i + 1} float32",
+                               *self.prefill_both(m32, b), SERVE_F32_REL)
+                 for i, b in enumerate(batches)]
+        del m32
+        # the repeated 256-token prompt (requests 5 and 6)
+        a, b = wave1[4], wave1[5]
+        same = bool((a.tokens == b.tokens).all())
+        rows_equal = bool(torch.equal(lk[4], lk[5]))
+        plain_rows_equal = bool(torch.equal(lp[4], lp[5]))
+        log(f"   repeated prompt: tokens equal {same}; prefill logits rows "
+            f"equal: kernel {rows_equal}, plain {plain_rows_equal}")
+        self.check(rows_equal or not plain_rows_equal,
+                   "serve: the repeated prompt's prefill rows differ on the "
+                   "kernel path but not on the plain one")
+        self.check(same or not plain_rows_equal,
+                   "serve: the repeated prompt gave different tokens")
+        dec_ms = [1e3 * d / max(c, 1) for d, c in zip(st.decode_s,
+                                                       st.decode_calls)]
+        log(f"   {cfg.name}, {cfg.n_layers} layers bfloat16: "
+            f"{st.requests_done} requests, {st.waves} waves, "
+            f"{st.decode_steps} decode steps, {st.tokens_generated} tokens, "
+            f"{st.tokens_per_s:.1f} tokens/s; prefill ms per wave "
+            f"{[round(1e3 * p, 1) for p in st.prefill_s]}; decode ms per "
+            f"step {[round(d, 2) for d in dec_ms]}")
+        self.serve_launches = counts
+        self.report["serve"] = {
+            "requests": st.requests_done, "waves": st.waves,
+            "decode_steps": st.decode_steps, "tokens": st.tokens_generated,
+            "tokens_per_s": st.tokens_per_s, "wall_s": st.wall_s,
+            "prefill_ms": [1e3 * p for p in st.prefill_s],
+            "decode_ms_per_step": dec_ms, "decode_calls": st.decode_calls,
+            "prefill_kernel_vs_plain_rel": rel,
+            "prefill_kernel_vs_plain_rel_float32": rel32,
+            "repeated_prompt_tokens_equal": same,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del out, server, model
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 13
+    def timing_lm(self):
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        from repro_torch.kernels import ssm_scan as ss
+        F = torch.nn.functional
+        q, k, v = self.attn_inputs(SERVE_B, SERVE_S, HYMBA_HEADS,
+                                   torch.bfloat16, seed=1)
+        kernel, k_span = self.med_ms(
+            lambda: fa.flash_attention(q, k, v, window=HYMBA_WINDOW))
+        plain, p_span = self.med_ms(
+            lambda: ref.flash_attention(q, k, v, window=HYMBA_WINDOW))
+        bound, by = fa_bound_ms(q, k, HYMBA_WINDOW)
+        # at S = 1024 the window is inert: the library's causal attention
+        # computes the same function
+        q1, k1, v1 = (t[:, :HYMBA_WINDOW].contiguous() for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q1, k1, v1))
+        lib, l_span = self.med_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        k1024, _ = self.med_ms(
+            lambda: fa.flash_attention(q1, k1, v1, window=HYMBA_WINDOW))
+        self.fa_timing = {"ms": kernel, "plain_ms": plain, "bound_ms": bound,
+                          "bound_by": by, "library_ms": lib,
+                          "ms_at_1024": k1024, "span_ms": k_span,
+                          "plain_span_ms": p_span, "library_span_ms": l_span}
+        log(f"   flash_attention B={SERVE_B} S={SERVE_S} bfloat16: kernel "
+            f"{kernel:.4f} ms, plain {plain:.4f}, bound {bound:.4f} ({by}); "
+            f"at S=1024 kernel {k1024:.4f}, sdpa {lib:.4f}")
+        Di, N = HYMBA_SSM
+        args = self.scan_inputs(SERVE_B, SERVE_S, Di, N, torch.bfloat16, 1)
+        kernel, k_span = self.med_ms(lambda: ss.fused_selective_scan(*args))
+        plain, p_span = self.med_ms(lambda: ref.fused_selective_scan(*args))
+        bound, by = scan_bound_ms(args, self.n_sm, self.sm_clock_hz)
+        self.scan_timing = {"ms": kernel, "plain_ms": plain,
+                            "bound_ms": bound, "bound_by": by,
+                            "library_ms": None, "span_ms": k_span,
+                            "plain_span_ms": p_span}
+        log(f"   fused_selective_scan B={SERVE_B} T={SERVE_S} Di={Di} N={N}: "
+            f"kernel {kernel:.4f} ms, plain {plain:.4f}, bound {bound:.4f} "
+            f"({by})")
+        self.report["timing_lm"] = {"flash_attention": self.fa_timing,
+                                    "fused_selective_scan": self.scan_timing}
 
     # ------------------------------------------------------- diagnostic
     def profile_steps(self, n_steps=200):
@@ -863,6 +1248,36 @@ def fr_bound_ms(acc, x):
         else "operations"
 
 
+def fa_bound_ms(q, k, window):
+    """Least time for one attention launch: q, k, v read once and o
+    written once over HBM bandwidth; or 4 * D flops per live (query,
+    key) pair -- causal, inside the window -- over the bf16 tensor-core
+    peak. The larger bounds it."""
+    import numpy as np
+    B, S, H, D = q.shape
+    live = int(np.minimum(np.arange(S) + 1, window).sum())  # keys per head
+    t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        / HBM_BYTES_PER_S
+    t_ops = 4 * D * live * B * H / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def scan_bound_ms(args, n_sm, clock_hz):
+    """Least time for one scan launch: every input read once and y, h_T
+    written once over HBM bandwidth; or its exponentials, one per state
+    per step, over the special-function units' rate (16 per SM per
+    clock). The larger bounds it."""
+    dt, A, Bc, Cc, x, h0 = args
+    read = sum(a.numel() * a.element_size() for a in args)
+    written = 4 * (dt.numel() + h0.numel())
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    exps = dt.numel() * A.shape[1]
+    t_ops = exps / (SFU_EXP_PER_SM_CLOCK * n_sm * clock_hz)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def main() -> int:
     try:
         import torch
@@ -890,7 +1305,11 @@ def main() -> int:
                      ("fused_accumulate_vs_plain", s.fr_vs_plain),
                      ("lockstep", s.lockstep), ("main_path", s.main_path),
                      ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
-                     ("timing", s.timing)):
+                     ("timing", s.timing),
+                     ("flash_attention_vs_plain", s.fa_vs_plain),
+                     ("selective_scan_vs_plain", s.scan_vs_plain),
+                     ("lm_vs_jax", s.lm_vs_jax), ("serve", s.serve),
+                     ("timing_lm", s.timing_lm)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
         s.profile_steps()
@@ -905,6 +1324,8 @@ def main() -> int:
         return 1
     t = s.timings[MAIN_SHAPE]
     t2 = s.fr_timings[str(MAIN_TILE)]
+    pick = lambda d: {k: d[k] for k in (  # noqa: E731
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": s.main_launches, "max_abs_err": s.main_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -912,7 +1333,13 @@ def main() -> int:
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
-        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]}]}))
+        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]}, {
+        **KERNEL7, "launches": s.serve_launches["flash_attention"],
+        "max_abs_err": s.fa_main_err, **pick(s.fa_timing),
+        "library_shape": f"B={SERVE_B} S={HYMBA_WINDOW} bfloat16",
+        "ms_at_library_shape": s.fa_timing["ms_at_1024"]}, {
+        **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
+        "max_abs_err": s.scan_main_err, **pick(s.scan_timing)}]}))
     print(s.smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ package. A caller holding JAX objects converts with
 * geometry: one shared geometry, numpy (field -> array) -> FabricGeometry;
 * params: one cell (no batch axis) or a stack of cells -> a stacked
   SimParams;
-* state: a stacked step state, both directions.
+* state: a stacked step state, both directions;
+* LM parameters: the reference's stacked tree -> the port's state dict;
+* LM caches: the stacked cache tree, both directions.
 """
 from __future__ import annotations
 
@@ -77,4 +79,55 @@ def state_to_numpy(state: dict, *, cell: Optional[int] = None) -> dict:
         if x.dtype == np.int64:
             x = x.astype(np.int32)
         out[k] = x if cell is None else x[cell]
+    return out
+
+
+def _tensor(x, device="cpu") -> torch.Tensor:
+    """A numpy array -> a tensor of the same dtype; numpy has no bfloat16
+    of its own, so the reference's (``ml_dtypes``) goes through float32."""
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":
+        return torch.as_tensor(x.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(x, device=device)
+
+
+def lm_params_from_jax(params_np: dict, cfg=None) -> dict:
+    """The reference LM's parameter tree as numpy (``embed.{tok,out,ln_f}``;
+    ``layers.{ln1,ln2,attn.*,ssm.*,ffn.*}`` with a leading layer axis) ->
+    the port's ``DecoderLM`` state dict (``embed.*``, ``layers.<i>.*``) of
+    CPU tensors. ``cfg``, when given, must agree on the number of layers."""
+    out = {f"embed.{k}": _tensor(v) for k, v in params_np["embed"].items()}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}.")
+            else:
+                yield prefix + k, v
+
+    leaves = list(walk(params_np["layers"], ""))
+    L = leaves[0][1].shape[0]
+    if cfg is not None and cfg.n_layers != L:
+        raise ValueError(f"tree has {L} layers, config {cfg.n_layers}")
+    for name, x in leaves:
+        for i in range(L):
+            out[f"layers.{i}.{name}"] = _tensor(x[i])
+    return out
+
+
+def lm_cache_from_jax(cache_np: dict, device="cpu") -> dict:
+    """The reference's stacked LM cache (numpy leaves ``k``, ``v``,
+    ``slot_pos``, ``conv``, ``ssm``, each with a leading layer axis) -> the
+    port's cache on ``device``; every dtype is kept."""
+    return {k: _tensor(v, device) for k, v in cache_np.items()}
+
+
+def lm_cache_to_jax(cache: dict) -> dict:
+    """The port's stacked LM cache -> numpy arrays in the reference's
+    layout and dtypes (bfloat16 leaves as float32)."""
+    out = {}
+    for k, v in cache.items():
+        v = v.detach().cpu()
+        out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out

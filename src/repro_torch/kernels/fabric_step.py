@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "fabric_step.cu"
+FLAGS = _build.NVCC_FLAGS
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 THREADS = 1024
@@ -32,7 +33,7 @@ _lib = None
 def _load():
     global _lib
     if _lib is None:
-        lib = _build.load(SOURCE)
+        lib = _build.load(SOURCE, FLAGS)
         fn = lib.fabric_step_core_launch
         fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
             + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3 \

@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "fused_reduce.cu"
+FLAGS = _build.NVCC_FLAGS
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
@@ -29,7 +30,7 @@ _lib = None
 def _load():
     global _lib
     if _lib is None:
-        lib = _build.load(SOURCE)
+        lib = _build.load(SOURCE, FLAGS)
         fn = lib.fused_accumulate_launch
         fn.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,

@@ -10,8 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fabric_step as _fs
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_reduce as _fr
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ss
 
 CORES = ("kernel", "plain")
 pack_scalars = _fs.pack_scalars
@@ -43,3 +45,21 @@ def fused_accumulate(acc, x, scale: float = 1.0, core: str = "kernel"):
     if _use_plain(acc.device, core, "fused_accumulate"):
         return ref.fused_accumulate(acc, x, scale)
     return _fr.fused_accumulate(acc, x, scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    core: str = "kernel"):
+    """Blockwise GQA attention, q (B, Sq, H, D), k/v (B, Skv, KH, D), in
+    ``q.dtype``; ``window`` > 0 is the sliding-window mask of the models'
+    prefill (kernel 7)."""
+    if _use_plain(q.device, core, "flash_attention"):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def fused_selective_scan(dt, A, B_coef, C_coef, x, h0, core: str = "kernel"):
+    """Mamba selective scan with the state on chip: (y (B, T, Di), h_T (B,
+    Di, N)), both float32 (kernel 6)."""
+    if _use_plain(dt.device, core, "fused_selective_scan"):
+        return ref.fused_selective_scan(dt, A, B_coef, C_coef, x, h0)
+    return _ss.fused_selective_scan(dt, A, B_coef, C_coef, x, h0)

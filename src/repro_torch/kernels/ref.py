@@ -5,6 +5,8 @@ and ``chip_smoke.py`` holds the CUDA kernel against it on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -14,6 +16,60 @@ def fused_accumulate(acc: torch.Tensor, x: torch.Tensor,
     whatever the input types, rounded to ``acc.dtype`` (paper Fig. 1).
     Follows ``repro/kernels/ref.py::fused_accumulate``."""
     return (acc.float() + scale * x.float()).to(acc.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-matrix GQA attention in float32, the output in ``q.dtype``.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KH, D); query head ``h`` reads KV head
+    ``h // (H // KH)``; scale 1/sqrt(D). Follows
+    ``repro/kernels/ref.py::flash_attention`` with the window mask of
+    ``repro/models/layers.py::flash_attention_xla``: ``window`` > 0 also
+    masks ``kv_pos <= q_pos - window``. A row with every key masked gives
+    0, as the kernels' guards (``m_safe``, ``l >= 1e-30``) do."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qr = q.reshape(B, Sq, KH, G, D).float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qr, k.float()) / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KH, G, 1)
+    o = o / l.clamp_min(1e-30)
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def fused_selective_scan(dt: torch.Tensor, A: torch.Tensor,
+                         B_coef: torch.Tensor, C_coef: torch.Tensor,
+                         x: torch.Tensor, h0: torch.Tensor):
+    """Mamba selective scan, a loop over time.
+
+    dt, x: (B, T, Di); A: (Di, N); B_coef, C_coef: (B, T, N); h0: (B, Di,
+    N). Per step ``h = exp(dt*A) * h + (dt*x) * B_t`` and ``y_t = sum_n h *
+    C_t``, all in float32. Returns ``y`` (B, T, Di) and ``h_T`` (B, Di, N),
+    float32. Follows ``repro/kernels/ref.py::fused_selective_scan`` element
+    for element; dA and dBx are formed one step at a time, so no (B, T, Di,
+    N) tensor is held."""
+    dt32, x32 = dt.float(), x.float()
+    A32, Bf, C = A.float(), B_coef.float(), C_coef.float()
+    h = h0.float()
+    y = dt32.new_empty(dt.shape)
+    for t in range(dt.shape[1]):
+        dA = torch.exp(dt32[:, t, :, None] * A32)
+        dBx = (dt32[:, t] * x32[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
+    return y, h
 
 
 def _flat_index(idx: torch.Tensor, B: int, n: int) -> torch.Tensor:

@@ -1,0 +1,200 @@
+"""Model-layer machinery of the port: parameter declarations and their two
+initialisers, norms, RoPE, decode attention over a KV cache, MLP,
+embedding and unembedding.
+
+Mirrors ``repro/models/layers.py`` on one card: the declarations keep the
+reference's shapes, ``init`` and ``std`` but carry no sharding (the
+reference's ``AxisRules`` and sharding constraints have no counterpart on
+one device). Prefill attention is kernel 7 (``kernels.ops.flash_attention``),
+called from ``models/transformer.py``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class ParamDecl(NamedTuple):
+    shape: tuple
+    init: str = "normal"  # "normal" | "ones" | "zeros"
+    std: float = 0.02
+
+
+def mlp_decls(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    out_std = 0.02 / np.sqrt(2 * max(cfg.n_layers, 1))
+    decls = {"w1": ParamDecl((d, f)), "w2": ParamDecl((f, d), std=out_std)}
+    if cfg.act == "swiglu":
+        decls["w3"] = ParamDecl((d, f))
+    return decls
+
+
+def attn_decls(cfg) -> dict:
+    d, H, KH, D = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+    out_std = 0.02 / np.sqrt(2 * max(cfg.n_layers, 1))
+    return {"wq": ParamDecl((d, H, D)), "wk": ParamDecl((d, KH, D)),
+            "wv": ParamDecl((d, KH, D)),
+            "wo": ParamDecl((H, D, d), std=out_std)}
+
+
+def embed_decls(cfg) -> dict:
+    V, d = cfg.vocab_padded, cfg.d_model
+    return {"tok": ParamDecl((V, d)),
+            "out": ParamDecl((d, V), std=0.02 / np.sqrt(max(cfg.n_layers, 1))),
+            "ln_f": ParamDecl((d,), init="ones")}
+
+
+def block_decls(cfg) -> dict:
+    """One layer's declarations, in the reference's order
+    (``transformer.py:build_decoder_lm``)."""
+    from repro_torch.models import ssm as ssm_lib
+
+    block: dict = {"ln1": ParamDecl((cfg.d_model,), init="ones")}
+    if cfg.family != "ssm":
+        block["attn"] = attn_decls(cfg)
+    if cfg.ssm_state > 0:
+        block["ssm"] = ssm_lib.ssm_decls(cfg)
+    if cfg.d_ff > 0:
+        block["ln2"] = ParamDecl((cfg.d_model,), init="ones")
+        block["ffn"] = mlp_decls(cfg)
+    return block
+
+
+def _leaves(decls: Mapping, prefix: str = ""):
+    """(dotted name, decl) of a nested declaration tree, in order."""
+    for name, d in decls.items():
+        if isinstance(d, Mapping):
+            yield from _leaves(d, f"{prefix}{name}.")
+        else:
+            yield prefix + name, d
+
+
+def _draw(decl: ParamDecl, shape, normal):
+    if decl.init == "ones":
+        return np.ones(shape, np.float32)
+    if decl.init == "zeros":
+        return np.zeros(shape, np.float32)
+    return normal(shape) * np.float32(decl.std)
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """The reference's parameter tree (``embed.{tok,out,ln_f}``;
+    ``layers.*`` with a leading layer axis) as float32 numpy arrays, drawn
+    with ``np.random.default_rng(seed)`` leaf by leaf in declaration order:
+    the same values for both packages in the parity tests and the
+    reference rows."""
+    rng = np.random.default_rng(seed)
+    normal = lambda shape: rng.standard_normal(shape, np.float32)  # noqa: E731
+    L = cfg.n_layers
+    out: dict = {"embed": {}, "layers": {}}
+    for name, d in _leaves(embed_decls(cfg)):
+        out["embed"][name] = _draw(d, d.shape, normal)
+    for name, d in _leaves(block_decls(cfg)):
+        node = out["layers"]
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = _draw(d, (L,) + tuple(d.shape), normal)
+    return out
+
+
+def init_params(cfg, generator: torch.Generator, dtype=None,
+                device="cuda") -> dict:
+    """The port's state dict (``embed.*``, ``layers.<i>.*``) drawn from
+    ``generator`` on ``device``, following each declaration's ``init`` and
+    ``std``, in ``dtype`` (default the config's ``param_dtype``). Normal
+    draws are float32, then cast, one tensor at a time."""
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+
+    def draw(d: ParamDecl):
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        x = torch.randn(d.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.mul_(d.std).to(dtype)
+
+    out = {f"embed.{n}": draw(d) for n, d in _leaves(embed_decls(cfg))}
+    block = list(_leaves(block_decls(cfg)))
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{n}": draw(d) for n, d in block})
+    return out
+
+
+# --------------------------------------------------------------------------
+# Primitive layers
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float):
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: (..., S, H, D); positions broadcastable to
+    (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs  # (..., S, half)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(x, p, act: str):
+    if act == "swiglu":
+        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    elif act == "relu2":
+        h = torch.square(F.relu(x @ p["w1"]))
+    else:  # gelu
+        h = F.gelu(x @ p["w1"], approximate="tanh")
+    return h @ p["w2"]
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
+                     slot_pos=None):
+    """Single-token attention against a KV cache.
+
+    q: (B, H, D); caches (B, S, KH, D); ``pos`` the absolute position of
+    the current token. With ``slot_pos`` (broadcastable to (B, S)) the
+    cache is a ring buffer whose slot ``s`` holds position ``slot_pos[.., s]``,
+    and ``window`` > 0 also drops positions ``<= pos - window``. Scores in
+    float32; the probabilities are rounded to the cache's type before the
+    value product, as the reference does."""
+    B, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qr, k_cache.float()) * (
+        1.0 / math.sqrt(D))
+    if slot_pos is None:
+        valid = (torch.arange(S, device=q.device) <= pos)[None, :]
+    else:
+        valid = slot_pos <= pos
+        if window:
+            valid = valid & (slot_pos > pos - window)
+    valid = valid[:, None, None, :]
+    s = s.masked_fill(~valid, -math.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(valid, p, 0.0)
+    out = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out / p.sum(dim=-1, keepdim=True)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def embed_tokens(emb, tokens, compute_dtype):
+    return emb["tok"][tokens].to(compute_dtype)
+
+
+def unembed(emb, x, eps: float):
+    return (rms_norm(x, emb["ln_f"], eps) @ emb["out"]).float()

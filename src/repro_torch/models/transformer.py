@@ -1,0 +1,225 @@
+"""Decoder-only LM of the port for the dense, hybrid and ssm families.
+
+Mirrors ``repro/models/transformer.py::build_decoder_lm`` as an
+``nn.Module``: a stack of blocks (attention and/or Mamba heads, then an
+MLP), with three entry points — ``prefill`` (prompt -> last-position
+logits and the stacked cache), ``decode`` (one token at a shared position)
+and ``make_cache``. Prefill attention runs through kernel 7 and the
+prefill scan through kernel 6 (``kernels/ops.py``); decode is plain
+PyTorch, as the reference computes it outside any Pallas kernel.
+
+Caches are stacked over layers, ``(L, ...)``, with the reference's keys
+(``k``, ``v``, ``slot_pos`` for a sliding window; ``conv``, ``ssm``), so
+``convert.lm_cache_from_jax`` maps them one to one. ``decode`` writes the
+new token's entries into the cache it is given, in place (the reference
+returns a new tree; the serving loop drops the old one either way), and
+returns that cache.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (
+    block_decls, decode_attention, embed_decls, embed_tokens, mlp_apply,
+    rms_norm, rope, unembed,
+)
+
+FAMILIES = ("dense", "hybrid", "ssm")
+RING_EMPTY = -(2 ** 30)  # slot_pos of a ring slot no token has filled
+
+
+def _params(decls, dtype, device) -> nn.ParameterDict:
+    """Uninitialised parameters of a declaration tree (nested dicts)."""
+    out = nn.ParameterDict()
+    for name, d in decls.items():
+        if isinstance(d, dict):
+            out[name] = _params(d, dtype, device)
+        else:
+            out[name] = nn.Parameter(
+                torch.empty(d.shape, dtype=dtype, device=device),
+                requires_grad=False)
+    return out
+
+
+class DecoderLM(nn.Module):
+    """The LM on one device. Parameters start uninitialised: load them
+    with :meth:`load_params` (``layers.init_params`` draws a set)."""
+
+    def __init__(self, cfg, *, device="cuda", dtype=None,
+                 core: str = "kernel"):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r}")
+        if core not in ops.CORES:
+            raise ValueError(f"core must be one of {ops.CORES}, got {core!r}")
+        self.cfg = cfg
+        self.core = core  # "plain" routes kernels 6 and 7 to ref.py
+        self.device = torch.device(device)
+        self.param_dtype = dtype or getattr(torch, cfg.param_dtype)
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.has_attn = cfg.family != "ssm"
+        self.has_ssm = cfg.ssm_state > 0
+        self.has_mlp = cfg.d_ff > 0
+        self.embed = _params(embed_decls(cfg), self.param_dtype, self.device)
+        block = block_decls(cfg)
+        self.layers = nn.ModuleList(
+            _params(block, self.param_dtype, self.device)
+            for _ in range(cfg.n_layers))
+
+    def load_params(self, state: dict) -> "DecoderLM":
+        """Take ``state`` (``embed.*``, ``layers.<i>.*``; every parameter,
+        each of its declared shape) as the parameters, without a copy when
+        it is already on the device in the parameter type."""
+        state = {k: v.to(self.device, self.param_dtype)
+                 for k, v in state.items()}
+        self.load_state_dict(state, strict=True, assign=True)
+        for p in self.parameters():
+            p.requires_grad_(False)
+        return self
+
+    # ---------------- attention ----------------
+    def _attn_seq(self, pl, x):
+        """Prefill attention (kernel 7) and the layer's KV cache."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        B, S, _ = x.shape
+        q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(cdt))
+        k = torch.einsum("bsd,dhk->bshk", x, pl["wk"].to(cdt))
+        v = torch.einsum("bsd,dhk->bshk", x, pl["wv"].to(cdt))
+        pos = torch.arange(S, device=x.device)[None]
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        o = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True,
+                                window=cfg.sliding_window, core=self.core)
+        out = torch.einsum("bshk,hkd->bsd", o, pl["wo"].to(cdt))
+        window = cfg.sliding_window
+        if not window:
+            return out, {"k": k, "v": v}
+        w_eff = min(window, S)
+        positions = torch.arange(S - w_eff, S, device=x.device)
+        slots = positions % window
+
+        def ring(t):
+            return t.new_zeros((B, window) + t.shape[2:]).index_copy_(
+                1, slots, t[:, -w_eff:])
+
+        slot_pos = torch.full((window,), RING_EMPTY, dtype=torch.int32,
+                              device=x.device)
+        slot_pos[slots] = positions.to(torch.int32)
+        return out, {"k": ring(k), "v": ring(v), "slot_pos": slot_pos}
+
+    def _attn_dec(self, pl, x, cache, l, pos: int):
+        """One token's attention; writes its K/V into layer ``l`` of the
+        stacked cache."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        q = torch.einsum("bd,dhk->bhk", x, pl["wq"].to(cdt))
+        k = torch.einsum("bd,dhk->bhk", x, pl["wk"].to(cdt))
+        v = torch.einsum("bd,dhk->bhk", x, pl["wv"].to(cdt))
+        posb = torch.full((1, 1), pos, device=x.device)
+        q = rope(q[:, None], posb, cfg.rope_theta)[:, 0]
+        k = rope(k[:, None], posb, cfg.rope_theta)[:, 0]
+        window = cfg.sliding_window
+        slot = pos % window if window else pos
+        kc, vc = cache["k"][l], cache["v"][l]
+        kc[:, slot] = k
+        vc[:, slot] = v
+        if window:
+            sp = cache["slot_pos"][l]
+            sp[slot] = pos
+            o = decode_attention(q, kc, vc, pos, window=window,
+                                 slot_pos=sp[None])
+        else:
+            o = decode_attention(q, kc, vc, pos)
+        return torch.einsum("bhk,hkd->bd", o, pl["wo"].to(cdt))
+
+    # ---------------- blocks ----------------
+    def _seq_block(self, pl, x):
+        cfg = self.cfg
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        if self.has_attn and self.has_ssm:  # hybrid: parallel heads
+            ao, kv = self._attn_seq(pl["attn"], h)
+            so, sc = ssm_lib.ssm_apply_seq(pl["ssm"], h, cfg, core=self.core)
+            x = x + (ao + so) * 0.5
+            cache = dict(kv, **sc)
+        elif self.has_attn:
+            ao, cache = self._attn_seq(pl["attn"], h)
+            x = x + ao
+        else:
+            so, cache = ssm_lib.ssm_apply_seq(pl["ssm"], h, cfg,
+                                              core=self.core)
+            x = x + so
+        if self.has_mlp:
+            x = x + mlp_apply(rms_norm(x, pl["ln2"], cfg.norm_eps),
+                              pl["ffn"], cfg.act)
+        return x, cache
+
+    def _dec_block(self, pl, x, cache, l, pos):
+        cfg = self.cfg
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        if self.has_ssm:
+            layer = {k: cache[k][l] for k in ("conv", "ssm")}
+            so, sc = ssm_lib.ssm_apply_decode(pl["ssm"], h, layer, cfg)
+            for k, val in sc.items():
+                cache[k][l] = val
+        if self.has_attn and self.has_ssm:
+            ao = self._attn_dec(pl["attn"], h, cache, l, pos)
+            x = x + (ao + so) * 0.5
+        elif self.has_attn:
+            x = x + self._attn_dec(pl["attn"], h, cache, l, pos)
+        else:
+            x = x + so
+        if self.has_mlp:
+            x = x + mlp_apply(rms_norm(x, pl["ln2"], cfg.norm_eps),
+                              pl["ffn"], cfg.act)
+        return x
+
+    # ---------------- public entry points ----------------
+    @torch.no_grad()
+    def prefill(self, batch: dict):
+        """batch ``tokens`` (B, S) -> (last-position logits (B, V_pad)
+        float32, stacked cache)."""
+        tokens = batch["tokens"].to(self.device)
+        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        caches = []
+        for pl in self.layers:
+            x, c = self._seq_block(pl, x)
+            caches.append(c)
+        logits = unembed(self.embed, x[:, -1], self.cfg.norm_eps)
+        cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        return logits, cache
+
+    @torch.no_grad()
+    def decode(self, cache: dict, tokens, pos: int):
+        """tokens (B, 1) at absolute position ``pos`` -> (logits (B, V_pad)
+        float32, cache updated in place)."""
+        pos = int(pos)
+        x = embed_tokens(self.embed, tokens[:, 0].to(self.device),
+                         self.compute_dtype)
+        for l, pl in enumerate(self.layers):
+            x = self._dec_block(pl, x, cache, l, pos)
+        return unembed(self.embed, x, self.cfg.norm_eps), cache
+
+    def cache_shapes(self, batch: int, seq: int) -> dict:
+        """{key: (shape, dtype)} of the stacked cache, as the reference's
+        ``cache_shapes``."""
+        cfg, L = self.cfg, self.cfg.n_layers
+        out = {}
+        if self.has_attn:
+            window = cfg.sliding_window
+            s = min(seq, window) if window else seq
+            kv = (L, batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+            out["k"] = (kv, self.compute_dtype)
+            out["v"] = (kv, self.compute_dtype)
+            if window:
+                out["slot_pos"] = ((L, window), torch.int32)
+        if self.has_ssm:
+            for k, (shape, dt) in ssm_lib.ssm_cache_shape(
+                    cfg, batch, self.compute_dtype).items():
+                out[k] = ((L,) + shape, dt)
+        return out
+
+    def make_cache(self, batch: int, seq: int) -> dict:
+        return {k: torch.zeros(shape, dtype=dt, device=self.device)
+                for k, (shape, dt) in self.cache_shapes(batch, seq).items()}

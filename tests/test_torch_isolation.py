@@ -40,11 +40,16 @@ def test_port_imports_without_jax_or_reference():
     assert "repro_torch.core.fabric.simulator" in mods
     assert "repro_torch.kernels.fabric_step" in mods
     assert "repro_torch.kernels.fused_reduce" in mods
+    for m in ("repro_torch.models.transformer", "repro_torch.runtime.serve",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ssm_scan"):
+        assert m in mods, m
     drivers = ["benchmarks." + os.path.basename(f)[:-3]
                for f in _driver_files()]
     assert "benchmarks.pt_run" in drivers
     assert "benchmarks.pt_fig1_breakdown" in drivers
     mods = mods + drivers
+    assert "benchmarks.pt_serve" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -1,0 +1,160 @@
+"""Kernel 6, the fused selective scan, and the SSM block around it: the
+port's plain version (what a CPU tensor runs) against the JAX package's
+Pallas kernel in interpret mode and its jnp oracle, and the port's
+``ssm_apply_seq`` / ``ssm_apply_decode`` against ``repro.models.ssm``, on
+the same numpy-made inputs.
+
+Tolerances, relative to the largest magnitude of the compared output
+(``_close``): 2e-6 for float32. The measured gap is at most 3.2e-7, the
+summation order of the y contraction and of the chunked associative
+scan; a deliberate fault, A scaled by 0.999, moves the scan's outputs
+and the block's y and state by 7.7e-5 to 8.9e-4 relative. bfloat16 x is
+rounded the same way on both sides before the float32 scan, so the
+float32 limit holds.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.configs import get_config as tget  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import ssm_scan as tss  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+REL = 2e-6
+# (B, T, Di, N); T = 1 and a Di that is no multiple of any block
+SHAPES = [(1, 8, 64, 8), (2, 12, 96, 16), (1, 1, 50, 8), (2, 16, 37, 16)]
+
+
+def _close(got, want, rel=REL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= rel, f"relative error {err:.3g} > {rel}"
+
+
+def _scan_inputs(shape, seed=0):
+    B, T, Di, N = shape
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
+    dt = np.log1p(np.exp(f(B, T, Di)))  # softplus, as the model's dt
+    A = -np.exp(f(Di, N))
+    return dt, A, f(B, T, N), f(B, T, N), f(B, T, Di), f(B, Di, N)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_kernel_and_oracle(shape, x_dtype):
+    dt, A, Bc, Cc, x, h0 = _scan_inputs(shape)
+    jx = jnp.asarray(x).astype(x_dtype)
+    tx = torch.as_tensor(x).to(getattr(torch, x_dtype))
+    j = [jnp.asarray(a) for a in (dt, A, Bc, Cc)]
+    y, hT = tops.fused_selective_scan(
+        *(torch.as_tensor(a) for a in (dt, A, Bc, Cc)), tx,
+        torch.as_tensor(h0))
+    assert y.dtype == hT.dtype == torch.float32
+    for jy, jh in (jops.fused_selective_scan(*j, jx, jnp.asarray(h0),
+                                             block_d=32),
+                   jref.fused_selective_scan(*j, jx, jnp.asarray(h0))):
+        _close(y.numpy(), jy)
+        _close(hT.numpy(), jh)
+
+
+def test_wrapper_takes_only_cuda_tensors():
+    args = [torch.as_tensor(a) for a in _scan_inputs(SHAPES[0])]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tss.fused_selective_scan(*args)
+    with pytest.raises(ValueError, match="core"):
+        tops.fused_selective_scan(*args, core="fast")
+    for a, b in zip(tops.fused_selective_scan(*args),
+                    tref.fused_selective_scan(*args)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- block
+
+def _block_params(cfg, seed):
+    """One SSM layer's parameters at Mamba-like scales, so activations are
+    of order one and a fault in the scan shows in y (numpy, float32)."""
+    rng = np.random.default_rng(seed)
+    d, di, n, r, W = (cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state,
+                      cfg.resolved_dt_rank, cfg.conv_width)
+    f = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
+    p = {"in_proj": f(d, 2 * di) / np.sqrt(d),
+         "conv_w": f(di, W) * 0.5, "conv_b": f(di) * 0.1,
+         "x_proj": f(di, r + 2 * n) / np.sqrt(di),
+         "dt_proj": f(r, di) / np.sqrt(r), "dt_bias": f(di) * 0.5 - 2.0,
+         "a_log": np.log(np.tile(np.arange(1, n + 1, dtype=np.float32),
+                                 (di, 1))),
+         "d_skip": np.ones(di, np.float32),
+         "out_proj": f(di, d) / np.sqrt(di)}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("S", [3, 16, 48])
+def test_ssm_block_matches_jax(arch, S):
+    jcfg, tcfg = get_config(arch).reduced(), tget(arch).reduced()
+    p = _block_params(tcfg, seed=S)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.as_tensor(v) for k, v in p.items()}
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, S, tcfg.d_model), np.float32)
+    jy, jc = jssm.ssm_apply_seq(jp, jnp.asarray(x), jcfg)
+    ty, tc = tssm.ssm_apply_seq(tp, torch.as_tensor(x), tcfg)
+    _close(ty.numpy(), jy)
+    _close(tc["ssm"].numpy(), jc["ssm"])
+    np.testing.assert_array_equal(tc["conv"].numpy(), np.asarray(jc["conv"]))
+    # one decode step from the reference's cache
+    xd = rng.standard_normal((2, tcfg.d_model), np.float32)
+    jd, jdc = jssm.ssm_apply_decode(jp, jnp.asarray(xd), jc, jcfg)
+    cache = {k: torch.as_tensor(np.array(v)) for k, v in jc.items()}
+    td, tdc = tssm.ssm_apply_decode(tp, torch.as_tensor(xd), cache, tcfg)
+    _close(td.numpy(), jd)
+    _close(tdc["ssm"].numpy(), jdc["ssm"])
+    np.testing.assert_array_equal(tdc["conv"].numpy(),
+                                  np.asarray(jdc["conv"]))
+
+
+def test_ssm_block_refuses_what_the_reference_refuses():
+    """S must be a multiple of min(256, S) in both packages."""
+    jcfg, tcfg = get_config("hymba-1.5b").reduced(), \
+        tget("hymba-1.5b").reduced()
+    p = _block_params(tcfg, seed=0)
+    x = np.zeros((1, 300, tcfg.d_model), np.float32)
+    with pytest.raises(AssertionError):
+        jssm.ssm_apply_seq({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x), jcfg)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tssm.ssm_apply_seq({k: torch.as_tensor(v) for k, v in p.items()},
+                           torch.as_tensor(x), tcfg)
+    # 512 = 2 chunks of 256 passes both
+    cfg = dataclasses.replace(tcfg, d_model=16, d_inner=16)
+    y, _ = tssm.ssm_apply_seq(
+        {k: torch.as_tensor(v) for k, v in _block_params(cfg, 1).items()},
+        torch.zeros(1, 512, 16), cfg)
+    assert y.shape == (1, 512, 16)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """Needs an NVIDIA card (sm_90a) and nvcc; chip_smoke.py runs the same
+    comparison at hymba's serve shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    for shape in SHAPES + [(2, 300, 3200, 16), (1, 64, 1000, 8)]:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            args = [torch.as_tensor(a).cuda() for a in _scan_inputs(shape)]
+            args[4] = args[4].to(x_dtype)
+            for got, want in zip(tss.fused_selective_scan(*args),
+                                 tref.fused_selective_scan(*args)):
+                _close(got.cpu().numpy(), want.cpu().numpy(), rel=1e-5)
