@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|lm]``
+[--only fabric|lm|train]``
 
 Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
 package as it stands. ``fabric`` (the default part of the run) writes
@@ -29,8 +29,17 @@ LM_REFERENCE``), with the parameters of
 prompts (crossing the 1024-token window), then 8 decode steps fed JAX's
 own greedy tokens. Per step and row it keeps the greedy token, its top-2
 margin, the top-16 ids and logits, the logsumexp and the logits at 64
-fixed vocabulary indices, never whole logit rows. Without ``--only``
-both parts run.
+fixed vocabulary indices, never whole logit rows.
+
+``train`` writes ``artifacts/bench_cache_torch/jax_train_reference.json``:
+hymba-1.5b at full width, 2 layers, float32 (``benchmarks.pt_train.
+TRAIN_REFERENCE``), the same parameters, ``make_train_step`` with
+``adamw`` and the stored ``OptConfig`` for 3 steps on ``SyntheticLM``
+batches of 2 x 1280 tokens. Per step it keeps the loss and the global
+gradient norm; for step 0 each leaf's gradient norm and the gradient at a
+few probed elements per leaf; after the last step the parameters at the
+same elements. Leaves carry the port's names (``layers.<i>.*``). Without
+``--only`` all three parts run.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ FIG5_GRIDS = (("leonardo", 64, "incast"), ("leonardo", 256, "incast"),
 # its vector size: long enough that the runs cross burst/pause edges
 FIG6_BURST_PAUSE = ("leonardo", 64, "incast", 2 << 20)
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
+TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
 
 
 def _commit() -> str:
@@ -262,6 +272,73 @@ def lm_reference() -> dict:
             "steps": steps, "wall_s": time.time() - t0}
 
 
+def train_reference() -> dict:
+    """The training reference rows (module docstring), on the JAX
+    package."""
+    import jax
+    import jax.numpy as jnp
+
+    from benchmarks import pt_train
+    from repro.configs import get_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.launch.steps import make_train_step
+    from repro.models.api import build_model
+    from repro.models.layers import single_device_rules
+    from repro.optim.adamw import OptConfig, adamw
+    from repro_torch import convert
+    from repro_torch.models.layers import numpy_params
+
+    r = pt_train.TRAIN_REFERENCE
+    cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
+                              param_dtype=r["dtype"],
+                              compute_dtype=r["dtype"], remat="none")
+    tcfg = pt_train.reference_config()
+    model = build_model(cfg, single_device_rules(), None)
+    params_np = numpy_params(tcfg, r["param_seed"])
+    params = jax.tree.map(jnp.asarray, params_np)
+    opt = adamw(OptConfig(**r["opt"]))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=r["seq_len"],
+                                  global_batch=r["batch"],
+                                  seed=r["data_seed"]))
+
+    def port_leaves(tree):
+        return {k: v.numpy() for k, v in convert.lm_params_from_jax(
+            jax.tree.map(np.asarray, tree), tcfg).items()}
+
+    shapes = {k: v.shape for k, v in port_leaves(params).items()}
+    probes = pt_train.probe_index(shapes)
+    t0 = time.time()
+    batch0 = jax.tree.map(jnp.asarray, data.batch_at(0))
+    (loss0, _), grads0 = jax.jit(jax.value_and_grad(
+        model.loss, has_aux=True))(params, batch0)
+    grad0 = pt_train.leaf_summary(port_leaves(grads0), probes)
+    print(f"train step-0 gradient: loss {float(loss0)} "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    step = jax.jit(make_train_step(model, opt))
+    state = {"params": params, "opt": opt.init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    steps = []
+    for i in range(r["steps"]):
+        state, metrics = step(state, jax.tree.map(jnp.asarray,
+                                                  data.batch_at(i)))
+        steps.append({"loss": float(metrics["loss"]),
+                      "total_loss": float(metrics["total_loss"]),
+                      "grad_norm": float(metrics["grad_norm"])})
+        print(f"train step {i}: {steps[-1]} ({time.time() - t0:.1f}s)",
+              flush=True)
+    after = pt_train.leaf_summary(port_leaves(state["params"]), probes)
+    return {"source": "benchmarks/pt_jax_reference.py --only train",
+            "jax_version": jax.__version__,
+            "jax_backend": jax.default_backend(), "commit": _commit(),
+            "config": {**r, "name": cfg.name, "d_model": cfg.d_model,
+                       "vocab_padded": cfg.vocab_padded,
+                       "sliding_window": cfg.sliding_window},
+            "probe_index": probes, "steps": steps,
+            "grad0": grad0, "params_after": after,
+            "wall_s": time.time() - t0}
+
+
 def _write(doc: dict, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -275,7 +352,8 @@ def main() -> None:
     ap.add_argument("--out", default=None,
                     help="output file (default: the part's file under "
                          "artifacts/bench_cache_torch/)")
-    ap.add_argument("--only", choices=("fabric", "lm"), default=None)
+    ap.add_argument("--only", choices=("fabric", "lm", "train"),
+                    default=None)
     args = ap.parse_args()
     import jax
 
@@ -293,6 +371,8 @@ def main() -> None:
         _write(doc, args.out or OUT)
     if args.only in (None, "lm"):
         _write(lm_reference(), (args.only and args.out) or LM_OUT)
+    if args.only in (None, "train"):
+        _write(train_reference(), (args.only and args.out) or TRAIN_OUT)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/`` on first use, the four nvcc runs started together), then:
+Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
+``build/`` on first use, the seven nvcc runs started together), then:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the fabric-step, fused-accumulate, flash-attention and
-   selective-scan kernels and reports the build time;
+2. builds the fabric-step, fused-accumulate, flash-attention (forward and
+   backward), selective-scan, state-scan and int8 quantize/dequantize
+   kernels and reports the build time;
 3. holds the fabric-step kernel against its plain PyTorch version on the
    card at the characterization grids' shapes, at the shapes and batch
    sizes each figure path gives it (Fig. 1's 8-node ring AllReduce, Fig.
@@ -54,7 +55,34 @@ Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` (into
    wave 1's prefill logits held kernel vs plain on the same weights;
 13. times kernels 6 and 7 at the serve shape (B = 8, S = 1280, bfloat16)
    beside their plain versions, bounds and, for attention, PyTorch's
-   ``scaled_dot_product_attention`` at S = 1024.
+   ``scaled_dot_product_attention`` at S = 1024;
+14. ``quant_vs_plain``: kernels 3 and 4 bit-equal to their plain versions
+   on ragged row counts, an all-zero block, exact .5 ties and the largest
+   leaf of hymba-1.5b's gradient tree (``embed.tok``, padded as
+   ``compress_leaf`` pads it);
+15. ``ssm_scan_vs_plain``: kernel 5, forward and reverse, at the training
+   shape (4, 1280, 3200, 16), a ragged d_inner and N = 8;
+16. ``flash_attention_bwd_vs_plain``: the attention backward against
+   ``ref.flash_attention_bwd`` and autograd of the plain forward, at the
+   training shape (B = 4, S = 1280, 25/5 heads x 64, window 1024) in
+   float32 and bfloat16, S = 1000, G = 1 with D = 128, and non-causal
+   with a window (rows with no live key);
+17. ``train_vs_jax``: full-width 2-layer hymba-1.5b, float32 (TF32 off),
+   3 AdamW steps through the kernels, held to
+   ``artifacts/bench_cache_torch/jax_train_reference.json``;
+18. ``train``: full-depth bfloat16 hymba-1.5b through the port's
+   ``Trainer`` (``benchmarks/pt_train.py``): 8 steps at B = 4, S = 1280,
+   a checkpoint every 4, a node failure injected at step 6, with the
+   launch counts reset before and read after (per step 64 of kernels 5, 6
+   and 7 and 32 of the backward), and then the kernel path against the
+   plain one on the trained weights at 2 layers, float32 and bfloat16;
+19. ``compression``: error-feedback compression of the trained model's
+   last gradient tree through kernels 3 and 4, bit-equal to the plain
+   versions, with the residual bound and two steps telescoping;
+20. ``timing_train``: kernels 3 and 4 at the largest leaf, kernel 5 forward
+   and reverse at the training shape and the attention backward at the
+   training shape and at S = 1024 beside the backward of
+   ``scaled_dot_product_attention``.
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -63,6 +91,7 @@ without that line. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -99,6 +128,21 @@ KERNEL6 = {"name": "fused_selective_scan", "route": "cuda",
 KERNEL7 = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:74"}
+KERNEL3 = {"name": "quantize_int8", "route": "cuda",
+           "source": "src/repro_torch/csrc/quant.cu",
+           "replaces": "src/repro/kernels/quant.py:30"}
+KERNEL4 = {"name": "dequantize_int8", "route": "cuda",
+           "source": "src/repro_torch/csrc/quant.cu",
+           "replaces": "src/repro/kernels/quant.py:53"}
+KERNEL5 = {"name": "ssm_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/state_scan.cu",
+           "replaces": "src/repro/kernels/ssm_scan.py:33"}
+KERNEL7B = {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:74",
+            "note": "the gradient of kernel 7; the TPU package has no "
+                    "backward kernel (XLA differentiates "
+                    "src/repro/models/layers.py:225)"}
 # hymba-1.5b's attention heads (H, KH, D), its window, its SSM (Di, N)
 # and the serve shape (B, S)
 HYMBA_HEADS = (25, 5, 64)
@@ -124,6 +168,32 @@ LM_TOL = 8e-6
 # (H100, PERF.md §6)
 SERVE_BF16_REL = 0.1
 SERVE_F32_REL = 1e-4
+TRAIN_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
+                               "jax_train_reference.json")
+# the training shape (B, S), its steps, checkpoint interval and failure
+TRAIN_B, TRAIN_S = 4, 1280
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+# kernel 5 and the attention backward vs plain. Kernel 5: hs and h_T
+# within 2e-6 of the largest |h| (both round a product and a sum per step,
+# --fmad=false, so they are expected bit-equal). The backward in float32:
+# 1e-5 of the largest gradient magnitude (sums over up to ~5,000 rows in
+# another order: 4.5e-6 measured at the training shape); in bfloat16 one
+# bfloat16 step (2**-7) of each value plus that, as both round one float32
+# result
+STATE_SCAN_REL = 2e-6
+FA_BWD_F32_REL = 1e-5
+# kernel 7's row log-sum-exp vs the plain one, absolute, where a row has a
+# live key (a row with none must be -inf in both): a float32 max plus the
+# log of a sum of up to 1280 exps in another order, |lse| ~ 8 on these
+# inputs, so a few float32 steps at 8 (~1e-6) are expected
+FA_LSE_ABS = 2e-5
+# train: the trained weights at 2 layers, kernel path vs plain, loss and
+# per-leaf gradient norms relative. float32: float32 summation order only;
+# the paths have read loss equal and norms 5.9e-8 apart, while a window one
+# key too wide in the backward moved them 6.7e-5 on the CPU (PERF.md §2).
+# bfloat16: rounding of activations and gradients, read 7.6e-7 and 3.0e-4
+TRAIN_F32_REL = {"loss": 1e-6, "grad_norm": 2e-6}
+TRAIN_BF16_REL = {"loss": 1e-4, "grad_norm": 5e-3}
 # kernel 2's float32 tiles on the fig1 path (1, 16 and 128 MiB), the
 # reference's edge-tile test shape, and the tile the kernels line reports
 FIG1_TILES = ((64, 512), (1024, 512), (8192, 512))
@@ -216,21 +286,29 @@ class Smoke:
         from repro_torch.kernels import fabric_step as fs
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_reduce as fr
+        from repro_torch.kernels import quant as qt
         from repro_torch.kernels import ssm_scan as ss
-        kernels = (fs, fr, fa, ss)
+        # (source, flags, loader): one nvcc per source, all started together
+        sources = ((fs.SOURCE, fs.FLAGS, fs._load),
+                   (fr.SOURCE, fr.FLAGS, fr._load),
+                   (fa.SOURCE, fa.FLAGS, fa._load),
+                   (fa.BWD_SOURCE, fa.FLAGS, fa._load_bwd),
+                   (ss.SOURCE, ss.FLAGS, ss._load),
+                   (ss.SCAN_SOURCE, ss.FLAGS, ss._load_scan),
+                   (qt.SOURCE, qt.FLAGS, qt._load))
         t0 = time.time()
-        with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
-            libs = list(pool.map(lambda k: _build.build(k.SOURCE, k.FLAGS),
-                                 kernels))
-        for k in kernels:
-            k._load()
+        with ThreadPoolExecutor(len(sources)) as pool:
+            libs = list(pool.map(lambda k: _build.build(k[0], k[1]),
+                                 sources))
+        for _, _, load in sources:
+            load()
         self.report["build_s"] = time.time() - t0
-        for k, lib in zip(kernels, libs):
+        for (src, flags, _), lib in zip(sources, libs):
             log(f"built {os.path.relpath(lib, ROOT)}")
-            for line in _build.log(k.SOURCE, k.FLAGS).splitlines():
+            for line in _build.log(src, flags).splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("   ptxas:", line.strip())
-        log(f"   all four built in {time.time() - t0:.1f}s")
+        log(f"   all {len(sources)} built in {time.time() - t0:.1f}s")
 
     # ------------------------------------------------------------ inputs
     def grid_case(self, system, n, victim, aggr, sizes=None, profiles=None):
@@ -599,24 +677,37 @@ class Smoke:
                 "grid_steps": steps}
 
     # ---------------------------------------------------------------- 7
+    def counters(self):
+        """{kernel name: its wrapper's launch count}."""
+        from repro_torch.kernels import fabric_step as fs, fused_reduce as fr
+        from repro_torch.kernels import flash_attention as fa, quant as qt
+        from repro_torch.kernels import ssm_scan as ss
+        return {"fabric_step_core": fs.launches,
+                "fused_accumulate": fr.launches,
+                "flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches,
+                "fused_selective_scan": ss.launches,
+                "ssm_scan": ss.scan_launches,
+                "quantize_int8": qt.launches,
+                "dequantize_int8": qt.dq_launches}
+
     def path(self, name, fn):
         """Drive one path with every launch count set to 0 just before it
         and read just after; each kernel of the path must have launched,
         and kernel 1 once per engine step."""
         from repro_torch.core.fabric import simulator as sim
         from repro_torch.kernels import fabric_step as fs, fused_reduce as fr
-        from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+        from repro_torch.kernels import flash_attention as fa, quant as qt
+        from repro_torch.kernels import ssm_scan as ss
         fs.launches = fr.launches = fa.launches = ss.launches = 0
+        fa.bwd_launches = ss.scan_launches = qt.launches = qt.dq_launches = 0
         sim.step_count = 0
         t0 = time.time()
         kernels = fn()
         wall = time.time() - t0
-        counts = {"fabric_step_core": fs.launches,
-                  "fused_accumulate": fr.launches,
-                  "flash_attention": fa.launches,
-                  "fused_selective_scan": ss.launches}
-        log(f"   {name}: {sim.step_count} engine steps, launches {counts}, "
-            f"{wall:.1f}s wall")
+        counts = self.counters()
+        log(f"   {name}: {sim.step_count} engine steps, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, {wall:.1f}s wall")
         self.check(fs.launches == sim.step_count,
                    f"{name}: kernel 1 launches {fs.launches} != engine "
                    f"steps {sim.step_count}")
@@ -770,13 +861,16 @@ class Smoke:
             fn()
         return g.replay
 
-    def med_ms(self, fn, n=60):
+    def med_ms(self, fn, n=60, graph=True):
         """Median device time of one call between CUDA events, over n
         graph replays enqueued while the card sleeps, so no event pair
-        spans host launch overhead. A failed capture fails the phase."""
+        spans host launch overhead. A failed capture fails the phase.
+        ``graph=False`` enqueues the eager calls instead (for a backward
+        through autograd, whose engine launches on the forward's stream
+        and so outside a capture)."""
         import numpy as np
         torch = self.torch
-        run = self.graphed(fn)
+        run = self.graphed(fn) if graph else fn
         run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1150,6 +1244,500 @@ class Smoke:
         self.report["timing_lm"] = {"flash_attention": self.fa_timing,
                                     "fused_selective_scan": self.scan_timing}
 
+    # --------------------------------------------------------------- 14
+    def quant_inputs(self, shape, seed):
+        """Normal values at mixed row scales, an all-zero block, and a
+        block whose max is 127 so that x / scale hits exact .5 ties."""
+        torch = self.torch
+        R, C = shape
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        x = torch.randn(R, C, generator=g, device=self.dev)
+        x *= 10.0 ** torch.randint(-6, 4, (R, 1), generator=g,
+                                   device=self.dev).float()
+        x[0, :256] = 0.0
+        if R > 1 or C > 256:
+            t = x.view(-1)[256:512]
+            t.copy_(0.5 * torch.randint(-254, 255, (256,), generator=g,
+                                        device=self.dev).float())
+            t[0] = 127.0
+        return x
+
+    def quant_compare(self, label, x):
+        torch = self.torch
+        from repro_torch.kernels import quant as qt, ref
+        q, s = qt.quantize_int8(x)
+        wq, ws = ref.quantize_int8(x)
+        back = qt.dequantize_int8(wq, ws)
+        wback = ref.dequantize_int8(wq, ws)
+        torch.cuda.synchronize()
+        ok = (torch.equal(q, wq) and torch.equal(s, ws)
+              and torch.equal(back, wback))
+        self.check(ok, f"quant {label}: kernels 3/4 not bit-equal to plain")
+        log(f"   {label:40s} bit-equal {ok}")
+        return 0.0 if ok else float((back - wback).abs().max())
+
+    def quant_vs_plain(self):
+        from repro_torch.configs import get_config
+        from repro_torch.optim import compression as comp
+        cfg = get_config("hymba-1.5b")
+        n = 0
+        for shape in ((1, 256), (3, 512), (7, 768), (130, 1024),
+                      (1000, 256)):
+            self.quant_compare(f"{shape}", self.quant_inputs(shape, n))
+            n += 1
+        # embed.tok's gradient, flattened and padded as compress_leaf does
+        numel = cfg.vocab_padded * cfg.d_model
+        x = self.quant_inputs((1, numel), n)
+        x, _ = comp._pad_to_block(x.reshape(-1), comp.BLOCK)
+        self.quant_main_err = self.quant_compare(
+            f"embed.tok {cfg.vocab_padded} x {cfg.d_model} flat",
+            x.reshape(1, -1))
+
+    # --------------------------------------------------------------- 15
+    def state_scan_compare(self, label, B, T, Di, N, seed):
+        torch = self.torch
+        from repro_torch.kernels import ref, ssm_scan as ss
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        dA = torch.rand(B, T, Di, N, generator=g, device=self.dev) * 0.5 + 0.5
+        dBx = torch.randn(B, T, Di, N, generator=g, device=self.dev)
+        h0 = torch.randn(B, Di, N, generator=g, device=self.dev)
+        worst = 0.0
+        for reverse in (False, True):
+            got = ss.ssm_scan(dA, dBx, h0, reverse=reverse)
+            want = ref.ssm_scan(dA, dBx, h0, reverse=reverse)
+            torch.cuda.synchronize()
+            parts = []
+            for name, a, w in zip(("hs", "h_T"), got, want):
+                mabs = float((a - w).abs().max())
+                rel = mabs / max(float(w.abs().max()), 1e-30)
+                self.check(rel <= STATE_SCAN_REL and
+                           bool(torch.isfinite(a).all()),
+                           f"ssm_scan {label} reverse={reverse}: {name} rel "
+                           f"err {rel}")
+                worst = max(worst, mabs)
+                parts.append(f"{name} {mabs:.3g} bit-equal "
+                             f"{bool(torch.equal(a, w))}")
+            log(f"   {label:34s} reverse={reverse!s:5s} {', '.join(parts)}")
+        return worst
+
+    def ssm_scan_vs_plain(self):
+        Di, N = HYMBA_SSM
+        self.state_scan_err = self.state_scan_compare(
+            f"train B={TRAIN_B} T={TRAIN_S} Di={Di} N={N}", TRAIN_B, TRAIN_S,
+            Di, N, 0)
+        self.state_scan_compare("ragged Di (2, 200, 3000, 16)", 2, 200, 3000,
+                                16, 1)
+        self.state_scan_compare("N=8 (1, 100, 1000, 8)", 1, 100, 1000, 8, 2)
+
+    # --------------------------------------------------------------- 16
+    def fa_bwd_compare(self, label, B, Sq, Skv, heads, dtype, causal, window,
+                       seed):
+        """The attention backward vs ref.flash_attention_bwd on the same
+        card tensors, and (float32) vs autograd of the plain forward;
+        returns the max abs error."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        H, KH, D = heads
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        q, k, v, do = (torch.randn(B, S, h, D, generator=g, device=self.dev)
+                       .to(dtype) for S, h in ((Sq, H), (Skv, KH), (Skv, KH),
+                                               (Sq, H)))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+        want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+        auto = None
+        if dtype == torch.float32:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref.flash_attention(*leaves, causal=causal,
+                                window=window).backward(do)
+            auto = [t.grad for t in leaves]
+        _, lse_plain = ref.flash_attention(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        torch.cuda.synchronize()
+        dead = torch.isinf(lse_plain)
+        lse_err = float((lse - lse_plain).abs()[~dead].max()) \
+            if bool((~dead).any()) else 0.0
+        self.check(torch.equal(dead, torch.isinf(lse))
+                   and bool((lse[dead] < 0).all())
+                   and bool(torch.isfinite(lse[~dead]).all())
+                   and lse_err <= FA_LSE_ABS,
+                   f"flash_attention_bwd {label}: kernel lse {lse_err} from "
+                   f"plain, or -inf rows differ")
+        worst, parts = 0.0, [f"lse {lse_err:.3g} ({int(dead.sum())} -inf)"]
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err = (a.float() - w.float()).abs()
+            top = max(float(w.float().abs().max()), 1e-30)
+            if dtype == torch.float32:
+                ok = float(err.max()) <= FA_BWD_F32_REL * top
+            else:
+                ok = bool((err <= FA_BF16_RTOL * w.float().abs()
+                           + FA_BWD_F32_REL * top).all())
+            ok = ok and a.dtype == dtype and bool(torch.isfinite(a).all())
+            self.check(ok, f"flash_attention_bwd {label}: {name} max abs "
+                       f"err {float(err.max())} (largest {top})")
+            worst = max(worst, float(err.max()))
+            parts.append(f"{name} {float(err.max()):.3g}")
+        if auto is not None:
+            rel = max(float((a - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30) for a, w in zip(got, auto))
+            self.check(rel <= FA_BWD_F32_REL, f"flash_attention_bwd {label}:"
+                       f" {rel} from autograd of the plain forward")
+            parts.append(f"vs autograd {rel:.3g} of max")
+        log(f"   {label:46s} {', '.join(parts)}")
+        return worst
+
+    def fa_bwd_vs_plain(self):
+        torch = self.torch
+        H, KH, D = HYMBA_HEADS
+        n = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            err = self.fa_bwd_compare(
+                f"train B={TRAIN_B} S={TRAIN_S} {H}/{KH}x{D} {dtype} w="
+                f"{HYMBA_WINDOW}", TRAIN_B, TRAIN_S, TRAIN_S, HYMBA_HEADS,
+                dtype, True, HYMBA_WINDOW, n)
+            if dtype == torch.bfloat16:
+                self.fa_bwd_main_err = err
+            n += 1
+        for label, B, Sq, Skv, heads, causal, window in (
+                ("S=1000", 2, 1000, 1000, HYMBA_HEADS, True, HYMBA_WINDOW),
+                ("G=1 D=128", 2, 300, 300, (4, 4, 128), True, 0),
+                ("non-causal w=100, dead rows", 1, 300, 150, HYMBA_HEADS,
+                 False, 100)):
+            for dtype in (torch.float32, torch.bfloat16):
+                n += 1
+                self.fa_bwd_compare(f"{label} B={B} {dtype}", B, Sq, Skv,
+                                    heads, dtype, causal, window, n)
+
+    # --------------------------------------------------------------- 17
+    def train_vs_jax(self):
+        torch = self.torch
+        from benchmarks import pt_train
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(TRAIN_REFERENCE) as f:
+            ref = json.load(f)
+        log(f"   reference: jax {ref['jax_version']} ({ref['jax_backend']}) "
+            f"commit {ref['commit'][:12]}; TF32 off (matmul and cuDNN)")
+        got = pt_train.reference_run(self.dev, ref)
+        err = pt_train.reference_errors(got, ref)
+        for i, (g, w) in enumerate(zip(got["steps"], ref["steps"])):
+            log(f"   step {i}: loss {g['loss']:.7f} (jax {w['loss']:.7f}), "
+                f"grad norm {g['grad_norm']:.7f} (jax {w['grad_norm']:.7f})")
+        for k, limit in pt_train.TRAIN_TOL.items():
+            log(f"   {k}: {err[k]:.3g} (limit {limit})")
+            self.check(err[k] is not None and err[k] <= limit,
+                       f"train_vs_jax: {k} {err[k]} > {limit}")
+        self.report["train_vs_jax"] = {"steps": got["steps"],
+                                       "errors": err}
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 18
+    def leaf_grads(self, model, batch):
+        """(loss, {name: float64 gradient norm}) of one forward/backward."""
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = model.loss(batch)
+        loss.backward()
+        return float(loss.detach()), {
+            k: float(p.grad.double().norm()) for k, p in
+            model.named_parameters()}
+
+    def kernel_vs_plain_grads(self, label, model, batch, limits):
+        """The model's loss and per-leaf gradient norms through the kernels
+        and through the plain versions on the same weights."""
+        lk, gk = self.leaf_grads(model, batch)
+        model.core = "plain"
+        lp, gp = self.leaf_grads(model, batch)
+        model.core = "kernel"
+        dl = abs(lk - lp) / abs(lp)
+        dg = max(abs(gk[k] - gp[k]) / max(gp[k], 1e-30) for k in gp)
+        log(f"   {label}: loss {lk:.7f} vs plain {lp:.7f} ({dl:.3g} rel, "
+            f"limit {limits['loss']}); per-leaf gradient norms {dg:.3g} "
+            f"rel at worst (limit {limits['grad_norm']})")
+        self.check(dl <= limits["loss"], f"train {label}: loss {dl} rel")
+        self.check(dg <= limits["grad_norm"],
+                   f"train {label}: gradient norms {dg} rel")
+        return {"loss_rel": dl, "grad_norm_rel": dg}
+
+    def train(self):
+        torch = self.torch
+        import dataclasses
+        from benchmarks import pt_train
+        from repro_torch.configs import get_config
+        from repro_torch.models.api import build_model
+        cfg = get_config("hymba-1.5b")
+        per_step, out = [], {}
+
+        def instrument(trainer):
+            step_fn = trainer.step_fn
+
+            def timed(state, batch):
+                c0 = self.counters()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = step_fn(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                c1 = self.counters()
+                per_step.append({
+                    "step": state["step"], "ms": 1e3 * dt,
+                    "tokens_per_s": TRAIN_B * TRAIN_S / dt,
+                    "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {k: c1[k] - c0[k] for k in c1
+                                 if c1[k] != c0[k]}})
+                return res
+
+            trainer.step_fn = timed
+
+        def run():
+            trainer, res = pt_train.train(
+                cfg, self.dev, steps=TRAIN_STEPS, batch=TRAIN_B,
+                seq_len=TRAIN_S, ckpt_every=TRAIN_CKPT_EVERY,
+                fail_at=(TRAIN_FAIL_AT,), instrument=instrument)
+            out.update(trainer=trainer, res=res)
+            return ("flash_attention", "flash_attention_bwd",
+                    "fused_selective_scan", "ssm_scan")
+
+        counts = self.path("train", run)
+        trainer, res = out["trainer"], out["res"]
+        L = cfg.n_layers
+        # per step with remat="full": the forward and its recompute run
+        # kernels 6 and 7 once a layer each; the backward runs kernel 5
+        # twice a layer and the attention backward once
+        want = {"flash_attention": 2 * L, "fused_selective_scan": 2 * L,
+                "ssm_scan": 2 * L, "flash_attention_bwd": L}
+        n = len(res["log"])
+        for k, w in want.items():
+            self.check(counts[k] == w * n, f"train: {k} launched {counts[k]}"
+                       f" times in {n} steps, not {w} a step")
+        for rec in per_step:
+            ok = all(rec["launches"].get(k, 0) == w for k, w in want.items())
+            self.check(ok, f"train: step {rec['step']} launches "
+                       f"{rec['launches']} != {want}")
+            log(f"   step {rec['step']}: {rec['ms']:.1f} ms, "
+                f"{rec['tokens_per_s']:.0f} tokens/s, peak "
+                f"{rec['max_memory_gb']:.2f} GB, launches {rec['launches']}")
+        losses = [(r["step"], r["loss"]) for r in res["log"]]
+        log(f"   losses {[(s, round(l, 6)) for s, l in losses]}; restarts "
+            f"{res['restarts']}")
+        self.check(res["restarts"] == 1, f"train: {res['restarts']} restarts")
+        first, replay = {}, {}
+        for s_, l_ in losses:
+            (replay if s_ in first else first)[s_] = l_
+        self.check(sorted(replay) == [TRAIN_CKPT_EVERY, TRAIN_FAIL_AT - 1],
+                   f"train: replayed steps {sorted(replay)}")
+        bit_equal = all(replay[s_] == first[s_] for s_ in replay)
+        rel = max((abs(replay[s_] - first[s_]) / abs(first[s_])
+                   for s_ in replay), default=0.0)
+        log(f"   replayed steps {sorted(replay)}: losses bit-equal "
+            f"{bit_equal}, {rel:.3g} relative at worst")
+        self.check(rel <= 1e-6, f"train: replayed losses differ by {rel}")
+        self.check(losses[-1][1] < losses[0][1],
+                   f"train: final loss {losses[-1][1]} >= first "
+                   f"{losses[0][1]}")
+        self.check(all(math.isfinite(l_) for _, l_ in losses),
+                   "train: a loss is not finite")
+        self.train_launches = counts
+        self.train_steps = n
+        # the last step's gradients, for the compression phase
+        self.last_grads = {k: p.grad for k, p in
+                           trainer.model.named_parameters()}
+        # the trained weights at 2 layers, kernel path vs plain path, in
+        # bfloat16 as trained and in float32
+        state = {k: v.detach() for k, v in
+                 trainer.model.state_dict().items()
+                 if not k.startswith("layers.") or
+                 int(k.split(".")[1]) < 2}
+        del trainer, out
+        torch.cuda.empty_cache()
+        batch = pt_train.reference_data(cfg, {"seq_len": TRAIN_S,
+                                              "batch": TRAIN_B,
+                                              "data_seed": 0}).batch_at(0)
+        cut = dataclasses.replace(cfg, n_layers=2)
+        cmp = {}
+        m = build_model(cut, device=self.dev).load_params(state)
+        m.requires_grad_(True)
+        cmp["bfloat16"] = self.kernel_vs_plain_grads(
+            "2 layers bfloat16", m, batch, TRAIN_BF16_REL)
+        del m
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m = build_model(dataclasses.replace(
+            cut, param_dtype="float32", compute_dtype="float32"),
+            device=self.dev).load_params(
+                {k: v.float() for k, v in state.items()})
+        m.requires_grad_(True)
+        cmp["float32"] = self.kernel_vs_plain_grads(
+            "2 layers float32", m, batch, TRAIN_F32_REL)
+        del m, state
+        torch.cuda.empty_cache()
+        self.report["train"] = {
+            "log": res["log"], "per_step": per_step,
+            "restarts": res["restarts"], "replay_bit_equal": bit_equal,
+            "replay_rel": rel, "kernel_vs_plain_2_layers": cmp,
+            "launches": counts}
+
+    # --------------------------------------------------------------- 19
+    def compression(self):
+        torch = self.torch
+        from repro_torch.optim import compression as comp
+        grads = self.last_grads
+        n_elem = sum(g.numel() for g in grads.values())
+        ef0 = comp.init_error_feedback(grads)
+        out = {}
+
+        def run():
+            pay, ef1 = comp.ef_compress(grads, ef0)
+            back1 = comp.ef_decompress(pay, grads)
+            pay2, ef2 = comp.ef_compress(grads, ef1)
+            back2 = comp.ef_decompress(pay2, grads)
+            torch.cuda.synchronize()
+            out.update(pay=pay, ef1=ef1, back1=back1, ef2=ef2, back2=back2)
+            return ("quantize_int8", "dequantize_int8")
+
+        counts = self.path("compression", run)
+        n = len(grads)
+        self.check(counts["quantize_int8"] == 2 * n and
+                   counts["dequantize_int8"] == 4 * n,
+                   f"compression: launches {counts} for {n} leaves")
+        ppay, pef1 = comp.ef_compress(grads, ef0, core="plain")
+        pback1 = comp.ef_decompress(ppay, grads, core="plain")
+        equal = all(torch.equal(out["pay"][k][0], ppay[k][0]) and
+                    torch.equal(out["pay"][k][1], ppay[k][1]) and
+                    torch.equal(out["ef1"][k], pef1[k]) and
+                    torch.equal(out["back1"][k], pback1[k]) for k in grads)
+        self.check(equal, "compression: kernels not bit-equal to plain")
+        del ppay, pef1, pback1
+        # residual bound: after one step from zero each residual is the
+        # rounding of v / scale to an integer, at most half its block's
+        # scale, plus the float32 rounding of q * scale (|q| <= 127: 127 *
+        # 2**-23 of the scale)
+        bound_ok, tele = True, 0.0
+        for k, g in grads.items():
+            q, sc, _ = out["pay"][k]
+            e = out["ef1"][k]
+            pad = (-e.numel()) % comp.BLOCK
+            e = torch.nn.functional.pad(e, (0, pad)).view(-1, comp.BLOCK)
+            bound_ok &= bool((e.abs().amax(-1)
+                              <= sc * (0.5 + 127 * 2.0 ** -23)).all())
+            # two steps telescope: dq_1 + dq_2 = 2 g - ef_2
+            gf = g.float().reshape(-1)
+            lhs = (out["back1"][k] + out["back2"][k]).reshape(-1)
+            rhs = 2 * gf - out["ef2"][k]
+            tele = max(tele, float((lhs - rhs).abs().max())
+                       / max(float(gf.abs().max()), 1e-30))
+        self.check(bound_ok, "compression: a residual exceeds half its "
+                   "block's scale")
+        self.check(tele <= 1e-6, f"compression: two steps telescope to "
+                   f"{tele} of the largest |g|")
+        wb = comp.wire_bytes(n_elem, dtype_bytes=2, n=2)
+        log(f"   {n} leaves, {n_elem} elements: kernels bit-equal to plain "
+            f"{equal}; residuals within half a block scale {bound_ok}; two "
+            f"steps telescope within {tele:.3g} of the largest |g|; wire "
+            f"bytes (bf16 ring all-reduce vs int8 all-gather, 2 ranks) "
+            f"{wb['uncompressed']:.4g} vs {wb['compressed']:.4g}, ratio "
+            f"{wb['ratio']:.3f}")
+        self.compression_launches = counts
+        self.report["compression"] = {
+            "leaves": n, "elements": n_elem, "bit_equal": equal,
+            "residual_bound": bound_ok, "telescope_rel": tele,
+            "wire_bytes": wb, "launches": counts}
+        del out, ef0, self.last_grads
+        torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 20
+    def timing_train(self):
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention as fa, quant as qt
+        from repro_torch.kernels import ref, ssm_scan as ss
+        F = torch.nn.functional
+        cfg = get_config("hymba-1.5b")
+        out = {}
+        # kernels 3 and 4 at the largest leaf (embed.tok)
+        x = self.quant_inputs((1, cfg.vocab_padded * cfg.d_model), 1)
+        q, s = qt.quantize_int8(x)
+        for name, fn, plain, bound in (
+                ("quantize_int8", lambda: qt.quantize_int8(x),
+                 lambda: ref.quantize_int8(x), quant_bound_ms(x.numel(),
+                                                              True)),
+                ("dequantize_int8", lambda: qt.dequantize_int8(q, s),
+                 lambda: ref.dequantize_int8(q, s),
+                 quant_bound_ms(x.numel(), False))):
+            k_ms, k_span = self.med_ms(fn)
+            p_ms, p_span = self.med_ms(plain)
+            out[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                         "bound_by": bound[1], "library_ms": None,
+                         "shape": list(x.shape), "span_ms": k_span,
+                         "plain_span_ms": p_span}
+        del x, q, s
+        # kernel 5 at the training shape, forward and reverse
+        Di, N = HYMBA_SSM
+        g = torch.Generator(device=self.dev).manual_seed(1)
+        dA = torch.rand(TRAIN_B, TRAIN_S, Di, N, generator=g,
+                        device=self.dev)
+        dBx = torch.randn(TRAIN_B, TRAIN_S, Di, N, generator=g,
+                          device=self.dev)
+        h0 = torch.zeros(TRAIN_B, Di, N, device=self.dev)
+        bound = state_scan_bound_ms(dA)
+        for reverse in (False, True):
+            k_ms, k_span = self.med_ms(
+                lambda: ss.ssm_scan(dA, dBx, h0, reverse=reverse))
+            p_ms, p_span = self.med_ms(
+                lambda: ref.ssm_scan(dA, dBx, h0, reverse=reverse), n=10)
+            out["ssm_scan" + ("_reverse" if reverse else "")] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None,
+                "shape": list(dA.shape), "span_ms": k_span,
+                "plain_span_ms": p_span}
+        del dA, dBx, h0
+        torch.cuda.empty_cache()
+        # the attention backward at the training shape, bfloat16
+        q, k, v = self.attn_inputs(TRAIN_B, TRAIN_S, HYMBA_HEADS,
+                                   torch.bfloat16, seed=2)
+        do = self.attn_inputs(TRAIN_B, TRAIN_S, HYMBA_HEADS, torch.bfloat16,
+                              seed=3)[0]
+        o, lse = fa.flash_attention(q, k, v, window=HYMBA_WINDOW,
+                                    return_lse=True)
+        k_ms, k_span = self.med_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, window=HYMBA_WINDOW))
+        p_ms, p_span = self.med_ms(lambda: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, window=HYMBA_WINDOW), n=20)
+        bound = fa_bwd_bound_ms(q, k, HYMBA_WINDOW)
+        # at S = 1024 the window is inert: the library's causal attention
+        # backward computes the same function
+        q1, k1, v1, do1, o1 = (t[:, :HYMBA_WINDOW].contiguous()
+                               for t in (q, k, v, do, o))
+        o1, lse1 = fa.flash_attention(q1, k1, v1, window=HYMBA_WINDOW,
+                                      return_lse=True)
+        k1024, _ = self.med_ms(lambda: fa.flash_attention_bwd(
+            q1, k1, v1, o1, lse1, do1, window=HYMBA_WINDOW))
+        qt_, kt_, vt_ = (t.transpose(1, 2).detach().requires_grad_()
+                         for t in (q1, k1, v1))
+        lib_out = F.scaled_dot_product_attention(qt_, kt_, vt_,
+                                                 is_causal=True,
+                                                 enable_gqa=True)
+        go = do1.transpose(1, 2)
+        lib, l_span = self.med_ms(lambda: torch.autograd.grad(
+            lib_out, (qt_, kt_, vt_), go, retain_graph=True), graph=False)
+        out["flash_attention_bwd"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib,
+            "library_shape": f"B={TRAIN_B} S={HYMBA_WINDOW} bfloat16",
+            "ms_at_library_shape": k1024, "span_ms": k_span,
+            "plain_span_ms": p_span, "library_span_ms": l_span}
+        for name, t in out.items():
+            log(f"   {name:22s} kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                f"({t['bound_by']}), library {t['library_ms']}"
+                + (f"; at S=1024 kernel {t['ms_at_library_shape']:.4f}"
+                   if "ms_at_library_shape" in t else ""))
+        self.train_timing = out
+        self.report["timing_train"] = out
+
     # ------------------------------------------------------- diagnostic
     def profile_steps(self, n_steps=200):
         """Where an engine step's time goes on leonardo/256/incast: host
@@ -1278,6 +1866,43 @@ def scan_bound_ms(args, n_sm, clock_hz):
         else "operations"
 
 
+def quant_bound_ms(n, quantize: bool):
+    """Least time for one quantize (dequantize) of n float32 elements: x
+    read and q, scales written (or the reverse) over HBM bandwidth; or its
+    few operations per element over the FP32 peak. The larger bounds it."""
+    t_bytes = n * (4 + 1 + 4 / 256) / HBM_BYTES_PER_S
+    t_ops = (3 if quantize else 1) * n / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def state_scan_bound_ms(dA):
+    """Least time for one kernel-5 launch: dA, dBx and h0 read once, hs
+    and h_T written once, over HBM bandwidth; or its two float operations
+    per state per step over the FP32 peak. The larger bounds it."""
+    B, T, Di, N = dA.shape
+    t_bytes = 4 * (3 * dA.numel() + 2 * B * Di * N) / HBM_BYTES_PER_S
+    t_ops = 2 * dA.numel() / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def fa_bwd_bound_ms(q, k, window):
+    """Least time for one attention backward: q, k, v, o, dO and lse read
+    once and dq, dk, dv written once over HBM bandwidth; or the five D-long
+    products per live (query, key) pair -- the recomputed score, dO . V,
+    and the dV, dK and dQ updates, 10 * D flops -- over the bf16
+    tensor-core peak. The larger bounds it."""
+    import numpy as np
+    B, S, H, D = q.shape
+    live = int(np.minimum(np.arange(S) + 1, window).sum())  # keys per head
+    t_bytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+               + 4 * B * H * S) / HBM_BYTES_PER_S
+    t_ops = 10 * D * live * B * H / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def main() -> int:
     try:
         import torch
@@ -1309,7 +1934,13 @@ def main() -> int:
                      ("flash_attention_vs_plain", s.fa_vs_plain),
                      ("selective_scan_vs_plain", s.scan_vs_plain),
                      ("lm_vs_jax", s.lm_vs_jax), ("serve", s.serve),
-                     ("timing_lm", s.timing_lm)):
+                     ("timing_lm", s.timing_lm),
+                     ("quant_vs_plain", s.quant_vs_plain),
+                     ("ssm_scan_vs_plain", s.ssm_scan_vs_plain),
+                     ("flash_attention_bwd_vs_plain", s.fa_bwd_vs_plain),
+                     ("train_vs_jax", s.train_vs_jax), ("train", s.train),
+                     ("compression", s.compression),
+                     ("timing_train", s.timing_train)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
         s.profile_steps()
@@ -1324,6 +1955,7 @@ def main() -> int:
         return 1
     t = s.timings[MAIN_SHAPE]
     t2 = s.fr_timings[str(MAIN_TILE)]
+    tt = s.train_timing
     pick = lambda d: {k: d[k] for k in (  # noqa: E731
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{
@@ -1337,9 +1969,25 @@ def main() -> int:
         **KERNEL7, "launches": s.serve_launches["flash_attention"],
         "max_abs_err": s.fa_main_err, **pick(s.fa_timing),
         "library_shape": f"B={SERVE_B} S={HYMBA_WINDOW} bfloat16",
-        "ms_at_library_shape": s.fa_timing["ms_at_1024"]}, {
+        "ms_at_library_shape": s.fa_timing["ms_at_1024"],
+        "train_launches": s.train_launches["flash_attention"]}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
-        "max_abs_err": s.scan_main_err, **pick(s.scan_timing)}]}))
+        "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
+        "train_launches": s.train_launches["fused_selective_scan"]}, {
+        **KERNEL3, "launches": s.compression_launches["quantize_int8"],
+        "max_abs_err": s.quant_main_err,
+        **pick(tt["quantize_int8"])}, {
+        **KERNEL4, "launches": s.compression_launches["dequantize_int8"],
+        "max_abs_err": s.quant_main_err,
+        **pick(tt["dequantize_int8"])}, {
+        **KERNEL5, "launches": s.train_launches["ssm_scan"],
+        "max_abs_err": s.state_scan_err, **pick(tt["ssm_scan"]),
+        "reverse_ms": tt["ssm_scan_reverse"]["ms"]}, {
+        **KERNEL7B, "launches": s.train_launches["flash_attention_bwd"],
+        "max_abs_err": s.fa_bwd_main_err, **pick(tt["flash_attention_bwd"]),
+        "library_shape": tt["flash_attention_bwd"]["library_shape"],
+        "ms_at_library_shape":
+            tt["flash_attention_bwd"]["ms_at_library_shape"]}]}))
     print(s.smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,14 @@ package. A caller holding JAX objects converts with
   SimParams;
 * state: a stacked step state, both directions;
 * LM parameters: the reference's stacked tree -> the port's state dict;
-* LM caches: the stacked cache tree, both directions.
+* LM caches: the stacked cache tree, both directions;
+* train states: the reference's ``{"params", "opt", "step"}`` tree (layer
+  leaves stacked over layers) and the port's (one tensor per leaf per
+  layer), both directions, every dtype kept.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import numpy as np
@@ -131,3 +135,95 @@ def lm_cache_to_jax(cache: dict) -> dict:
         v = v.detach().cpu()
         out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out
+
+
+_LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
+
+
+def stack_layers(flat: dict) -> dict:
+    """{``layers.<i>.x``: tensor} -> {``layers.x``: tensors stacked over
+    i}; any other key is kept as it is. The reference's layout."""
+    out, layered = {}, {}
+    for k, v in flat.items():
+        m = _LAYER.match(k)
+        if m:
+            layered.setdefault(m.group(2), {})[int(m.group(1))] = v
+        else:
+            out[k] = v
+    for rest, by_layer in layered.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"layers of {rest!r}: {sorted(by_layer)}")
+        out[f"layers.{rest}"] = torch.stack(
+            [by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """{``a.b.c``: leaf} -> {"a": {"b": {"c": leaf}}}."""
+    out: dict = {}
+    for k, v in flat.items():
+        node = out
+        *path, leaf = k.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """The inverse of :func:`nest`."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_state_to_jax(state: dict) -> dict:
+    """The port's train state (``params`` and each per-parameter entry of
+    ``opt`` keyed ``embed.*`` / ``layers.<i>.*``; an optimizer entry keyed
+    by a stacked leaf name, adafactor_m's ``vr``/``vc``, as it is;
+    ``step`` an int) -> the reference's tree layout, layer leaves stacked.
+    Leaves stay tensors on their device in their dtypes; the step is an
+    int32 numpy scalar, as the reference saves it."""
+    return {"params": nest(stack_layers(state["params"])),
+            "opt": {k: nest(stack_layers(v)) for k, v in state["opt"].items()},
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def _unstack(node, device) -> dict:
+    """A nested reference subtree (numpy or tensor leaves) -> {port name:
+    tensor}, each stacked ``layers.*`` leaf cut per layer."""
+    out = {}
+    for k, x in flatten(node).items():
+        t = x if isinstance(x, torch.Tensor) else _tensor(x)
+        t = t.to(device)
+        if k.startswith("layers."):
+            for i in range(t.shape[0]):
+                out[f"layers.{i}.{k[len('layers.'):]}"] = t[i].clone()
+        else:
+            out[k] = t
+    return out
+
+
+# adafactor_m's factored moments, which the port keeps per stacked leaf
+_STACKED_OPT = ("vr", "vc")
+
+
+def train_state_from_jax(state_np: dict, device="cpu") -> dict:
+    """The reference's train state ``{"params", "opt", "step"}`` (numpy or
+    tensor leaves, layer leaves stacked; e.g. a JAX train state through
+    ``jax.tree.map(np.asarray, ...)`` or ``checkpoint.restore``) -> the
+    port's, on ``device``. adafactor_m's ``vr``/``vc`` keep the stacked
+    layout, keyed by the stacked leaf name."""
+    opt = {}
+    for k, v in state_np["opt"].items():
+        if k in _STACKED_OPT:
+            opt[k] = {n: (x if isinstance(x, torch.Tensor) else _tensor(x))
+                      .to(device) for n, x in flatten(v).items()}
+        else:
+            opt[k] = _unstack(v, device)
+    return {"params": _unstack(state_np["params"], device), "opt": opt,
+            "step": int(np.asarray(state_np["step"]))}

@@ -10,6 +10,11 @@
 // Output in q's type. q, k and v are float32 or bfloat16 (one type), so
 // the types x head sizes {16, 64, 128} are template instances.
 //
+// With an lse buffer (B, H, Sq) float32, the kernel also writes each row's
+// log-sum-exp of its scaled scores, m + log(l) (-inf for a row with no live
+// key), which the backward (flash_attention_bwd.cu) recomputes P from; the
+// serve path passes none.
+//
 // Numerics, as the Pallas kernel: q is scaled in float32, scores and P.V
 // are float32 whatever the input type, and the online softmax keeps the
 // same -inf guards (m_safe = 0 for a row with no live key yet, corr = 0
@@ -36,7 +41,7 @@
 // Bound on the H100 SXM: operations. At the serve shape (B = 8, S = 1280,
 // H = 25, KH = 5, D = 64, window 1024) the causal keys inside the window
 // cost 4 * D flops each, 40 GFLOP in all: 0.04 ms at the 989 TFLOP/s bf16
-// tensor-core peak, against 16 MB of q/k/v/o (5 us at 3.35 TB/s). This
+// tensor-core peak, against 79 MB of q/k/v/o (23 us at 3.35 TB/s). This
 // first version runs the products on the float32 CUDA cores (67 TFLOP/s
 // peak, 0.6 ms for the same work) to keep the Pallas kernel's float32
 // scores and P.V; a wgmma version with bf16 operands and float32
@@ -78,7 +83,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int Sq,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int Sq,
                            int Skv, int H, int KH, int block_q, int causal,
                            int window, float scale) {
   constexpr int TPR = D >= 32 ? D / 32 : 1;  // threads per query row
@@ -188,6 +194,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   if (active) {
+    if (lse != nullptr && part == 0)
+      lse[(static_cast<long long>(b) * H + head) * Sq + q_pos] =
+          m == -INFINITY ? -INFINITY : m + logf(l);
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int c = 0; c < C4; ++c)
@@ -198,8 +207,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KH, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t stream) {
   // query positions per block: a row is D/32 threads (at least one), and
   // the G heads of one position sit side by side
@@ -214,23 +223,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + block_q - 1) / block_q, KH, B);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KH, block_q,
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      Sq, Skv, H, KH, block_q,
       causal, window, 1.f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int H, int KH, int D, int causal, int window,
-             cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int Sq, int Skv, int H, int KH, int D, int causal,
+             int window, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KH, causal, window, s);
+      return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
+                           window, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KH, causal, window, s);
+      return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
+                           window, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KH, causal, window,
-                            s);
+      return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
+                            window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -240,22 +252,24 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// Launches o = attention(q, k, v) on `stream`. Pointers are device
-// pointers to contiguous, 16-byte aligned buffers in the layouts above;
+// Launches o = attention(q, k, v) on `stream`, and writes the rows'
+// log-sum-exp to lse (B, H, Sq) float32 unless lse is null. Pointers are
+// device pointers to contiguous, 16-byte aligned buffers in the layouts
+// above;
 // bf16 picks bfloat16 (1) or float32 (0) for all four; D is 16, 64 or
 // 128; H a multiple of KH, with H / KH rows of D / 32 threads (at least
 // one) within 256 threads. Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a D or a head ratio it does not take).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Sq, int Skv, int H, int KH,
-                           int D, int causal, int window, int bf16,
+                           void* o, void* lse, int B, int Sq, int Skv, int H,
+                           int KH, int D, int causal, int window, int bf16,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KH, D, causal,
-                                   window, s);
-  return launch_d<float>(q, k, v, o, B, Sq, Skv, H, KH, D, causal, window,
-                         s);
+    return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Skv, H, KH, D,
+                                   causal, window, s);
+  return launch_d<float>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
+                         window, s);
 }
 
 const char* flash_attention_error_string(int code) {

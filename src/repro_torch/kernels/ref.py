@@ -10,6 +10,11 @@ import math
 import torch
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 kept as it is (gradient checks run in float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def fused_accumulate(acc: torch.Tensor, x: torch.Tensor,
                      scale: float = 1.0) -> torch.Tensor:
     """Ring-AllReduce receive-accumulate: ``acc + scale * x`` in float32
@@ -18,20 +23,12 @@ def fused_accumulate(acc: torch.Tensor, x: torch.Tensor,
     return (acc.float() + scale * x.float()).to(acc.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Full-matrix GQA attention in float32, the output in ``q.dtype``.
-
-    q: (B, Sq, H, D); k, v: (B, Skv, KH, D); query head ``h`` reads KV head
-    ``h // (H // KH)``; scale 1/sqrt(D). Follows
-    ``repro/kernels/ref.py::flash_attention`` with the window mask of
-    ``repro/models/layers.py::flash_attention_xla``: ``window`` > 0 also
-    masks ``kv_pos <= q_pos - window``. A row with every key masked gives
-    0, as the kernels' guards (``m_safe``, ``l >= 1e-30``) do."""
+def _attn_scores(q, k, causal: bool, window: int):
+    """Scaled float32 scores (B, KH, G, Sq, Skv) with masked pairs at
+    -inf, and the live mask (Sq, Skv)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    qr = q.reshape(B, Sq, KH, G, D).float()
+    qr = q.reshape(B, Sq, KH, H // KH, D).float()
     s = torch.einsum("bqkgd,bckd->bkgqc", qr, k.float()) / math.sqrt(D)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
@@ -40,13 +37,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= q_pos >= kv_pos
     if window:
         mask &= kv_pos > q_pos - window
-    s = s.masked_fill(~mask, -math.inf)
+    return s.masked_fill(~mask, -math.inf), mask
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
+    """Full-matrix GQA attention in float32, the output in ``q.dtype``.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KH, D); query head ``h`` reads KV head
+    ``h // (H // KH)``; scale 1/sqrt(D). Follows
+    ``repro/kernels/ref.py::flash_attention`` with the window mask of
+    ``repro/models/layers.py::flash_attention_xla``: ``window`` > 0 also
+    masks ``kv_pos <= q_pos - window``. A row with every key masked gives
+    0, as the kernels' guards (``m_safe``, ``l >= 1e-30``) do. With
+    ``return_lse`` it also returns each row's log-sum-exp of its scaled
+    scores, (B, H, Sq) float32, -inf for a row with no live key."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    s, _ = _attn_scores(q, k, causal, window)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe)
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
-    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KH, G, 1)
-    o = o / l.clamp_min(1e-30)
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    l = p.sum(dim=-1)  # (B, KH, G, Sq)
+    o = o / l.permute(0, 3, 1, 2)[..., None].clamp_min(1e-30)
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), -math.inf)
+    return o, lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention`, each in its input's type,
+    from the forward's output ``o`` and row log-sum-exp ``lse`` (B, H, Sq)
+    and the output gradient ``do``; the specification of the backward
+    kernel (``csrc/flash_attention_bwd.cu``). In float32, with the S x S
+    matrices written out: P = exp(s - lse) on the live pairs (0 elsewhere,
+    and for a row with no live key), delta = rowsum(dO * O),
+    dS = P * (dO . V - delta); dV = P^T dO, dK = dS^T q / sqrt(D),
+    dQ = dS K / sqrt(D), summed over the G query heads of a KV head."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    s, mask = _attn_scores(q, k, causal, window)
+    lse5 = lse.reshape(B, KH, G, Sq, 1).float()
+    live = mask & torch.isfinite(lse5)
+    p = torch.where(live, torch.exp(s - torch.where(live, lse5, 0.0)), 0.0)
+    do5 = do.reshape(B, Sq, KH, G, D).float()
+    delta = (do5 * o.reshape(B, Sq, KH, G, D).float()).sum(-1)  # b q k g
+    dp = torch.einsum("bqkgd,bckd->bkgqc", do5, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / math.sqrt(D)
+    dv = torch.einsum("bkgqc,bqkgd->bckd", p, do5)
+    dk = torch.einsum("bkgqc,bqkgd->bckd", ds,
+                      q.reshape(B, Sq, KH, G, D).float()) * scale
+    dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.float()) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def fused_selective_scan(dt: torch.Tensor, A: torch.Tensor,
@@ -59,10 +110,11 @@ def fused_selective_scan(dt: torch.Tensor, A: torch.Tensor,
     C_t``, all in float32. Returns ``y`` (B, T, Di) and ``h_T`` (B, Di, N),
     float32. Follows ``repro/kernels/ref.py::fused_selective_scan`` element
     for element; dA and dBx are formed one step at a time, so no (B, T, Di,
-    N) tensor is held."""
-    dt32, x32 = dt.float(), x.float()
-    A32, Bf, C = A.float(), B_coef.float(), C_coef.float()
-    h = h0.float()
+    N) tensor is held. float64 inputs stay float64 (for gradient checks).
+    """
+    dt32, x32 = _up(dt), _up(x)
+    A32, Bf, C = _up(A), _up(B_coef), _up(C_coef)
+    h = _up(h0)
     y = dt32.new_empty(dt.shape)
     for t in range(dt.shape[1]):
         dA = torch.exp(dt32[:, t, :, None] * A32)
@@ -70,6 +122,55 @@ def fused_selective_scan(dt: torch.Tensor, A: torch.Tensor,
         h = dA * h + dBx
         y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
     return y, h
+
+
+def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor, *,
+             reverse: bool = False):
+    """The state recurrence with every state kept, a loop over time.
+
+    dA, dBx: (B, T, Di, N); h0: (B, Di, N). Per step ``h = dA_t * h +
+    dBx_t``, all float32; returns ``hs`` (B, T, Di, N) and ``h_T`` (B, Di,
+    N). Follows ``repro/kernels/ref.py::ssm_scan``; ``reverse`` walks t from
+    T - 1 down to 0 (the adjoint recurrence of the selective scan's
+    backward), and ``h_T`` is then the state after t = 0. float64 inputs
+    stay float64."""
+    dA32, dBx32 = _up(dA), _up(dBx)
+    h = _up(h0)
+    hs = dA32.new_empty(dA.shape)
+    steps = range(dA.shape[1] - 1, -1, -1) if reverse else range(dA.shape[1])
+    for t in steps:
+        h = dA32[:, t] * h + dBx32[:, t]
+        hs[:, t] = h
+    return hs, h
+
+
+def quantize_int8(x: torch.Tensor, block: int = 256):
+    """Per-block symmetric int8 quantization along the last axis: scale =
+    max(max|x| / 127, 1e-12) per block of ``block`` elements, q =
+    clip(round(x / scale), -127, 127). Returns (q int8 of x's shape,
+    float32 scales with last dim n_blocks). Follows
+    ``repro/kernels/ref.py::quantize_int8``; ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    shape = x.shape
+    n = shape[-1]
+    if n % block:
+        raise ValueError(f"last dim {n} is not a multiple of {block}")
+    xb = x.reshape(shape[:-1] + (n // block, block)).float()
+    amax = xb.abs().amax(dim=-1)
+    # a true division: on a CUDA tensor, dividing by a Python scalar
+    # multiplies by its reciprocal, which rounds differently
+    scale = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(shape), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, block: int = 256):
+    """``q * scale`` per block of ``block`` along the last axis, float32.
+    Follows ``repro/kernels/ref.py::dequantize_int8``."""
+    shape = q.shape
+    n = shape[-1]
+    qb = q.reshape(shape[:-1] + (n // block, block)).float()
+    return (qb * scale[..., None]).reshape(shape)
 
 
 def _flat_index(idx: torch.Tensor, B: int, n: int) -> torch.Tensor:

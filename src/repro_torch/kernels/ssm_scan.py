@@ -19,11 +19,14 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "ssm_scan.cu"
+SCAN_SOURCE = _build.CSRC / "state_scan.cu"
 FLAGS = _build.NVCC_FLAGS
 STATES = (8, 16)  # the kernel's template instances of N
 
-launches = 0
+launches = 0       # fused_selective_scan (kernel 6)
+scan_launches = 0  # ssm_scan (kernel 5)
 _lib = None
+_scan_lib = None
 
 
 def _load():
@@ -38,6 +41,59 @@ def _load():
         lib.ssm_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _load_scan():
+    global _scan_lib
+    if _scan_lib is None:
+        lib = _build.load(SCAN_SOURCE, FLAGS)
+        fn = lib.ssm_scan_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.state_scan_error_string.argtypes = [ctypes.c_int]
+        lib.state_scan_error_string.restype = ctypes.c_char_p
+        _scan_lib = lib
+    return _scan_lib
+
+
+def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor, *,
+             reverse: bool = False):
+    """(hs (B, T, Di, N), h_T (B, Di, N)), float32, of ``h = dA_t * h +
+    dBx_t`` from h0 over dA, dBx (B, T, Di, N) and h0 (B, Di, N): float32
+    CUDA tensors, contiguous, on one device; ``reverse`` walks t from T - 1
+    down to 0."""
+    global scan_launches
+    for name, t in (("dA", dA), ("dBx", dBx), ("h0", h0)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dA.device:
+            raise ValueError(f"dA on {dA.device}, {name} on {t.device}")
+    if dA.dim() != 4 or dBx.shape != dA.shape:
+        raise ValueError(f"dA {tuple(dA.shape)} and dBx {tuple(dBx.shape)} "
+                         "must be one (B, T, Di, N) shape")
+    B, T, Di, N = dA.shape
+    if tuple(h0.shape) != (B, Di, N):
+        raise ValueError(f"h0 is {tuple(h0.shape)}, expected {(B, Di, N)}")
+    hs = torch.empty_like(dA)
+    if B * Di * N == 0:
+        return hs, h0.clone()
+    h_T = torch.empty_like(h0)
+    lib = _load_scan()
+    with torch.cuda.device(dA.device):
+        stream = torch.cuda.current_stream(dA.device).cuda_stream
+        rc = lib.ssm_scan_launch(dA.data_ptr(), dBx.data_ptr(), h0.data_ptr(),
+                                 hs.data_ptr(), h_T.data_ptr(), B, T, Di, N,
+                                 int(reverse), stream)
+    if rc != 0:
+        raise RuntimeError("ssm_scan launch failed: "
+                           + lib.state_scan_error_string(rc).decode())
+    scan_launches += 1
+    return hs, h_T
 
 
 def fused_selective_scan(dt: torch.Tensor, A: torch.Tensor,

@@ -1,6 +1,6 @@
 """Model-layer machinery of the port: parameter declarations and their two
 initialisers, norms, RoPE, decode attention over a KV cache, MLP,
-embedding and unembedding.
+embedding, unembedding and the token cross-entropy.
 
 Mirrors ``repro/models/layers.py`` on one card: the declarations keep the
 reference's shapes, ``init`` and ``std`` but carry no sharding (the
@@ -193,8 +193,28 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
 
 
 def embed_tokens(emb, tokens, compute_dtype):
-    return emb["tok"][tokens].to(compute_dtype)
+    # F.embedding, not emb["tok"][tokens]: the index's backward accumulates
+    # repeated tokens with atomic adds on the CPU, so a replayed step would
+    # not be bit-equal; the embedding's backward is deterministic.
+    return F.embedding(tokens, emb["tok"]).to(compute_dtype)
 
 
 def unembed(emb, x, eps: float):
     return (rms_norm(x, emb["ln_f"], eps) @ emb["out"]).float()
+
+
+def token_xent(logits, labels, mask=None):
+    """Stable masked cross-entropy, as ``repro/models/layers.py::
+    token_xent``. logits float32 (B, S, V), the log-sum-exp over all V
+    (padded) columns; labels int (B, S); ``mask`` drops tokens from the
+    mean (the reference's iota-select picks the label's logit, a gather
+    here; a masked label < 0 picks column 0, which the mask drops)."""
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    ll = torch.gather(logits, -1,
+                      labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

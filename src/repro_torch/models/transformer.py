@@ -2,11 +2,19 @@
 
 Mirrors ``repro/models/transformer.py::build_decoder_lm`` as an
 ``nn.Module``: a stack of blocks (attention and/or Mamba heads, then an
-MLP), with three entry points — ``prefill`` (prompt -> last-position
-logits and the stacked cache), ``decode`` (one token at a shared position)
-and ``make_cache``. Prefill attention runs through kernel 7 and the
-prefill scan through kernel 6 (``kernels/ops.py``); decode is plain
+MLP), with four entry points — ``loss`` (the training loss, as the
+reference's ``loss``), ``prefill`` (prompt -> last-position logits and the
+stacked cache), ``decode`` (one token at a shared position) and
+``make_cache``. Prefill and training attention run through kernel 7 and
+the sequence scan through kernel 6 (``kernels/ops.py``); their gradients
+through the attention backward kernel and kernel 5. Decode is plain
 PyTorch, as the reference computes it outside any Pallas kernel.
+
+Parameters load without gradients (serving); a trainer turns them on with
+``model.requires_grad_(True)``. ``loss`` checkpoints each layer as the
+reference's ``_scan_layers`` does under ``cfg.remat``: ``"full"``
+recomputes the whole layer in the backward, ``"dots"`` keeps the outputs
+of the matrix products without batch dimensions and recomputes the rest.
 
 Caches are stacked over layers, ``(L, ...)``, with the reference's keys
 (``k``, ``v``, ``slot_pos`` for a sliding window; ``conv``, ``ssm``), so
@@ -17,18 +25,31 @@ returns that cache.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     block_decls, decode_attention, embed_decls, embed_tokens, mlp_apply,
-    rms_norm, rope, unembed,
+    rms_norm, rope, token_xent, unembed,
 )
 
 FAMILIES = ("dense", "hybrid", "ssm")
 RING_EMPTY = -(2 ** 30)  # slot_pos of a ring slot no token has filled
+AUX_LOSS_WEIGHT = 0.01  # the reference's MoE load-balance weight
+REMAT = ("full", "dots", "none")
+# matrix products without batch dimensions, the ops the reference's
+# ``dots_with_no_batch_dims_saveable`` policy keeps under remat="dots"
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _params(decls, dtype, device) -> nn.ParameterDict:
@@ -81,8 +102,9 @@ class DecoderLM(nn.Module):
         return self
 
     # ---------------- attention ----------------
-    def _attn_seq(self, pl, x):
-        """Prefill attention (kernel 7) and the layer's KV cache."""
+    def _attn_seq(self, pl, x, emit_cache: bool = True):
+        """Sequence attention (kernel 7) and, for a prefill, the layer's KV
+        cache."""
         cfg, cdt = self.cfg, self.compute_dtype
         B, S, _ = x.shape
         q = torch.einsum("bsd,dhk->bshk", x, pl["wq"].to(cdt))
@@ -94,6 +116,8 @@ class DecoderLM(nn.Module):
                                 v.contiguous(), causal=True,
                                 window=cfg.sliding_window, core=self.core)
         out = torch.einsum("bshk,hkd->bsd", o, pl["wo"].to(cdt))
+        if not emit_cache:
+            return out, None
         window = cfg.sliding_window
         if not window:
             return out, {"k": k, "v": v}
@@ -135,16 +159,16 @@ class DecoderLM(nn.Module):
         return torch.einsum("bhk,hkd->bd", o, pl["wo"].to(cdt))
 
     # ---------------- blocks ----------------
-    def _seq_block(self, pl, x):
+    def _seq_block(self, pl, x, emit_cache: bool = True):
         cfg = self.cfg
         h = rms_norm(x, pl["ln1"], cfg.norm_eps)
         if self.has_attn and self.has_ssm:  # hybrid: parallel heads
-            ao, kv = self._attn_seq(pl["attn"], h)
+            ao, kv = self._attn_seq(pl["attn"], h, emit_cache)
             so, sc = ssm_lib.ssm_apply_seq(pl["ssm"], h, cfg, core=self.core)
             x = x + (ao + so) * 0.5
-            cache = dict(kv, **sc)
+            cache = dict(kv, **sc) if emit_cache else None
         elif self.has_attn:
-            ao, cache = self._attn_seq(pl["attn"], h)
+            ao, cache = self._attn_seq(pl["attn"], h, emit_cache)
             x = x + ao
         else:
             so, cache = ssm_lib.ssm_apply_seq(pl["ssm"], h, cfg,
@@ -175,7 +199,39 @@ class DecoderLM(nn.Module):
                               pl["ffn"], cfg.act)
         return x
 
+    def _train_block(self, pl, x):
+        return self._seq_block(pl, x, emit_cache=False)[0]
+
+    def _layer(self, pl, x):
+        """One layer of the training forward under ``cfg.remat``."""
+        remat = self.cfg.remat
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+        if remat == "none":
+            return self._train_block(pl, x)
+        kw = {}
+        if remat == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return ckpt.checkpoint(self._train_block, pl, x, use_reentrant=False,
+                               **kw)
+
     # ---------------- public entry points ----------------
+    def loss(self, batch: dict):
+        """batch ``tokens`` and ``labels`` (B, S) -> (total loss, {"loss",
+        "aux_loss"}), as the reference's ``loss``: the token cross-entropy
+        over every padded vocabulary column, labels < 0 masked. No family
+        ported here has experts, so ``aux_loss`` is 0."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        for pl in self.layers:
+            x = self._layer(pl, x)
+        logits = unembed(self.embed, x, self.cfg.norm_eps)
+        ce = token_xent(logits, labels, mask=labels >= 0)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return ce + AUX_LOSS_WEIGHT * aux, {"loss": ce, "aux_loss": aux}
+
     @torch.no_grad()
     def prefill(self, batch: dict):
         """batch ``tokens`` (B, S) -> (last-position logits (B, V_pad)

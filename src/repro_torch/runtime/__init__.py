@@ -1,1 +1,2 @@
-"""Runtimes of the port: the batched LM server."""
+"""Runtimes of the port: the batched LM server, the trainer and its fault
+handling."""

@@ -42,7 +42,13 @@ def test_port_imports_without_jax_or_reference():
     assert "repro_torch.kernels.fused_reduce" in mods
     for m in ("repro_torch.models.transformer", "repro_torch.runtime.serve",
               "repro_torch.kernels.flash_attention",
-              "repro_torch.kernels.ssm_scan"):
+              "repro_torch.kernels.ssm_scan", "repro_torch.kernels.quant",
+              "repro_torch.optim.adamw", "repro_torch.optim.compression",
+              "repro_torch.data.pipeline",
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.configs.opt_variants"):
         assert m in mods, m
     drivers = ["benchmarks." + os.path.basename(f)[:-3]
                for f in _driver_files()]
@@ -50,6 +56,7 @@ def test_port_imports_without_jax_or_reference():
     assert "benchmarks.pt_fig1_breakdown" in drivers
     mods = mods + drivers
     assert "benchmarks.pt_serve" in mods
+    assert "benchmarks.pt_train" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

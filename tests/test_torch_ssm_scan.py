@@ -1,8 +1,11 @@
-"""Kernel 6, the fused selective scan, and the SSM block around it: the
-port's plain version (what a CPU tensor runs) against the JAX package's
-Pallas kernel in interpret mode and its jnp oracle, and the port's
-``ssm_apply_seq`` / ``ssm_apply_decode`` against ``repro.models.ssm``, on
-the same numpy-made inputs.
+"""Kernel 6, the fused selective scan, kernel 5, the state recurrence,
+and the SSM block around them: the port's plain versions (what a CPU
+tensor runs) against the JAX package's Pallas kernels in interpret mode
+and its jnp oracles, the port's ``ssm_apply_seq`` / ``ssm_apply_decode``
+against ``repro.models.ssm``, and the selective scan's gradient
+(``ops.SelectiveScanFn``: recomputed states and the reversed adjoint
+recurrence through kernel 5) against ``torch.autograd.gradcheck`` and
+``jax.grad`` of the reference's block, on the same numpy-made inputs.
 
 Tolerances, relative to the largest magnitude of the compared output
 (``_close``): 2e-6 for float32. The measured gap is at most 3.2e-7, the
@@ -10,10 +13,17 @@ summation order of the y contraction and of the chunked associative
 scan; a deliberate fault, A scaled by 0.999, moves the scan's outputs
 and the block's y and state by 7.7e-5 to 8.9e-4 relative. bfloat16 x is
 rounded the same way on both sides before the float32 scan, so the
-float32 limit holds.
+float32 limit holds. Kernel 5's plain version rounds the product and the
+sum of each step apart, where XLA fuses them on the CPU: REL again.
+Gradients of the
+block against ``jax.grad``: 2e-5 relative to each gradient's largest
+magnitude (measured at most 6.8e-7; the reference differentiates a chunked
+associative scan, the port a sequential one); the adjoint shifted by one
+step moves them by 0.53.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +41,7 @@ from repro_torch.kernels import ssm_scan as tss  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
 REL = 2e-6
+GRAD_REL = 2e-5
 # (B, T, Di, N); T = 1 and a Di that is no multiple of any block
 SHAPES = [(1, 8, 64, 8), (2, 12, 96, 16), (1, 1, 50, 8), (2, 16, 37, 16)]
 
@@ -158,3 +169,111 @@ def test_kernel_matches_plain_on_card():
             for got, want in zip(tss.fused_selective_scan(*args),
                                  tref.fused_selective_scan(*args)):
                 _close(got.cpu().numpy(), want.cpu().numpy(), rel=1e-5)
+
+
+# ---------------------------------------------------------------- kernel 5
+
+def _state_inputs(shape, seed=0):
+    B, T, Di, N = shape
+    rng = np.random.default_rng(seed)
+    dA = rng.uniform(0.5, 1.0, (B, T, Di, N)).astype(np.float32)
+    dBx = rng.standard_normal((B, T, Di, N), np.float32)
+    return dA, dBx, rng.standard_normal((B, Di, N), np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_state_scan_plain_matches_jax_kernel_and_oracle(shape):
+    dA, dBx, h0 = _state_inputs(shape)
+    hs, hT = tops.ssm_scan(*(torch.as_tensor(a) for a in (dA, dBx, h0)))
+    assert hs.dtype == hT.dtype == torch.float32
+    j = [jnp.asarray(a) for a in (dA, dBx, h0)]
+    for jhs, jhT in (jops.ssm_scan(*j, block_d=32, interpret=True),
+                     jref.ssm_scan(*j)):
+        _close(hs.numpy(), jhs)
+        _close(hT.numpy(), jhT)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_state_scan_reverse_is_the_flipped_scan(shape):
+    dA, dBx, h0 = (torch.as_tensor(a) for a in _state_inputs(shape, seed=1))
+    hs, hT = tops.ssm_scan(dA, dBx, h0, reverse=True)
+    fs, fT = tref.ssm_scan(dA.flip(1), dBx.flip(1), h0)
+    assert torch.equal(hs, fs.flip(1)) and torch.equal(hT, fT)
+
+
+def _scan_args64(shape, seed):
+    dt, A, Bc, Cc, x, h0 = (torch.as_tensor(a).double()
+                            for a in _scan_inputs(shape, seed))
+    return [t.requires_grad_() for t in (dt, A, Bc, Cc, x, h0)]
+
+
+def test_selective_scan_gradcheck_float64():
+    """Both outputs' gradients (y and h_T) for every input, at a tiny size;
+    the plain versions keep float64."""
+    args = _scan_args64((2, 6, 3, 8), seed=3)
+    assert torch.autograd.gradcheck(
+        lambda *a: tops.SelectiveScanFn.apply(*a, "kernel"), args)
+
+
+def test_selective_scan_gradient_is_autograd_of_plain_loop():
+    """float32: the custom backward against autograd through the plain
+    time loop."""
+    args = [torch.as_tensor(a).requires_grad_()
+            for a in _scan_inputs((2, 16, 37, 16), seed=4)]
+    gy = torch.randn(2, 16, 37, generator=torch.Generator().manual_seed(0))
+    gh = torch.randn(2, 37, 16, generator=torch.Generator().manual_seed(1))
+    y, hT = tops.fused_selective_scan(*args)
+    got = torch.autograd.grad((y, hT), args, (gy, gh))
+    y, hT = tref.fused_selective_scan(*args)
+    want = torch.autograd.grad((y, hT), args, (gy, gh))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy(), rel=GRAD_REL)
+
+
+@pytest.mark.parametrize("arch,S", [("hymba-1.5b", 48),
+                                    ("falcon-mamba-7b", 512)])
+def test_ssm_block_gradients_match_jax(arch, S):
+    """jax.grad of the reference's block (its chunked associative scan)
+    against the port's block through SelectiveScanFn, every parameter and
+    the input; S = 512 is two chunks of 256."""
+    jcfg, tcfg = get_config(arch).reduced(), tget(arch).reduced()
+    p = _block_params(tcfg, seed=S)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, S, tcfg.d_model), np.float32)
+    w = rng.standard_normal((2, S, tcfg.d_model), np.float32)
+
+    def jloss(jp, jx):
+        y, _ = jssm.ssm_apply_seq(jp, jx, jcfg)
+        return jnp.sum(y * w)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    tp = {k: torch.as_tensor(v).requires_grad_() for k, v in p.items()}
+    tx = torch.as_tensor(x).requires_grad_()
+    y, _ = tssm.ssm_apply_seq(tp, tx, tcfg)
+    (y * torch.as_tensor(w)).sum().backward()
+    for k in p:
+        _close(tp[k].grad.numpy(), jg[0][k], rel=GRAD_REL)
+    _close(tx.grad.numpy(), jg[1], rel=GRAD_REL)
+
+
+@pytest.mark.cuda
+def test_state_scan_and_gradient_match_plain_on_card():
+    """Needs an NVIDIA card (sm_90a) and nvcc; chip_smoke.py runs the same
+    comparisons at hymba's training shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    for shape in SHAPES + [(2, 300, 3200, 16)]:
+        args = [torch.as_tensor(a).cuda() for a in _state_inputs(shape)]
+        for reverse in (False, True):
+            for got, want in zip(tss.ssm_scan(*args, reverse=reverse),
+                                 tref.ssm_scan(*args, reverse=reverse)):
+                assert torch.equal(got, want), (shape, reverse)
+    args = [torch.as_tensor(a).cuda().requires_grad_()
+            for a in _scan_inputs((2, 64, 300, 16), seed=5)]
+    y, hT = tops.fused_selective_scan(*args)
+    got = torch.autograd.grad((y.sum() + hT.sum()), args)
+    y, hT = tops.fused_selective_scan(*args, core="plain")
+    want = torch.autograd.grad((y.sum() + hT.sum()), args)
+    for g, w in zip(got, want):
+        _close(g.cpu().numpy(), w.cpu().numpy(), rel=GRAD_REL)
