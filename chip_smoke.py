@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
-``build/`` on first use, the seven nvcc runs started together), then:
+Builds the port's nine CUDA sources from ``src/repro_torch/csrc`` (into
+``build/`` on first use, the nine nvcc runs started together), then:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the fabric-step, fused-accumulate, flash-attention (forward and
-   backward), selective-scan, state-scan and int8 quantize/dequantize
-   kernels and reports the build time;
+   backward, each a float32 source and a bfloat16 wgmma source),
+   selective-scan, state-scan and int8 quantize/dequantize kernels,
+   reports the build time and checks that the wgmma libraries' SASS holds
+   tensor-core (HGMMA) and TMA (UTMALDG) instructions;
 3. holds the fabric-step kernel against its plain PyTorch version on the
    card at the characterization grids' shapes, at the shapes and batch
    sizes each figure path gives it (Fig. 1's 8-node ring AllReduce, Fig.
@@ -41,7 +43,11 @@ Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
    at hymba-1.5b's head shapes (25 query heads over 5 KV heads of 64) at
    S = 128, 1000, 1024 and 1280 (the 1024-token window binds), float32
    and bfloat16, and at the serve shape; plus a G = 1, a D = 128 and a
-   non-causal case;
+   non-causal case; and, in bfloat16, the wgmma kernel's edges: lengths
+   no tile divides (37, 300, 1000), a window starting mid-tile, D = 16
+   and 128 with G = 1 non-causal, Sq != Skv and rows with no live key;
+   each call's launch counts show bfloat16 on the wgmma source and
+   float32 on the float32 one, and the row log-sum-exp agrees;
 10. holds the selective-scan kernel (kernel 6) against its plain version
    at d_inner 3200, N 16, T = 1, 256 and 1280, x in float32 and
    bfloat16, at the serve shape, and at a d_inner no block divides;
@@ -51,11 +57,13 @@ Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
    teacher-forced decode steps;
 12. ``serve``: full-depth bfloat16 hymba-1.5b through ``BatchedServer``
    (12 requests, 2 waves; ``benchmarks/pt_serve.py``), with the launch
-   counts reset before and read after (each new kernel 32 x 2 times), and
-   wave 1's prefill logits held kernel vs plain on the same weights;
+   counts reset before and read after (each new kernel 32 x 2 times, every
+   attention launch on the wgmma source), and wave 1's prefill logits
+   held kernel vs plain on the same weights;
 13. times kernels 6 and 7 at the serve shape (B = 8, S = 1280, bfloat16)
    beside their plain versions, bounds and, for attention, PyTorch's
-   ``scaled_dot_product_attention`` at S = 1024;
+   ``scaled_dot_product_attention`` at S = 1024, with the achieved
+   TFLOP/s of the function's 4 * D flops a live pair;
 14. ``quant_vs_plain``: kernels 3 and 4 bit-equal to their plain versions
    on ragged row counts, an all-zero block, exact .5 ties and the largest
    leaf of hymba-1.5b's gradient tree (``embed.tok``, padded as
@@ -66,7 +74,8 @@ Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
    ``ref.flash_attention_bwd`` and autograd of the plain forward, at the
    training shape (B = 4, S = 1280, 25/5 heads x 64, window 1024) in
    float32 and bfloat16, S = 1000, G = 1 with D = 128, and non-causal
-   with a window (rows with no live key);
+   with a window (rows with no live key); in bfloat16 also the wgmma
+   kernels' edges as in 9, and two launches on the same inputs bit-equal;
 17. ``train_vs_jax``: full-width 2-layer hymba-1.5b, float32 (TF32 off),
    3 AdamW steps through the kernels, held to
    ``artifacts/bench_cache_torch/jax_train_reference.json``;
@@ -74,15 +83,17 @@ Builds the port's seven CUDA sources from ``src/repro_torch/csrc`` (into
    ``Trainer`` (``benchmarks/pt_train.py``): 8 steps at B = 4, S = 1280,
    a checkpoint every 4, a node failure injected at step 6, with the
    launch counts reset before and read after (per step 64 of kernels 5, 6
-   and 7 and 32 of the backward), and then the kernel path against the
-   plain one on the trained weights at 2 layers, float32 and bfloat16;
+   and 7 and 32 of the backward, every attention launch on the wgmma
+   sources), and then the kernel path against the plain one on the
+   trained weights at 2 layers, float32 and bfloat16;
 19. ``compression``: error-feedback compression of the trained model's
    last gradient tree through kernels 3 and 4, bit-equal to the plain
    versions, with the residual bound and two steps telescoping;
 20. ``timing_train``: kernels 3 and 4 at the largest leaf, kernel 5 forward
    and reverse at the training shape and the attention backward at the
    training shape and at S = 1024 beside the backward of
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``, with achieved TFLOP/s (10 * D flops
+   a live pair).
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -126,7 +137,10 @@ KERNEL6 = {"name": "fused_selective_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/ssm_scan.cu",
            "replaces": "src/repro/kernels/ssm_scan.py:87"}
 KERNEL7 = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+           "sources": {
+               "bfloat16": "src/repro_torch/csrc/flash_attention_sm90.cu",
+               "float32": "src/repro_torch/csrc/flash_attention.cu"},
            "replaces": "src/repro/kernels/flash_attention.py:74"}
 KERNEL3 = {"name": "quantize_int8", "route": "cuda",
            "source": "src/repro_torch/csrc/quant.cu",
@@ -138,7 +152,11 @@ KERNEL5 = {"name": "ssm_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/state_scan.cu",
            "replaces": "src/repro/kernels/ssm_scan.py:33"}
 KERNEL7B = {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+            "sources": {
+                "bfloat16":
+                    "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                "float32": "src/repro_torch/csrc/flash_attention_bwd.cu"},
             "replaces": "src/repro/kernels/flash_attention.py:74",
             "note": "the gradient of kernel 7; the TPU package has no "
                     "backward kernel (XLA differentiates "
@@ -156,6 +174,20 @@ SERVE_B, SERVE_S = 8, 1280
 # throughout; the y contraction's order differs)
 FA_F32_ATOL = 1e-5
 FA_BF16_RTOL = 2.0 ** -7
+# the bfloat16 (wgmma) attention kernels' edge cases, forward and
+# backward: (label, B, Sq, Skv, (H, KH, D), causal, window)
+FA_EDGES = (
+    ("S=37", 2, 37, 37, (25, 5, 64), True, 1024),
+    ("S=300 w=100 (window starts mid-tile)", 2, 300, 300, (25, 5, 64),
+     True, 100),
+    ("S=1000 non-causal", 1, 1000, 1000, (25, 5, 64), False, 0),
+    ("D=16 G=1 non-causal S=300", 2, 300, 300, (8, 8, 16), False, 0),
+    ("D=128 G=1 non-causal S=300", 2, 300, 300, (4, 4, 128), False, 0),
+    ("Sq=300 Skv=150 non-causal w=100, dead rows", 1, 300, 150,
+     (25, 5, 64), False, 100),
+    ("Sq=300 Skv=200 causal w=64, dead rows", 1, 300, 200, (25, 5, 64),
+     True, 64),
+    ("Sq=37 Skv=1000 non-causal", 1, 37, 1000, (25, 5, 64), False, 0))
 SCAN_REL = 2e-6
 # lm_vs_jax: logits within LM_TOL absolute of the JAX rows; greedy tokens
 # equal wherever JAX's top-2 margin exceeds 10 x LM_TOL
@@ -293,6 +325,8 @@ class Smoke:
                    (fr.SOURCE, fr.FLAGS, fr._load),
                    (fa.SOURCE, fa.FLAGS, fa._load),
                    (fa.BWD_SOURCE, fa.FLAGS, fa._load_bwd),
+                   (fa.SM90_SOURCE, fa.FLAGS, fa._load_sm90),
+                   (fa.SM90_BWD_SOURCE, fa.FLAGS, fa._load_sm90_bwd),
                    (ss.SOURCE, ss.FLAGS, ss._load),
                    (ss.SCAN_SOURCE, ss.FLAGS, ss._load_scan),
                    (qt.SOURCE, qt.FLAGS, qt._load))
@@ -309,6 +343,19 @@ class Smoke:
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("   ptxas:", line.strip())
         log(f"   all {len(sources)} built in {time.time() - t0:.1f}s")
+        # the wgmma kernels run on the tensor cores and TMA: their SASS
+        # must hold HGMMA and UTMALDG
+        tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+        self.report["sass"] = {}
+        for src in (fa.SM90_SOURCE, fa.SM90_BWD_SOURCE):
+            sass = subprocess.run(
+                [tool, "-sass", str(_build.library_path(src, fa.FLAGS))],
+                capture_output=True, text=True, timeout=120).stdout
+            n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+            log(f"   {src.name} SASS: {n}")
+            self.check(all(n.values()), f"build: {src.name} SASS lacks "
+                       f"HGMMA or UTMALDG: {n}")
+            self.report["sass"][src.name] = n
 
     # ------------------------------------------------------------ inputs
     def grid_case(self, system, n, victim, aggr, sizes=None, profiles=None):
@@ -686,6 +733,8 @@ class Smoke:
                 "fused_accumulate": fr.launches,
                 "flash_attention": fa.launches,
                 "flash_attention_bwd": fa.bwd_launches,
+                "flash_attention_sm90": fa.sm90_launches,
+                "flash_attention_bwd_sm90": fa.sm90_bwd_launches,
                 "fused_selective_scan": ss.launches,
                 "ssm_scan": ss.scan_launches,
                 "quantize_int8": qt.launches,
@@ -701,6 +750,7 @@ class Smoke:
         from repro_torch.kernels import ssm_scan as ss
         fs.launches = fr.launches = fa.launches = ss.launches = 0
         fa.bwd_launches = ss.scan_launches = qt.launches = qt.dq_launches = 0
+        fa.sm90_launches = fa.sm90_bwd_launches = 0
         sim.step_count = 0
         t0 = time.time()
         kernels = fn()
@@ -934,21 +984,33 @@ class Smoke:
         self.report["timing_fused_accumulate"] = self.fr_timings
 
     # ---------------------------------------------------------------- 9
-    def attn_inputs(self, B, S, heads, dtype, seed):
-        """Normal q (B, S, H, D), k and v (B, S, KH, D) on the card."""
+    def attn_inputs(self, B, S, heads, dtype, seed, Skv=None):
+        """Normal q (B, S, H, D), k and v (B, Skv, KH, D) on the card
+        (Skv = S by default)."""
         torch = self.torch
         H, KH, D = heads
         g = torch.Generator(device=self.dev).manual_seed(seed)
-        return [torch.randn(B, S, h, D, generator=g, device=self.dev)
-                .to(dtype) for h in (H, KH, KH)]
+        return [torch.randn(B, n, h, D, generator=g, device=self.dev)
+                .to(dtype) for n, h in ((S, H), (Skv or S, KH),
+                                        (Skv or S, KH))]
 
     def fa_compare(self, label, q, k, v, causal=True, window=0):
-        """Kernel 7 vs plain on the same card tensors; returns the max abs
-        error."""
+        """Kernel 7 vs plain on the same card tensors, without and with the
+        row log-sum-exp (the output equal in both calls, the lse within
+        FA_LSE_ABS of the plain one, -inf on the same rows); each launch
+        must go to its type's source: bfloat16 to the wgmma kernel, float32
+        to the float32 one. Returns the max abs error."""
         torch = self.torch
         from repro_torch.kernels import flash_attention as fa, ref
+        n, n90 = fa.launches, fa.sm90_launches
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        got2, lse = fa.flash_attention(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+        sm90 = fa.sm90_launches - n90
+        routed = fa.launches - n == 2 and sm90 == (
+            2 if q.dtype == torch.bfloat16 else 0)
+        want, lse_plain = ref.flash_attention(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         if q.dtype == torch.float32:
@@ -959,7 +1021,18 @@ class Smoke:
         ok = ok and got.dtype == q.dtype and bool(torch.isfinite(got).all())
         mabs = float(err.max())
         self.check(ok, f"flash_attention {label}: max abs err {mabs}")
-        log(f"   {label:44s} max abs err {mabs:.3g}")
+        self.check(routed, f"flash_attention {label}: {q.dtype} launches "
+                   f"{fa.launches - n}, {sm90} of them on the wgmma source")
+        dead = torch.isinf(lse_plain)
+        lse_err = float((lse - lse_plain).abs()[~dead].max()) \
+            if bool((~dead).any()) else 0.0
+        self.check(torch.equal(got, got2) and torch.equal(dead,
+                                                          torch.isinf(lse))
+                   and bool((lse[dead] < 0).all()) and lse_err <= FA_LSE_ABS,
+                   f"flash_attention {label}: lse {lse_err} from plain, "
+                   f"-inf rows differ, or the output moved with lse")
+        log(f"   {label:44s} max abs err {mabs:.3g}, lse {lse_err:.3g} "
+            f"({int(dead.sum())} -inf), on the wgmma source {sm90 // 2}")
         return mabs
 
     def fa_vs_plain(self):
@@ -990,6 +1063,11 @@ class Smoke:
                 q, k, v = self.attn_inputs(B, S, heads, dtype, seed=n)
                 self.fa_compare(f"{label} B={B} S={S} {heads} {dtype}", q, k,
                                 v, causal=causal, window=window)
+        for label, B, Sq, Skv, heads, causal, window in FA_EDGES:
+            n += 1
+            q, k, v = self.attn_inputs(B, Sq, heads, torch.bfloat16, n, Skv)
+            self.fa_compare(f"{label} B={B}", q, k, v, causal=causal,
+                            window=window)
 
     # --------------------------------------------------------------- 10
     def scan_inputs(self, B, T, Di, N, x_dtype, seed):
@@ -1066,11 +1144,13 @@ class Smoke:
                 numpy_params(cfg, ref["config"]["param_seed"]), cfg))
         prompts = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
         probe = np.array(ref["probe_ids"])
-        fa.launches = ss.launches = 0
+        fa.launches = ss.launches = fa.sm90_launches = 0
         logits, cache = model.prefill({"tokens": prompts})
-        self.check(fa.launches == ss.launches == cfg.n_layers,
+        self.check(fa.launches == ss.launches == cfg.n_layers
+                   and fa.sm90_launches == 0,
                    f"lm_vs_jax prefill launches {fa.launches} / "
-                   f"{ss.launches} != {cfg.n_layers}")
+                   f"{ss.launches} != {cfg.n_layers}, or float32 on the "
+                   f"wgmma source ({fa.sm90_launches})")
         S, rows = prompts.shape[1], []
         for t, want in enumerate(ref["steps"]):
             res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
@@ -1137,7 +1217,8 @@ class Smoke:
         server, model = out["server"], out["model"]
         st = server.stats
         want = 2 * cfg.n_layers
-        for k in ("flash_attention", "fused_selective_scan"):
+        for k in ("flash_attention", "fused_selective_scan",
+                  "flash_attention_sm90"):
             self.check(counts[k] == want,
                        f"serve: {k} launched {counts[k]} times, not {want}")
         mix = pt_serve.request_mix(cfg.vocab_size)
@@ -1222,13 +1303,22 @@ class Smoke:
             qt, kt, vt, is_causal=True, enable_gqa=True))
         k1024, _ = self.med_ms(
             lambda: fa.flash_attention(q1, k1, v1, window=HYMBA_WINDOW))
+        # achieved TFLOP/s of the function's 4 * D flops a live pair
+        f_serve = attn_flops(q, HYMBA_WINDOW, 4)
+        f_1024 = attn_flops(q1, HYMBA_WINDOW, 4)
         self.fa_timing = {"ms": kernel, "plain_ms": plain, "bound_ms": bound,
                           "bound_by": by, "library_ms": lib,
                           "ms_at_1024": k1024, "span_ms": k_span,
-                          "plain_span_ms": p_span, "library_span_ms": l_span}
+                          "plain_span_ms": p_span, "library_span_ms": l_span,
+                          "tflops": f_serve / kernel / 1e9,
+                          "tflops_at_1024": f_1024 / k1024 / 1e9,
+                          "library_tflops": f_1024 / lib / 1e9}
+        t = self.fa_timing
         log(f"   flash_attention B={SERVE_B} S={SERVE_S} bfloat16: kernel "
-            f"{kernel:.4f} ms, plain {plain:.4f}, bound {bound:.4f} ({by}); "
-            f"at S=1024 kernel {k1024:.4f}, sdpa {lib:.4f}")
+            f"{kernel:.4f} ms ({t['tflops']:.1f} TFLOP/s), plain "
+            f"{plain:.4f}, bound {bound:.4f} ({by}); at S=1024 kernel "
+            f"{k1024:.4f} ({t['tflops_at_1024']:.1f} TFLOP/s), sdpa "
+            f"{lib:.4f} ({t['library_tflops']:.1f} TFLOP/s)")
         Di, N = HYMBA_SSM
         args = self.scan_inputs(SERVE_B, SERVE_S, Di, N, torch.bfloat16, 1)
         kernel, k_span = self.med_ms(lambda: ss.fused_selective_scan(*args))
@@ -1344,8 +1434,21 @@ class Smoke:
                                                (Sq, H)))
         o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
                                     return_lse=True)
+        nb, n90 = fa.bwd_launches, fa.sm90_bwd_launches
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      window=window)
+        bf16 = dtype == torch.bfloat16
+        self.check(fa.bwd_launches - nb == 1
+                   and fa.sm90_bwd_launches - n90 == int(bf16),
+                   f"flash_attention_bwd {label}: {dtype} launch on the "
+                   f"wrong source")
+        same = None
+        if bf16:  # deterministic: a second launch agrees bit for bit
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            self.check(same, f"flash_attention_bwd {label}: two launches "
+                       f"differ")
         want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        window=window)
         auto = None
@@ -1386,6 +1489,8 @@ class Smoke:
             self.check(rel <= FA_BWD_F32_REL, f"flash_attention_bwd {label}:"
                        f" {rel} from autograd of the plain forward")
             parts.append(f"vs autograd {rel:.3g} of max")
+        if same is not None:
+            parts.append(f"two launches bit-equal {same}")
         log(f"   {label:46s} {', '.join(parts)}")
         return worst
 
@@ -1410,6 +1515,10 @@ class Smoke:
                 n += 1
                 self.fa_bwd_compare(f"{label} B={B} {dtype}", B, Sq, Skv,
                                     heads, dtype, causal, window, n)
+        for label, B, Sq, Skv, heads, causal, window in FA_EDGES:
+            n += 1
+            self.fa_bwd_compare(f"{label} B={B} bfloat16", B, Sq, Skv, heads,
+                                torch.bfloat16, causal, window, n)
 
     # --------------------------------------------------------------- 17
     def train_vs_jax(self):
@@ -1421,7 +1530,15 @@ class Smoke:
             ref = json.load(f)
         log(f"   reference: jax {ref['jax_version']} ({ref['jax_backend']}) "
             f"commit {ref['commit'][:12]}; TF32 off (matmul and cuDNN)")
+        from repro_torch.kernels import flash_attention as fa
+        n = (fa.launches, fa.bwd_launches, fa.sm90_launches,
+             fa.sm90_bwd_launches)
         got = pt_train.reference_run(self.dev, ref)
+        # float32 runs on the float32 sources
+        self.check(fa.launches > n[0] and fa.bwd_launches > n[1]
+                   and (fa.sm90_launches, fa.sm90_bwd_launches) == n[2:],
+                   "train_vs_jax: float32 attention on the wgmma sources, "
+                   "or not on the kernels")
         err = pt_train.reference_errors(got, ref)
         for i, (g, w) in enumerate(zip(got["steps"], ref["steps"])):
             log(f"   step {i}: loss {g['loss']:.7f} (jax {w['loss']:.7f}), "
@@ -1509,7 +1626,9 @@ class Smoke:
         # kernels 6 and 7 once a layer each; the backward runs kernel 5
         # twice a layer and the attention backward once
         want = {"flash_attention": 2 * L, "fused_selective_scan": 2 * L,
-                "ssm_scan": 2 * L, "flash_attention_bwd": L}
+                "ssm_scan": 2 * L, "flash_attention_bwd": L,
+                "flash_attention_sm90": 2 * L,
+                "flash_attention_bwd_sm90": L}
         n = len(res["log"])
         for k, w in want.items():
             self.check(counts[k] == w * n, f"train: {k} launched {counts[k]}"
@@ -1546,6 +1665,13 @@ class Smoke:
         # the last step's gradients, for the compression phase
         self.last_grads = {k: p.grad for k, p in
                            trainer.model.named_parameters()}
+        batch = pt_train.reference_data(cfg, {"seq_len": TRAIN_S,
+                                              "batch": TRAIN_B,
+                                              "data_seed": 0}).batch_at(0)
+        try:  # diagnostic only: a profiler problem fails no check
+            self.profile_train_step(trainer.model, batch)
+        except Exception:
+            log(f"train-step profile unavailable:\n{traceback.format_exc()}")
         # the trained weights at 2 layers, kernel path vs plain path, in
         # bfloat16 as trained and in float32
         state = {k: v.detach() for k, v in
@@ -1554,9 +1680,6 @@ class Smoke:
                  int(k.split(".")[1]) < 2}
         del trainer, out
         torch.cuda.empty_cache()
-        batch = pt_train.reference_data(cfg, {"seq_len": TRAIN_S,
-                                              "batch": TRAIN_B,
-                                              "data_seed": 0}).batch_at(0)
         cut = dataclasses.replace(cfg, n_layers=2)
         cmp = {}
         m = build_model(cut, device=self.dev).load_params(state)
@@ -1723,22 +1846,76 @@ class Smoke:
         go = do1.transpose(1, 2)
         lib, l_span = self.med_ms(lambda: torch.autograd.grad(
             lib_out, (qt_, kt_, vt_), go, retain_graph=True), graph=False)
+        # achieved TFLOP/s of the function's 10 * D flops a live pair
+        f_train = attn_flops(q, HYMBA_WINDOW, 10)
+        f_1024 = attn_flops(q1, HYMBA_WINDOW, 10)
         out["flash_attention_bwd"] = {
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib,
             "library_shape": f"B={TRAIN_B} S={HYMBA_WINDOW} bfloat16",
             "ms_at_library_shape": k1024, "span_ms": k_span,
-            "plain_span_ms": p_span, "library_span_ms": l_span}
+            "plain_span_ms": p_span, "library_span_ms": l_span,
+            "tflops": f_train / k_ms / 1e9,
+            "tflops_at_library_shape": f_1024 / k1024 / 1e9,
+            "library_tflops": f_1024 / lib / 1e9}
         for name, t in out.items():
             log(f"   {name:22s} kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
                 f"({t['bound_by']}), library {t['library_ms']}"
                 + (f"; at S=1024 kernel {t['ms_at_library_shape']:.4f}"
-                   if "ms_at_library_shape" in t else ""))
+                   if "ms_at_library_shape" in t else "")
+                + (f"; TFLOP/s {t['tflops']:.1f}, at S=1024 "
+                   f"{t['tflops_at_library_shape']:.1f}, library "
+                   f"{t['library_tflops']:.1f}" if "tflops" in t else ""))
         self.train_timing = out
         self.report["timing_train"] = out
 
     # ------------------------------------------------------- diagnostic
+    def profile_train_step(self, model, batch):
+        """Where a training step's device time goes: one forward + backward
+        of the trained full-depth model on one batch under torch.profiler
+        (after one unprofiled), device time summed by kernel name. The last
+        step's gradients stay with the compression phase. A diagnostic: it
+        checks nothing."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def step():
+            for p in model.parameters():
+                p.grad = None
+            model.loss(batch)[0].backward()
+            torch.cuda.synchronize()
+
+        step()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+        wall = time.perf_counter() - t0
+        for p in model.parameters():
+            p.grad = None
+        cuda = torch.autograd.DeviceType.CUDA
+        dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                getattr(e, "self_cuda_time_total", 0))
+        kernels = sorted((e for e in prof.key_averages()
+                          if getattr(e, "device_type", None) == cuda
+                          and dev(e) > 0), key=dev, reverse=True)
+        busy_ms = sum(dev(e) for e in kernels) / 1e3
+        attn = {e.key: (dev(e) / 1e3, e.count) for e in kernels
+                if "flash_attention" in e.key or "attn_bwd" in e.key}
+        out = {"wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
+               "launches": sum(e.count for e in kernels),
+               "attention_ms": attn,
+               "top": [(e.key[:70], dev(e) / 1e3, e.count)
+                       for e in kernels[:12]]}
+        log(f"   profiled forward + backward: {busy_ms:.1f} ms device busy "
+            f"in {1e3 * wall:.1f} ms wall, {out['launches']} launches")
+        for name, ms, cnt in out["top"]:
+            log(f"      {ms:9.2f} ms x{cnt:<5d} {name}")
+        for name, (ms, cnt) in attn.items():
+            log(f"      attention {ms:.2f} ms x{cnt} {name[:70]}")
+        self.report["train_step_profile"] = out
+
     def profile_steps(self, n_steps=200):
         """Where an engine step's time goes on leonardo/256/incast: host
         wall per step, device busy time per step (torch.profiler), and the
@@ -1849,6 +2026,16 @@ def fa_bound_ms(q, k, window):
     t_ops = 4 * D * live * B * H / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
+
+
+def attn_flops(q, window, per_d):
+    """``per_d`` * D flops per live (query, key) pair -- causal, inside the
+    window -- of attention over q (B, S, H, D): 4 for the forward, 10 for
+    the backward (the flops the bounds count)."""
+    import numpy as np
+    B, S, H, D = q.shape
+    live = int(np.minimum(np.arange(S) + 1, window).sum())  # keys per head
+    return per_d * D * live * B * H
 
 
 def scan_bound_ms(args, n_sm, clock_hz):
@@ -1970,6 +2157,8 @@ def main() -> int:
         "max_abs_err": s.fa_main_err, **pick(s.fa_timing),
         "library_shape": f"B={SERVE_B} S={HYMBA_WINDOW} bfloat16",
         "ms_at_library_shape": s.fa_timing["ms_at_1024"],
+        "tflops": s.fa_timing["tflops"],
+        "sm90_launches": s.serve_launches["flash_attention_sm90"],
         "train_launches": s.train_launches["flash_attention"]}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
         "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
@@ -1987,7 +2176,10 @@ def main() -> int:
         "max_abs_err": s.fa_bwd_main_err, **pick(tt["flash_attention_bwd"]),
         "library_shape": tt["flash_attention_bwd"]["library_shape"],
         "ms_at_library_shape":
-            tt["flash_attention_bwd"]["ms_at_library_shape"]}]}))
+            tt["flash_attention_bwd"]["ms_at_library_shape"],
+        "tflops": tt["flash_attention_bwd"]["tflops"],
+        "sm90_launches":
+            s.train_launches["flash_attention_bwd_sm90"]}]}))
     print(s.smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

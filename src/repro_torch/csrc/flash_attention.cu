@@ -7,8 +7,9 @@
 // q (B, Sq, H, D), k/v (B, Skv, KH, D), query head h reads KV head h / G
 // (G = H / KH), scale 1/sqrt(D), causal mask q_pos >= kv_pos, keys past
 // Skv masked, and with window > 0 keys at kv_pos <= q_pos - window masked.
-// Output in q's type. q, k and v are float32 or bfloat16 (one type), so
-// the types x head sizes {16, 64, 128} are template instances.
+// q, k, v and o are float32, the head sizes {16, 64, 128} template
+// instances. This is kernel 7's float32 path; bfloat16 runs on the wgmma
+// kernel flash_attention_sm90.cu.
 //
 // With an lse buffer (B, H, Sq) float32, the kernel also writes each row's
 // log-sum-exp of its scaled scores, m + log(l) (-inf for a row with no live
@@ -16,10 +17,9 @@
 // serve path passes none.
 //
 // Numerics, as the Pallas kernel: q is scaled in float32, scores and P.V
-// are float32 whatever the input type, and the online softmax keeps the
-// same -inf guards (m_safe = 0 for a row with no live key yet, corr = 0
-// while the running max is -inf, l floored at 1e-30), so a row whose keys
-// are all masked gives 0.
+// are float32, and the online softmax keeps the same -inf guards (m_safe
+// = 0 for a row with no live key yet, corr = 0 while the running max is
+// -inf, l floored at 1e-30), so a row whose keys are all masked gives 0.
 //
 // Design. One block per (q tile, KV head, batch row): the tile is
 // block_q query positions x the G query heads that read this KV head, so
@@ -43,11 +43,9 @@
 // cost 4 * D flops each, 40 GFLOP in all: 0.04 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against 79 MB of q/k/v/o (23 us at 3.35 TB/s). This
 // first version runs the products on the float32 CUDA cores (67 TFLOP/s
-// peak, 0.6 ms for the same work) to keep the Pallas kernel's float32
-// scores and P.V; a wgmma version with bf16 operands and float32
-// accumulation is later work.
+// peak, 0.6 ms for the same work): the float32 reference checks need
+// full float32 products, which the tensor cores' TF32 does not give.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -62,31 +60,18 @@ constexpr int kChunk = 16;    // keys per online-softmax update
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int Sq,
-                           int Skv, int H, int KH, int block_q, int causal,
-                           int window, float scale) {
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Skv, int H,
+                           int KH, int block_q, int causal, int window,
+                           float scale) {
   constexpr int TPR = D >= 32 ? D / 32 : 1;  // threads per query row
   constexpr int DPT = D / TPR;               // dimensions per thread
   constexpr int C4 = DPT / 4;                // float4 chunks per thread
@@ -206,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t stream) {
@@ -217,35 +202,16 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (block_q < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * kBlockKV * D * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + block_q - 1) / block_q, KH, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Sq, Skv, H, KH, block_q,
-      causal, window, 1.f / sqrtf(static_cast<float>(D)));
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Skv, H, KH, block_q, causal, window,
+      1.f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int Sq, int Skv, int H, int KH, int D, int causal,
-             int window, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
-                           window, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
-                           window, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
-                            window, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -255,21 +221,28 @@ extern "C" {
 // Launches o = attention(q, k, v) on `stream`, and writes the rows'
 // log-sum-exp to lse (B, H, Sq) float32 unless lse is null. Pointers are
 // device pointers to contiguous, 16-byte aligned buffers in the layouts
-// above;
-// bf16 picks bfloat16 (1) or float32 (0) for all four; D is 16, 64 or
-// 128; H a multiple of KH, with H / KH rows of D / 32 threads (at least
-// one) within 256 threads. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a D or a head ratio it does not take).
+// above, all float32; D is 16, 64 or 128; H a multiple of KH, with H / KH
+// rows of D / 32 threads (at least one) within 256 threads. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a D or a head
+// ratio it does not take).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int Sq, int Skv, int H,
-                           int KH, int D, int causal, int window, int bf16,
+                           int KH, int D, int causal, int window,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Skv, H, KH, D,
-                                   causal, window, s);
-  return launch_d<float>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
-                         window, s);
+  switch (D) {
+    case 16:
+      return launch<16>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                        s);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                        s);
+    case 128:
+      return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                         s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_error_string(int code) {

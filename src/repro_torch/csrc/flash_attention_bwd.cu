@@ -12,8 +12,9 @@
 //     dK_j = sum_i dS_ij (q_i * scale) dQ_i  = scale * sum_j dS_ij K_j
 // where i runs over the query rows of the G = H / KH heads that read KV
 // head j's head. A row with no live key (lse = -inf) gets P = 0, so every
-// gradient it touches is 0, not NaN. q, k, v, dO and the gradients are
-// float32 or bfloat16 (one type); scores, P and the sums are float32.
+// gradient it touches is 0, not NaN. q, k, v, dO, the gradients, scores,
+// P and the sums are all float32: this is the backward's float32 path;
+// bfloat16 runs on the wgmma kernels of flash_attention_bwd_sm90.cu.
 //
 // Design: two passes, each a kernel, and no atomics, so a launch is
 // deterministic; the wrapper counts the pair as one launch.
@@ -38,12 +39,11 @@
 // the dV, dK and dQ updates): 10 * D flops; at the training shape (B = 4,
 // S = 1280, 25/5 heads x 64, window 1024) 50.4 GFLOP, 0.051 ms at the bf16
 // tensor-core peak (989 TFLOP/s), against 79 MB of q, k, v, o, dO, lse
-// and the gradients in bfloat16 (24 us at 3.35 TB/s). This first version does seven
-// (pass 2 recomputes the score and dO . V: 14 * D flops) on the float32
-// CUDA cores (67 TFLOP/s, 1.05 ms for that work); a wgmma version is
-// later work.
+// and the gradients in bfloat16 (24 us at 3.35 TB/s). This version does
+// seven (pass 2 recomputes the score and dO . V: 14 * D flops) on the
+// float32 CUDA cores (67 TFLOP/s, 1.05 ms for that work): the float32
+// reference checks need full float32 products, which TF32 does not give.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -59,22 +59,8 @@ constexpr int kDPT = 16;      // dimensions per thread
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <int TPR>
@@ -92,15 +78,17 @@ __device__ __forceinline__ bool live_pair(int q_pos, int kv_pos, int Skv,
 }
 
 // ------------------------------------------------------------ pass 1
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    attn_bwd_dkdv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int Sq,
-                         int Skv, int H, int KH, int causal, int window,
-                         float scale) {
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int Sq, int Skv, int H, int KH, int causal,
+                         int window, float scale) {
   constexpr int TPR = D / kDPT >= 1 ? D / kDPT : 1;  // threads per key
   constexpr int C4 = kDPT / 4;                      // float4 chunks a thread
   constexpr int BK = kThreads / TPR;                // keys per block
@@ -224,12 +212,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------ pass 2
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
+    attn_bwd_dq_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
+                       const float* __restrict__ delta, float* __restrict__ dq,
                        int Sq, int Skv, int H, int KH, int block_q,
                        int causal, int window, float scale) {
   constexpr int TPR = D / kDPT >= 1 ? D / kDPT : 1;  // threads per row
@@ -332,7 +322,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int B, int Sq, int Skv, int H, int KH, int causal, int window,
@@ -345,51 +335,31 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem1 = (2 * kRowsQ * D + 2 * kRowsQ) * sizeof(float);
   const size_t smem2 = 2 * kBlockKV * D * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem2));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   const float* delta_ = static_cast<const float*>(delta);
   const int BK = kThreads / TPR;
   const dim3 grid1((Skv + BK - 1) / BK, KH, B);
-  attn_bwd_dkdv_kernel<T, D><<<grid1, kThreads, smem1, stream>>>(
-      q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dk), static_cast<T*>(dv),
-      Sq, Skv, H, KH, causal, window, scale);
+  attn_bwd_dkdv_kernel<D><<<grid1, kThreads, smem1, stream>>>(
+      q_, k_, v_, do_, lse_, delta_, static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Skv, H, KH, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid2((Sq + block_q - 1) / block_q, KH, B);
-  attn_bwd_dq_kernel<T, D><<<grid2, kThreads, smem2, stream>>>(
-      q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq), Sq, Skv, H, KH,
+  attn_bwd_dq_kernel<D><<<grid2, kThreads, smem2, stream>>>(
+      q_, k_, v_, do_, lse_, delta_, static_cast<float*>(dq), Sq, Skv, H, KH,
       block_q, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* dout,
-             const void* lse, const void* delta, void* dq, void* dk, void* dv,
-             int B, int Sq, int Skv, int H, int KH, int D, int causal,
-             int window, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                           H, KH, causal, window, s);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                           H, KH, causal, window, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
-                            Skv, H, KH, causal, window, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -397,10 +367,10 @@ int launch_d(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // Launches both passes on `stream`: dq (B, Sq, H, D), dk and dv (B, Skv,
-// KH, D) from q, k, v, dout in the same layouts (all one type: bf16 = 1
-// for bfloat16, 0 for float32; contiguous, 16-byte aligned) and lse, delta
-// (B, H, Sq) float32. D is 16, 64 or 128; H a multiple of KH with H / KH
-// rows of D / 16 threads (at least one) within 256 threads. Returns the
+// KH, D) from q, k, v, dout in the same layouts (all float32, contiguous,
+// 16-byte aligned) and lse, delta (B, H, Sq) float32. D is 16, 64 or
+// 128; H a multiple of KH with H / KH rows of D / 16 threads (at least
+// one) within 256 threads. Returns the
 // cudaError_t of the launches (cudaErrorInvalidValue for a D or a head
 // ratio it does not take).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -408,13 +378,21 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* delta, void* dq, void* dk,
                                void* dv, int B, int Sq, int Skv, int H,
                                int KH, int D, int causal, int window,
-                               int bf16, void* stream) {
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                   Sq, Skv, H, KH, D, causal, window, s);
-  return launch_d<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                         H, KH, D, causal, window, s);
+  switch (D) {
+    case 16:
+      return launch<16>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
+                        KH, causal, window, s);
+    case 64:
+      return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
+                        KH, causal, window, s);
+    case 128:
+      return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                         H, KH, causal, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -1,0 +1,396 @@
+// Hopper (sm_90a) building blocks of the wgmma flash-attention kernels
+// (flash_attention_sm90.cu and flash_attention_bwd_sm90.cu): mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and instructions, the
+// accumulator-to-A-fragment split of a float32 tile into bf16 hi + lo, and
+// the host-side encoder of TMA tensor maps.
+//
+// Tiles. A tile is 64 rows of one bf16 chunk of the head dimension: 64
+// values (128 bytes, 128-byte swizzle) for D = 64 and 128, which take one
+// and two chunks; 16 values (32 bytes, 32-byte swizzle) for D = 16. TMA
+// writes each chunk swizzled, and the wgmma descriptors read it with the
+// matching layout: K-major where the head dimension is the product's
+// depth (q . k, dO . v), MN-major where the rows are (P . V, dS . K).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int kTileRows = 64;  // rows of a tile, and keys of a score tile
+
+// Warp specialisation: NC consumer warpgroups, then one producer
+// warpgroup whose first warp issues the loads. The block launches with
+// the registers its thread count allows (65,536 over 128 (NC + 1)
+// threads, a multiple of 8: 168 for NC = 2, 128 for NC = 3); the producer
+// gives all but 24 a thread back and the consumers take them up to
+// kConsumerRegs (240 and 160).
+template <int NC>
+struct Roles {
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kProducerRegs) / (128 * NC) / 8 * 8;
+};
+
+// 0 when `kernel` launches with enough registers a thread for its
+// consumers' setmaxnreg.inc to be met by what the producer gives back
+// (else the consumers would wait for registers forever), else a
+// cudaError_t
+template <int NC>
+inline int check_register_budget(const void* kernel) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int given = (a.numRegs - Roles<NC>::kProducerRegs) * 128;
+  const int taken = (Roles<NC>::kConsumerRegs - a.numRegs) * 128 * NC;
+  return given >= taken ? 0
+                        : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+template <int R>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int D>
+struct Chunk {
+  static constexpr int kCols = D >= 64 ? 64 : D;     // bf16 values a row
+  static constexpr int kCount = D / kCols;           // chunks of a head
+  static constexpr int kRowBytes = kCols * 2;        // 128 or 32
+  static constexpr int kBytes = kTileRows * kRowBytes;  // one chunk tile
+  static constexpr int kTileBytes = kCount * kBytes;    // a D-wide tile
+  // wgmma layout type: 1 = 128-byte swizzle, 3 = 32-byte swizzle
+  static constexpr uint64_t kLayout = D >= 64 ? 1 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ mbarriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transfers
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// whether the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// waits until the phase of parity `parity` has completed; a wait of more
+// than 2^34 clocks (about 9 s) traps, so a fault in the pipeline ends the
+// launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// ------------------------------------------------------------------ TMA
+// a 4-D box at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at dst; completion is counted on bar. Coordinates past
+// the tensor's ends (or negative) read zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// K-major operand: rows of a tile, the depth along the head dimension;
+// k-step ks (16 values) of a D-wide tile at `tile`
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int ks) {
+  using C = Chunk<D>;
+  const uint8_t* p = tile + (ks * 16 / C::kCols) * C::kBytes +
+                     (ks * 16 % C::kCols) * 2;
+  return make_desc(p, 16, 8 * C::kRowBytes, C::kLayout);
+}
+
+// MN-major operand (B transposed): the depth along the tile's rows, the
+// N dimension along the head dimension; k-step kk = rows 16 kk .. +15
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk) {
+  using C = Chunk<D>;
+  return make_desc(tile + kk * 16 * C::kRowBytes, C::kBytes,
+                   8 * C::kRowBytes, C::kLayout);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma uses across the fence/wait around it
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d = A . B (accumulate = 0) or d += A . B, A and B both read from shared
+// memory, K-major (m64n64k16)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B, A from registers (four bf16x2 a thread), B read from
+// shared memory MN-major (m64n16k16, B transposed)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, A from registers (four bf16x2 a thread), B read from
+// shared memory MN-major (m64n64k16, B transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, A from registers (four bf16x2 a thread), B read from
+// shared memory MN-major (m64n128k16, B transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc += A . B over a D-wide B (N = D), A from registers
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(acc, a, db);
+  if constexpr (D == 64) wgmma_rs_n64(acc, a, db);
+  if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
+}
+
+// --------------------------------------------------------- accumulators
+// A thread's entry i of an m64nN float32 accumulator lies at row
+// 16 * warp + lane / 4 + 8 * ((i / 2) % 2) of the warpgroup's 64 and at
+// column 8 * (i / 4) + 2 * (lane % 4) + i % 2: each row is spread over
+// the four threads of a quad.
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Splits a 64 x 64 float32 accumulator into the A fragments of the four
+// k-steps (16 columns each) of the next product, as two bf16 terms: hi =
+// bf16(x) and lo = bf16(x - hi), which together keep about 16 significant
+// bits of x. The accumulator's layout is the A fragment's, so no data
+// moves between threads.
+__device__ __forceinline__ void split_hi_lo(const float (&s)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = s[8 * kk + 2 * r], y = s[8 * kk + 2 * r + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][r] = *reinterpret_cast<uint32_t*>(&h);
+      lo[kk][r] = pack_bf16(x - hf.x, y - hf.y);
+    }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------------ host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda.so.1, which the CUDA
+// runtime has loaded (no link against libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(
+                   dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a contiguous bf16 tensor of shape (n3, n2, n1, d),
+// outermost first, read in boxes of (b3, b2, b1, one chunk of d). Returns
+// a cudaError_t.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int n1, int n2, int n3,
+             int b1, int b2, int b3) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSharedObjectInitFailed);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2),
+                              static_cast<cuuint64_t>(n3)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(D) * 2 * n1,
+      static_cast<cuuint64_t>(D) * 2 * n1 * n2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Chunk<D>::kCols),
+                             static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2),
+                             static_cast<cuuint32_t>(b3)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, Chunk<D>::kSwizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace sm90

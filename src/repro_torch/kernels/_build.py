@@ -2,8 +2,9 @@
 
 Each source in ``csrc/`` is compiled with nvcc for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/lib<stem>_<key>.so`` at
-the repository root, at first use; ``key`` hashes the source and the
-flags, so an edit to either builds a new library. nvcc's output (with
+the repository root, at first use; ``key`` hashes the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edit to any of
+them builds a new library. nvcc's output (with
 ``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
 beside the library as ``.log`` and returned by :func:`log`.
 """
@@ -35,9 +36,11 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{key}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path, flags=NVCC_FLAGS) -> Path:

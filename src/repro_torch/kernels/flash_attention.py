@@ -1,7 +1,11 @@
 """Wrappers for the hand-written CUDA flash attention (kernel 7) and its
 backward.
 
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` are
+Each direction has two sources, picked by the inputs' type: bfloat16 runs
+on the wgmma kernels of ``csrc/flash_attention_sm90.cu`` and
+``csrc/flash_attention_bwd_sm90.cu`` (tensor cores, TMA-fed tiles);
+float32 on ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
+(float32 CUDA cores, which the float32 reference checks need). Each is
 compiled with nvcc for ``sm_90a`` (``_build``, into ``build/`` at first
 use) and called through ``ctypes`` on PyTorch's current stream. The
 forward replaces the TPU kernel
@@ -12,10 +16,12 @@ TPU counterpart (XLA differentiates the JAX package's attention).
 plain versions.
 
 The wrappers only take CUDA tensors and never fall back: a device, type,
-head size, shape or layout a kernel does not take raises. ``launches``
-counts the forward launches and ``bwd_launches`` the backward ones (one a
-call, though a call runs two passes) since import (or since a caller
-reset them).
+head size, shape or layout a kernel does not take raises, and the type
+alone picks the source. ``launches`` counts the forward launches and
+``bwd_launches`` the backward ones (one a call, though a call runs two
+passes), of either type, since import (or since a caller reset them);
+``sm90_launches`` and ``sm90_bwd_launches`` count the bfloat16 ones among
+them.
 """
 from __future__ import annotations
 
@@ -25,45 +31,65 @@ import torch
 
 from repro_torch.kernels import _build
 
+# float32 sources, and the bfloat16 (wgmma) ones
 SOURCE = _build.CSRC / "flash_attention.cu"
 BWD_SOURCE = _build.CSRC / "flash_attention_bwd.cu"
+SM90_SOURCE = _build.CSRC / "flash_attention_sm90.cu"
+SM90_BWD_SOURCE = _build.CSRC / "flash_attention_bwd_sm90.cu"
 # fused multiply-adds on: the dot products gain accuracy from them
 FLAGS = tuple(f for f in _build.NVCC_FLAGS if f != "--fmad=false")
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (16, 64, 128)  # the kernels' template instances
 
 launches = 0
 bwd_launches = 0
-_lib = None
-_bwd_lib = None
+sm90_launches = 0
+sm90_bwd_launches = 0
+_libs: dict = {}
+
+
+def _load_source(source, n_ptr: int):
+    """The library of ``source``, its launch function taking ``n_ptr``
+    pointers, eight ints and the stream."""
+    if source not in _libs:
+        lib = _build.load(source, FLAGS)
+        fn = getattr(lib, f"{source.stem}_launch")
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{source.stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[source] = lib
+    return _libs[source]
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE, FLAGS)
-        fn = lib.flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _load_source(SOURCE, 5)
 
 
 def _load_bwd():
-    global _bwd_lib
-    if _bwd_lib is None:
-        lib = _build.load(BWD_SOURCE, FLAGS)
-        fn = lib.flash_attention_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-        _bwd_lib = lib
-    return _bwd_lib
+    return _load_source(BWD_SOURCE, 9)
+
+
+def _load_sm90():
+    return _load_source(SM90_SOURCE, 5)
+
+
+def _load_sm90_bwd():
+    return _load_source(SM90_BWD_SOURCE, 10)
+
+
+def _launch(source, n_ptr, *args):
+    """Calls ``source``'s launch function on PyTorch's current stream and
+    raises with the CUDA error when it does not return 0."""
+    lib = _load_source(source, n_ptr)
+    rc = getattr(lib, f"{source.stem}_launch")(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{source.stem} launch failed: "
+            + getattr(lib, f"{source.stem}_error_string")(rc).decode())
 
 
 def _check_qkv(q, k, v, window, extra=()):
@@ -106,25 +132,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or before ``q_pos - window``. Output in ``q.dtype``; with ``return_lse``
     also each row's log-sum-exp of its scaled scores, (B, H, Sq) float32
     (-inf for a row with no live key)."""
-    global launches
+    global launches, sm90_launches
     B, Sq, Skv, H, KH, D = _check_qkv(q, k, v, window)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32,
                       device=q.device) if return_lse else None
     if out.numel():
-        lib = _load()
+        bf16 = q.dtype == torch.bfloat16
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if return_lse else None, B, Sq, Skv, H, KH, D,
-                int(causal), int(window), int(q.dtype == torch.bfloat16),
-                stream)
-        if rc != 0:
-            raise RuntimeError(
-                "flash_attention launch failed: "
-                + lib.flash_attention_error_string(rc).decode())
+            _launch(SM90_SOURCE if bf16 else SOURCE, 5, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if return_lse else None, B, Sq, Skv, H,
+                    KH, D, int(causal), int(window))
         launches += 1
+        sm90_launches += bf16
     return (out, lse) if return_lse else out
 
 
@@ -135,8 +156,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`flash_attention` from its output ``o``, its
     row log-sum-exp ``lse`` (B, H, Sq) float32 and the output gradient
     ``do`` (all CUDA, contiguous, q's type but lse). delta = rowsum(dO * O)
-    is formed here in float32; the kernel's two passes run on it."""
-    global bwd_launches
+    in float32 is formed by a first kernel in bfloat16 and here in
+    float32; the kernels' two passes run on it."""
+    global bwd_launches, sm90_bwd_launches
     B, Sq, Skv, H, KH, D = _check_qkv(q, k, v, window,
                                       (("o", o), ("do", do)))
     if o.shape != q.shape or do.shape != q.shape:
@@ -147,22 +169,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be contiguous float32 {(B, H, Sq)} on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on "
                          f"{lse.device}")
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() and k.numel():
-        lib = _load_bwd()
+        dims = (B, Sq, Skv, H, KH, D, int(causal), int(window))
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention_bwd_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KH, D,
-                int(causal), int(window), int(q.dtype == torch.bfloat16),
-                stream)
-        if rc != 0:
-            raise RuntimeError(
-                "flash_attention_bwd launch failed: "
-                + lib.flash_attention_bwd_error_string(rc).decode())
+            if q.dtype == torch.bfloat16:  # the kernel forms delta itself
+                delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                                    device=q.device)
+                _launch(SM90_BWD_SOURCE, 10, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), *dims)
+                sm90_bwd_launches += 1
+            else:
+                delta = (do.float() * o.float()).sum(-1).transpose(
+                    1, 2).contiguous()
+                _launch(BWD_SOURCE, 9, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *dims)
         bwd_launches += 1
     else:
         dq.zero_(), dk.zero_(), dv.zero_()

@@ -17,6 +17,12 @@ outputs agree within one bfloat16 step at magnitude 2 (2**-6), since
 both compute in float32 and round once. Gradients: 5e-6 relative to the
 largest magnitude of each (measured at most 9.4e-7); a window one key too
 wide in the backward moves them by 1.3 or more at these shapes.
+
+The bfloat16 kernels (``csrc/flash_attention_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``) are held to ``chip_smoke.py``'s
+bfloat16 limits: one bfloat16 step of the plain value (2**-7 relative)
+plus 1e-5 absolute for the output, plus 1e-5 of the largest magnitude for
+each gradient. Their arithmetic is modelled here on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +40,10 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 F32_ATOL = 2e-6
 GRAD_REL = 5e-6
 BF16_ATOL = 2.0 ** -6
+# chip_smoke.py's limits for kernel 7 and its backward on the card
+FA_F32_ATOL = 1e-5
+FA_BF16_RTOL = 2.0 ** -7
+FA_BWD_F32_REL = 1e-5
 
 # (B, Sq, Skv, H, KH, D): G = H / KH in {1, 2, 5}, ragged lengths
 SHAPES = [(2, 40, 40, 4, 4, 16), (1, 37, 37, 4, 2, 128),
@@ -121,6 +131,30 @@ def test_kernel_matches_plain_on_card():
                                             window=window)
                 err = float((got - want).abs().max())
                 assert err <= 1e-5, (shape, window, causal, err)
+    # bfloat16 runs on the wgmma kernel, held to chip_smoke.py's limit;
+    # float32 never does
+    for shape in SHAPES + [(2, 300, 300, 25, 5, 64), (1, 90, 90, 4, 4, 128),
+                           (1, 300, 150, 25, 5, 64)]:
+        for window in (0, 32, 100):
+            for causal in (True, False):
+                q, k, v = (torch.as_tensor(a).cuda().bfloat16()
+                           for a in _qkv(shape))
+                n32, n90 = tfa.launches, tfa.sm90_launches
+                got, lse = tfa.flash_attention(q, k, v, causal=causal,
+                                               window=window, return_lse=True)
+                want, wl = tref.flash_attention(q, k, v, causal=causal,
+                                                window=window,
+                                                return_lse=True)
+                assert tfa.sm90_launches - n90 == tfa.launches - n32 == 1
+                err = (got.float() - want.float()).abs()
+                assert bool((err <= FA_BF16_RTOL * want.float().abs()
+                             + FA_F32_ATOL).all()), (shape, window, causal)
+                live = torch.isfinite(wl)
+                assert torch.equal(torch.isfinite(lse), live)
+                assert float((lse[live] - wl[live]).abs().max()) <= 2e-5
+    n90 = tfa.sm90_launches
+    tfa.flash_attention(*(torch.as_tensor(a).cuda() for a in _qkv(SHAPES[0])))
+    assert tfa.sm90_launches == n90
 
 
 # ------------------------------------------------------------- backward
@@ -214,3 +248,136 @@ def test_backward_kernel_matches_plain_on_card():
                                         window=window)
         for g, w in zip(got, want):
             assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= 1e-5, shape
+    # bfloat16 on the wgmma kernels, held to chip_smoke.py's limit, and
+    # deterministic: two launches agree bit for bit
+    for shape, causal, window in BWD_CASES + [
+            ((2, 300, 300, 25, 5, 64), True, 256),
+            ((1, 300, 150, 25, 5, 64), False, 100),
+            ((1, 90, 90, 4, 4, 128), True, 0)]:
+        q, k, v, do = (torch.as_tensor(a).cuda().bfloat16()
+                       for a in _bwd_inputs(shape, seed=6))
+        o, lse = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        n90 = tfa.sm90_bwd_launches
+        got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+        again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+        assert tfa.sm90_bwd_launches - n90 == 2
+        want = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+        for g, g2, w in zip(got, again, want):
+            assert torch.equal(g, g2), shape
+            err = (g.float() - w.float()).abs()
+            top = float(w.float().abs().max())
+            assert bool((err <= FA_BF16_RTOL * w.float().abs()
+                         + FA_BWD_F32_REL * top).all()), (shape, causal,
+                                                           window)
+
+
+# ------------------------------------------- the bfloat16 kernels' rounding
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _second_operand(x, single):
+    """P or dS as the wgmma kernels feed it to their second product: bf16
+    hi + lo terms (hi = bf16(x), lo = bf16(x - hi)), or hi alone."""
+    hi = _bf16(x)
+    return (hi,) if single else (hi, _bf16(x - hi))
+
+
+def _sm90_model(q, k, v, do, window, single):
+    """The wgmma kernels' arithmetic in plain PyTorch: bfloat16 operands,
+    exact products and float32 sums, float32 softmax, and P (forward), P
+    and dS (backward) rounded by ``_second_operand``. The backward runs on
+    the plain forward's o and lse, as the kernel runs on the forward
+    kernel's. Returns (o, (dq, dk, dv)) in bfloat16."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    s, mask = tref._attn_scores(q, k, True, window)  # b, kv head, g, q, key
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    o = sum(torch.einsum("bkgqc,bckd->bqkgd", t, v.float())
+            for t in _second_operand(p, single))
+    o = (o / l.clamp_min(1e-30)).reshape(q.shape).bfloat16()
+    o_ref, lse = tref.flash_attention(q, k, v, window=window, return_lse=True)
+    lse5 = lse.reshape(B, KH, G, S, 1)
+    live = mask & torch.isfinite(lse5)
+    p = torch.where(live, torch.exp(s - torch.where(live, lse5, 0.0)), 0.0)
+    do5 = do.reshape(B, S, KH, G, D).float()
+    delta = (do5 * o_ref.reshape(B, S, KH, G, D).float()).sum(-1)
+    dp = torch.einsum("bqkgd,bckd->bkgqc", do5, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / np.sqrt(D)
+    q5 = q.reshape(B, S, KH, G, D).float()
+    dv = sum(torch.einsum("bkgqc,bqkgd->bckd", t, do5)
+             for t in _second_operand(p, single))
+    dk = sum(torch.einsum("bkgqc,bqkgd->bckd", t, q5)
+             for t in _second_operand(ds, single)) * scale
+    dq = sum(torch.einsum("bkgqc,bckd->bqkgd", t, k.float())
+             for t in _second_operand(ds, single)) * scale
+    return o, (dq.reshape(q.shape).bfloat16(), dk.bfloat16(), dv.bfloat16())
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_sm90_rounding_model_meets_bf16_limits(single):
+    """hymba-1.5b's heads (25 over 5 KV heads of 64), B = 1, S = 512,
+    window 256, normal inputs: the kernels' model against the plain
+    versions within chip_smoke.py's bfloat16 limits. With P and dS split
+    into bf16 hi + lo no value breaks them. Rounded once to bf16 instead,
+    they break them here at 85,244 of 819,200 outputs, and at 78,807 of
+    819,200 dq, 17,517 of 163,840 dk and 15,149 of 163,840 dv values; at
+    B = 2, S = 1280, window 1024 (dk, dv: B = 1) at 436,212 of 4,096,000
+    outputs, 197,101 of 2,048,000 dq, 33,160 of 409,600 dk and 26,200 of
+    409,600 dv. So the kernels keep about 16 bits of P and dS."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(s, np.float32))
+                   .bfloat16() for s in ((1, 512, 25, 64), (1, 512, 5, 64),
+                                         (1, 512, 5, 64), (1, 512, 25, 64)))
+    o, grads = _sm90_model(q, k, v, do, 256, single)
+    want_o, lse = tref.flash_attention(q, k, v, window=256, return_lse=True)
+    want = tref.flash_attention_bwd(q, k, v, want_o, lse, do, window=256)
+    over = [int(((o.float() - want_o.float()).abs()
+                 > FA_BF16_RTOL * want_o.float().abs() + FA_F32_ATOL).sum())]
+    for g, w in zip(grads, want):
+        w = w.float()
+        top = float(w.abs().max())
+        over.append(int(((g.float() - w).abs()
+                         > FA_BF16_RTOL * w.abs() + FA_BWD_F32_REL * top)
+                        .sum()))
+    if single:
+        assert all(n > 1000 for n in over), over
+    else:
+        assert over == [0, 0, 0, 0], over
+
+
+def test_sm90_sources_export_what_the_wrapper_loads():
+    """The wrapper finds each library's entry points by the source's stem
+    and passes pointers, eight ints and the stream; the kernels take no
+    PyTorch header (a plain C interface, built in seconds)."""
+    for src, n_ptr in ((tfa.SOURCE, 5), (tfa.BWD_SOURCE, 9),
+                       (tfa.SM90_SOURCE, 5), (tfa.SM90_BWD_SOURCE, 10)):
+        text = src.read_text()
+        head = text[text.index(f"int {src.stem}_launch("):]
+        head = head[head.index("(") + 1:head.index(")")]
+        assert head.count("void*") == n_ptr + 1, src.name  # + the stream
+        assert head.count("int ") == 8, src.name
+        assert f"const char* {src.stem}_error_string(int code)" in text
+        assert "#include <torch" not in text
+    for src in (tfa.SM90_SOURCE, tfa.SM90_BWD_SOURCE):
+        assert '#include "sm90.cuh"' in src.read_text()
+
+
+def test_build_keys_on_headers(tmp_path):
+    """A source's library key covers the headers beside it, so an edit to
+    csrc/sm90.cuh rebuilds both wgmma kernels."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.library_path(src)
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path(src) != first
