@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's nine CUDA sources from ``src/repro_torch/csrc`` (into
-``build/`` on first use, the nine nvcc runs started together), then:
+Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
+``build/`` on first use, the ten nvcc runs started together), then:
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the fabric-step, fused-accumulate, flash-attention (forward and
    backward, each a float32 source and a bfloat16 wgmma source),
-   selective-scan, state-scan and int8 quantize/dequantize kernels,
+   selective-scan (forward and fused backward), state-scan and int8
+   quantize/dequantize kernels,
    reports the build time and checks that the wgmma libraries' SASS holds
    tensor-core (HGMMA) and TMA (UTMALDG) instructions;
 3. holds the fabric-step kernel against its plain PyTorch version on the
@@ -61,7 +62,8 @@ Builds the port's nine CUDA sources from ``src/repro_torch/csrc`` (into
    attention launch on the wgmma source), and wave 1's prefill logits
    held kernel vs plain on the same weights;
 13. times kernels 6 and 7 at the serve shape (B = 8, S = 1280, bfloat16)
-   beside their plain versions, bounds and, for attention, PyTorch's
+   (kernel 6 also at the training shape, B = 4) beside their plain
+   versions, bounds and, for attention, PyTorch's
    ``scaled_dot_product_attention`` at S = 1024, with the achieved
    TFLOP/s of the function's 4 * D flops a live pair;
 14. ``quant_vs_plain``: kernels 3 and 4 bit-equal to their plain versions
@@ -69,7 +71,15 @@ Builds the port's nine CUDA sources from ``src/repro_torch/csrc`` (into
    leaf of hymba-1.5b's gradient tree (``embed.tok``, padded as
    ``compress_leaf`` pads it);
 15. ``ssm_scan_vs_plain``: kernel 5, forward and reverse, at the training
-   shape (4, 1280, 3200, 16), a ragged d_inner and N = 8;
+   shape (4, 1280, 3200, 16), a ragged d_inner and N = 8 (kernel 5 runs on
+   no model path: the training backward is the fused one below);
+15b. ``selective_scan_bwd_vs_plain``: the selective scan's fused backward
+   against ``ref.fused_selective_scan_bwd`` and autograd of
+   ``ref.fused_selective_scan``, every gradient within GRAD_REL of its
+   largest magnitude (a bfloat16 d_x within one bfloat16 step more), at
+   the training shape (4, 1280, 3200, 16) with x float32 and bfloat16, T =
+   1, 37 and 1000, a ragged d_inner and N = 8, all with non-zero h0 and
+   dh_T; two launches on the same inputs bit-equal;
 16. ``flash_attention_bwd_vs_plain``: the attention backward against
    ``ref.flash_attention_bwd`` and autograd of the plain forward, at the
    training shape (B = 4, S = 1280, 25/5 heads x 64, window 1024) in
@@ -82,18 +92,21 @@ Builds the port's nine CUDA sources from ``src/repro_torch/csrc`` (into
 18. ``train``: full-depth bfloat16 hymba-1.5b through the port's
    ``Trainer`` (``benchmarks/pt_train.py``): 8 steps at B = 4, S = 1280,
    a checkpoint every 4, a node failure injected at step 6, with the
-   launch counts reset before and read after (per step 64 of kernels 5, 6
-   and 7 and 32 of the backward, every attention launch on the wgmma
+   launch counts reset before and read after (per step 64 of kernels 6
+   and 7, 32 of the selective scan's backward and of the attention
+   backward, none of kernel 5; every attention launch on the wgmma
    sources), and then the kernel path against the plain one on the
-   trained weights at 2 layers, float32 and bfloat16;
+   trained weights at 2 layers, float32 and bfloat16; a profile of one
+   forward + backward with the top operators by device time and their
+   input shapes;
 19. ``compression``: error-feedback compression of the trained model's
    last gradient tree through kernels 3 and 4, bit-equal to the plain
    versions, with the residual bound and two steps telescoping;
 20. ``timing_train``: kernels 3 and 4 at the largest leaf, kernel 5 forward
-   and reverse at the training shape and the attention backward at the
-   training shape and at S = 1024 beside the backward of
-   ``scaled_dot_product_attention``, with achieved TFLOP/s (10 * D flops
-   a live pair).
+   and reverse and the selective scan's backward at the training shape,
+   and the attention backward at the training shape and at S = 1024
+   beside the backward of ``scaled_dot_product_attention``, with achieved
+   TFLOP/s (10 * D flops a live pair).
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -151,6 +164,12 @@ KERNEL4 = {"name": "dequantize_int8", "route": "cuda",
 KERNEL5 = {"name": "ssm_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/state_scan.cu",
            "replaces": "src/repro/kernels/ssm_scan.py:33"}
+KERNEL6B = {"name": "fused_selective_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:87",
+            "note": "the gradient of kernel 6; the TPU package has no "
+                    "backward kernel (XLA differentiates "
+                    "src/repro/models/ssm.py:91-103)"}
 KERNEL7B = {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
             "sources": {
@@ -171,7 +190,8 @@ SERVE_B, SERVE_S = 8, 1280
 # only the summation order differs); bfloat16 within one bfloat16 step of
 # the plain value (2**-7 relative) + 1e-5, as both round one float32
 # result. Kernel 6 vs plain: 2e-6 of the largest |y| or |h_T| (float32
-# throughout; the y contraction's order differs)
+# throughout; the kernel's fused multiply-adds and the y contraction's
+# order differ)
 FA_F32_ATOL = 1e-5
 FA_BF16_RTOL = 2.0 ** -7
 # the bfloat16 (wgmma) attention kernels' edge cases, forward and
@@ -189,6 +209,23 @@ FA_EDGES = (
      True, 64),
     ("Sq=37 Skv=1000 non-causal", 1, 37, 1000, (25, 5, 64), False, 0))
 SCAN_REL = 2e-6
+# the selective scan's backward vs plain and vs autograd of the plain
+# forward: each gradient within GRAD_REL of its largest magnitude (sums
+# over n, d, b and t in another order; the limit of
+# tests/test_torch_ssm_scan.py); a bfloat16 d_x within one bfloat16 step
+# (BF16_STEP of each value) more, as both round one float32 result
+GRAD_REL = 2e-5
+BF16_STEP = 2.0 ** -7
+SCAN_GRADS = ("d_dt", "d_A", "d_B", "d_C", "d_x", "d_h0")
+# (label, (B, T, Di, N), x type) of the backward's checks
+SCAN_BWD_CASES = (
+    ("train x float32", (4, 1280, 3200, 16), "float32"),
+    ("train x bfloat16", (4, 1280, 3200, 16), "bfloat16"),
+    ("T=1", (2, 1, 3200, 16), "bfloat16"),
+    ("T=37", (2, 37, 3200, 16), "float32"),
+    ("T=1000", (2, 1000, 3200, 16), "bfloat16"),
+    ("ragged Di", (2, 200, 3000, 16), "float32"),
+    ("N=8", (1, 100, 1000, 8), "bfloat16"))
 # lm_vs_jax: logits within LM_TOL absolute of the JAX rows; greedy tokens
 # equal wherever JAX's top-2 margin exceeds 10 x LM_TOL
 LM_TOL = 8e-6
@@ -328,6 +365,7 @@ class Smoke:
                    (fa.SM90_SOURCE, fa.FLAGS, fa._load_sm90),
                    (fa.SM90_BWD_SOURCE, fa.FLAGS, fa._load_sm90_bwd),
                    (ss.SOURCE, ss.FLAGS, ss._load),
+                   (ss.BWD_SOURCE, ss.FLAGS, ss._load_bwd),
                    (ss.SCAN_SOURCE, ss.FLAGS, ss._load_scan),
                    (qt.SOURCE, qt.FLAGS, qt._load))
         t0 = time.time()
@@ -337,11 +375,14 @@ class Smoke:
         for _, _, load in sources:
             load()
         self.report["build_s"] = time.time() - t0
+        self.report["ptxas"] = {}
         for (src, flags, _), lib in zip(sources, libs):
             log(f"built {os.path.relpath(lib, ROOT)}")
             for line in _build.log(src, flags).splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("   ptxas:", line.strip())
+                    self.report["ptxas"].setdefault(src.name, []).append(
+                        line.strip())
         log(f"   all {len(sources)} built in {time.time() - t0:.1f}s")
         # the wgmma kernels run on the tensor cores and TMA: their SASS
         # must hold HGMMA and UTMALDG
@@ -736,6 +777,7 @@ class Smoke:
                 "flash_attention_sm90": fa.sm90_launches,
                 "flash_attention_bwd_sm90": fa.sm90_bwd_launches,
                 "fused_selective_scan": ss.launches,
+                "fused_selective_scan_bwd": ss.bwd_launches,
                 "ssm_scan": ss.scan_launches,
                 "quantize_int8": qt.launches,
                 "dequantize_int8": qt.dq_launches}
@@ -750,6 +792,7 @@ class Smoke:
         from repro_torch.kernels import ssm_scan as ss
         fs.launches = fr.launches = fa.launches = ss.launches = 0
         fa.bwd_launches = ss.scan_launches = qt.launches = qt.dq_launches = 0
+        ss.bwd_launches = 0
         fa.sm90_launches = fa.sm90_bwd_launches = 0
         sim.step_count = 0
         t0 = time.time()
@@ -1324,13 +1367,21 @@ class Smoke:
         kernel, k_span = self.med_ms(lambda: ss.fused_selective_scan(*args))
         plain, p_span = self.med_ms(lambda: ref.fused_selective_scan(*args))
         bound, by = scan_bound_ms(args, self.n_sm, self.sm_clock_hz)
+        # and at the training shape (B = 4), where each step runs it twice
+        # a layer
+        t_args = self.scan_inputs(TRAIN_B, TRAIN_S, Di, N, torch.bfloat16, 2)
+        k_train, _ = self.med_ms(lambda: ss.fused_selective_scan(*t_args))
+        b_train, _ = scan_bound_ms(t_args, self.n_sm, self.sm_clock_hz)
         self.scan_timing = {"ms": kernel, "plain_ms": plain,
                             "bound_ms": bound, "bound_by": by,
                             "library_ms": None, "span_ms": k_span,
-                            "plain_span_ms": p_span}
+                            "plain_span_ms": p_span,
+                            "ms_at_train_shape": k_train,
+                            "bound_ms_at_train_shape": b_train}
         log(f"   fused_selective_scan B={SERVE_B} T={SERVE_S} Di={Di} N={N}: "
             f"kernel {kernel:.4f} ms, plain {plain:.4f}, bound {bound:.4f} "
-            f"({by})")
+            f"({by}); at B={TRAIN_B} kernel {k_train:.4f}, bound "
+            f"{b_train:.4f}")
         self.report["timing_lm"] = {"flash_attention": self.fa_timing,
                                     "fused_selective_scan": self.scan_timing}
 
@@ -1418,6 +1469,70 @@ class Smoke:
         self.state_scan_compare("ragged Di (2, 200, 3000, 16)", 2, 200, 3000,
                                 16, 1)
         self.state_scan_compare("N=8 (1, 100, 1000, 8)", 1, 100, 1000, 8, 2)
+
+    # -------------------------------------------------------------- 15b
+    def scan_bwd_inputs(self, shape, x_dtype, seed):
+        """The forward's operands (non-zero h0) and non-zero normal dy
+        (B, T, Di) and dh_T (B, Di, N) on the card."""
+        torch = self.torch
+        B, T, Di, N = shape
+        g = torch.Generator(device=self.dev).manual_seed(seed + 1000)
+        return (*self.scan_inputs(B, T, Di, N, x_dtype, seed),
+                torch.randn(B, T, Di, generator=g, device=self.dev),
+                torch.randn(B, Di, N, generator=g, device=self.dev))
+
+    def grads_close(self, label, got, want):
+        """Each gradient within GRAD_REL of its largest magnitude (a
+        bfloat16 one within one bfloat16 step of each value more); the
+        largest absolute difference."""
+        torch = self.torch
+        worst, parts = 0.0, []
+        for name, g, w in zip(SCAN_GRADS, got, want):
+            g64, w64 = g.double(), w.double()
+            diff = (g64 - w64).abs()
+            scale = max(float(w64.abs().max()), 1e-30)
+            slack = BF16_STEP * w64.abs() if g.dtype == torch.bfloat16 \
+                else torch.zeros_like(w64)
+            over = float((diff - slack).max()) / scale
+            self.check(g.dtype == w.dtype and over <= GRAD_REL
+                       and bool(torch.isfinite(g).all()),
+                       f"fused_selective_scan_bwd {label}: {name} "
+                       f"{over:.3g} of its largest magnitude over the "
+                       "limit's slack")
+            worst = max(worst, float(diff.max()))
+            parts.append(f"{name} {float(diff.max()) / scale:.2g}")
+        return worst, ", ".join(parts)
+
+    def scan_bwd_vs_plain(self):
+        torch = self.torch
+        from repro_torch.kernels import ref, ssm_scan as ss
+        self.scan_bwd_main_err = 0.0
+        for i, (label, shape, x_name) in enumerate(SCAN_BWD_CASES):
+            args = self.scan_bwd_inputs(shape, getattr(torch, x_name), i)
+            got = ss.fused_selective_scan_bwd(*args)
+            again = ss.fused_selective_scan_bwd(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            self.check(same, f"fused_selective_scan_bwd {label}: two "
+                       "launches differ")
+            del again
+            want = ref.fused_selective_scan_bwd(*args)
+            err, text = self.grads_close(f"{label} vs plain", got, want)
+            log(f"   {label:18s} {shape} vs plain: {text}; two launches "
+                f"bit-equal {same}")
+            del want
+            torch.cuda.empty_cache()
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in args[:6]]
+            y, h_T = ref.fused_selective_scan(*leaves)
+            auto = torch.autograd.grad((y, h_T), leaves, args[6:])
+            del y, h_T, leaves
+            err2, text = self.grads_close(f"{label} vs autograd", got, auto)
+            log(f"   {label:18s} {shape} vs autograd: {text}")
+            if label == "train x bfloat16":
+                self.scan_bwd_main_err = max(err, err2)
+            del got, auto, args
+            torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 16
     def fa_bwd_compare(self, label, B, Sq, Skv, heads, dtype, causal, window,
@@ -1617,16 +1732,18 @@ class Smoke:
                 fail_at=(TRAIN_FAIL_AT,), instrument=instrument)
             out.update(trainer=trainer, res=res)
             return ("flash_attention", "flash_attention_bwd",
-                    "fused_selective_scan", "ssm_scan")
+                    "fused_selective_scan", "fused_selective_scan_bwd")
 
         counts = self.path("train", run)
         trainer, res = out["trainer"], out["res"]
         L = cfg.n_layers
         # per step with remat="full": the forward and its recompute run
-        # kernels 6 and 7 once a layer each; the backward runs kernel 5
-        # twice a layer and the attention backward once
+        # kernels 6 and 7 once a layer each; the backward runs the
+        # selective scan's backward and the attention backward once a
+        # layer, and kernel 5 not at all
         want = {"flash_attention": 2 * L, "fused_selective_scan": 2 * L,
-                "ssm_scan": 2 * L, "flash_attention_bwd": L,
+                "fused_selective_scan_bwd": L, "ssm_scan": 0,
+                "flash_attention_bwd": L,
                 "flash_attention_sm90": 2 * L,
                 "flash_attention_bwd_sm90": L}
         n = len(res["log"])
@@ -1818,6 +1935,22 @@ class Smoke:
                 "plain_span_ms": p_span}
         del dA, dBx, h0
         torch.cuda.empty_cache()
+        # the selective scan's backward at the training shape, x bfloat16
+        # as on the training path; the plain version eagerly (its two
+        # 1,280-step loops), each call between CUDA events
+        args = self.scan_bwd_inputs((TRAIN_B, TRAIN_S, Di, N),
+                                    torch.bfloat16, 3)
+        k_ms, k_span = self.med_ms(lambda: ss.fused_selective_scan_bwd(*args))
+        p_ms, p_span = self.med_ms(
+            lambda: ref.fused_selective_scan_bwd(*args), n=3, graph=False)
+        bound = scan_bwd_bound_ms(args, self.n_sm, self.sm_clock_hz)
+        out["fused_selective_scan_bwd"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None,
+            "shape": list(args[0].shape) + [N], "span_ms": k_span,
+            "plain_span_ms": p_span, "plain_timed": "eager"}
+        del args
+        torch.cuda.empty_cache()
         # the attention backward at the training shape, bfloat16
         q, k, v = self.attn_inputs(TRAIN_B, TRAIN_S, HYMBA_HEADS,
                                    torch.bfloat16, seed=2)
@@ -1889,7 +2022,8 @@ class Smoke:
         step()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             step()
         wall = time.perf_counter() - t0
         for p in model.parameters():
@@ -1903,15 +2037,25 @@ class Smoke:
         busy_ms = sum(dev(e) for e in kernels) / 1e3
         attn = {e.key: (dev(e) / 1e3, e.count) for e in kernels
                 if "flash_attention" in e.key or "attn_bwd" in e.key}
+        # the operators that launched them, by input shape: each one's
+        # own device time (its kernels', not its children's)
+        ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                      if getattr(e, "device_type", None) != cuda
+                      and dev(e) > 0), key=dev, reverse=True)
         out = {"wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
                "launches": sum(e.count for e in kernels),
                "attention_ms": attn,
                "top": [(e.key[:70], dev(e) / 1e3, e.count)
-                       for e in kernels[:12]]}
+                       for e in kernels[:12]],
+               "top_ops": [(e.key, str(e.input_shapes)[:160], dev(e) / 1e3,
+                            e.count) for e in ops[:16]]}
         log(f"   profiled forward + backward: {busy_ms:.1f} ms device busy "
             f"in {1e3 * wall:.1f} ms wall, {out['launches']} launches")
         for name, ms, cnt in out["top"]:
             log(f"      {ms:9.2f} ms x{cnt:<5d} {name}")
+        log("   top operators by their own device time, with input shapes:")
+        for name, shapes, ms, cnt in out["top_ops"]:
+            log(f"      {ms:9.2f} ms x{cnt:<5d} {name} {shapes}")
         for name, (ms, cnt) in attn.items():
             log(f"      attention {ms:.2f} ms x{cnt} {name[:70]}")
         self.report["train_step_profile"] = out
@@ -2053,6 +2197,22 @@ def scan_bound_ms(args, n_sm, clock_hz):
         else "operations"
 
 
+def scan_bwd_bound_ms(args, n_sm, clock_hz):
+    """Least time for one backward of the scan: dt, A, B, C, x, h0, dy and
+    dh_T read once and the six gradients (d_x in x's type) written once
+    over HBM bandwidth; or its exponentials, one per state per step, over
+    the special-function units' rate. The larger bounds it."""
+    dt, A, Bc, Cc, x, h0, dy, dh_T = args
+    read = sum(a.numel() * a.element_size() for a in args)
+    written = sum(a.numel() * a.element_size()
+                  for a in (dt, A, Bc, Cc, x, h0))
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    t_ops = dt.numel() * A.shape[1] / (SFU_EXP_PER_SM_CLOCK * n_sm
+                                       * clock_hz)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def quant_bound_ms(n, quantize: bool):
     """Least time for one quantize (dequantize) of n float32 elements: x
     read and q, scales written (or the reverse) over HBM bandwidth; or its
@@ -2124,6 +2284,7 @@ def main() -> int:
                      ("timing_lm", s.timing_lm),
                      ("quant_vs_plain", s.quant_vs_plain),
                      ("ssm_scan_vs_plain", s.ssm_scan_vs_plain),
+                     ("selective_scan_bwd_vs_plain", s.scan_bwd_vs_plain),
                      ("flash_attention_bwd_vs_plain", s.fa_bwd_vs_plain),
                      ("train_vs_jax", s.train_vs_jax), ("train", s.train),
                      ("compression", s.compression),
@@ -2162,7 +2323,11 @@ def main() -> int:
         "train_launches": s.train_launches["flash_attention"]}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
         "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
+        "ms_at_train_shape": s.scan_timing["ms_at_train_shape"],
         "train_launches": s.train_launches["fused_selective_scan"]}, {
+        **KERNEL6B, "launches": s.train_launches["fused_selective_scan_bwd"],
+        "max_abs_err": s.scan_bwd_main_err,
+        **pick(tt["fused_selective_scan_bwd"])}, {
         **KERNEL3, "launches": s.compression_launches["quantize_int8"],
         "max_abs_err": s.quant_main_err,
         **pick(tt["quantize_int8"])}, {
@@ -2171,7 +2336,9 @@ def main() -> int:
         **pick(tt["dequantize_int8"])}, {
         **KERNEL5, "launches": s.train_launches["ssm_scan"],
         "max_abs_err": s.state_scan_err, **pick(tt["ssm_scan"]),
-        "reverse_ms": tt["ssm_scan_reverse"]["ms"]}, {
+        "reverse_ms": tt["ssm_scan_reverse"]["ms"],
+        "note": "on no model path: training runs fused_selective_scan_bwd; "
+                "launched and timed here only against its plain version"}, {
         **KERNEL7B, "launches": s.train_launches["flash_attention_bwd"],
         "max_abs_err": s.fa_bwd_main_err, **pick(tt["flash_attention_bwd"]),
         "library_shape": tt["flash_attention_bwd"]["library_shape"],

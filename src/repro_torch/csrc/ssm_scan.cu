@@ -12,39 +12,77 @@
 //
 // Design. The Pallas kernel keeps a (block_d, N) state tile in VMEM and
 // steps over T, so the (B, T, Di, N) state never reaches HBM; here the
-// state stays in registers. B * Di channels alone (25,600 at the serve
-// shape, B = 8, Di = 3200) would leave most of the card idle on a serial
-// loop, so each channel's N states are split over TPC = N / 4 adjacent
-// threads of four states each (102,400 threads at N = 16), and y_t is
-// their partial sums over n added with xor shuffles. A block of 128
-// threads holds 128 / TPC channels of one batch row; per stretch of 32
-// steps it stages dt and x for its channels (read coalesced across d, x
-// converted to float32) and the shared B_t and C_t rows in shared memory,
-// then every thread walks the stretch from shared memory. T = 1 and ragged
-// stretches are masked; channels past Di compute on zeros and store
+// state stays in registers. Each channel's N states are split over TPC =
+// N / 4 adjacent threads of four states each (102,400 threads at the serve
+// shape B = 8, Di = 3200, N = 16; 51,200 at the training shape B = 4), and
+// a block of 128 threads holds 128 / TPC channels of one batch row. Per
+// stretch of 32 steps the block stages dt and x for its channels and the
+// shared B_t and C_t rows in shared memory with cp.async (scan_stage.cuh),
+// double-buffered: the next stretch is in flight while this one is
+// computed, and each thread's copies step through fixed columns, so a full
+// stretch costs a few instructions a copy. Each thread reads its four B
+// and C values as one 16-byte vector. The exponentials do not depend on
+// the state, so the steps are unrolled 16 deep and only h = a h + b is
+// serial. A group's four partial sums of y over the thread's states are
+// reduced across the channel's TPC threads by a butterfly that leaves each
+// thread the sum of one step (of two at N = 8): log2(TPC) shuffles per
+// four steps instead of per step. Steps past T and channels past Di
+// compute on the zeros staging leaves (dt = 0 keeps h as it is) and store
 // nothing.
+//
+// Numerics: expf at full precision, as the plain version's torch.exp, so
+// each a = exp(dt A) is bit-equal to it; ex2.approx on A log2(e) would
+// save seven instructions of the ~16 a state and step, but its errors,
+// summed over the long-memory states, come close to the 2e-6 of the
+// largest |y| the kernel is held to. The update h = a h + (dt x) B and the
+// sum y += h C each take one fused multiply-add (__fmaf_rn), so h and y
+// differ from the plain version's separately rounded ones by a few float32
+// roundings: at most 5.3e-7 of the largest |y| or |h_T| on the shapes
+// chip_smoke.py checks (H100).
 //
 // Bound on the H100 SXM: operations, the exponentials. At the serve shape
 // (B = 8, T = 1280, Di = 3200, N = 16) it takes 524M exp(dt * A), one per
 // state per step, against 327 MB of dt, x (bf16) and y: 0.10 ms at
 // 3.35 TB/s, while the SFUs do 16 exps per SM per clock (132 SMs), 0.13 ms
-// at 1.98 GHz. The exps use expf (full float precision) so the result
-// stays within float32 rounding of the plain version's torch.exp.
+// at 1.98 GHz. expf is eight instructions around its one SFU op, so the
+// rate at which ~14 instructions a state and step are dispatched, not the
+// SFUs, sets the time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 
+#include "scan_stage.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kSteps = 32;  // steps staged in shared memory at a time
 constexpr int kNPT = 4;     // states per thread
+constexpr int kGroup = 4;   // steps whose y partials are reduced together
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename TX, int CPB, int N>
+struct Stage {
+  float dt[kSteps][CPB];
+  scan::XRow<TX, CPB> x[kSteps];
+  alignas(16) float b[kSteps][N];
+  alignas(16) float c[kSteps][N];
+};
+
+template <typename TX, int CPB, int N>
+__device__ __forceinline__ void stage(Stage<TX, CPB, N>& s, const float* dt,
+                                      const TX* x, const float* Bc,
+                                      const float* Cc, long long row0,
+                                      int nt, int Di, int d0,
+                                      long long x_total, int tid) {
+  scan::stage_rows<kSteps, CPB, kThreads>(s.dt, dt, row0, nt, Di, d0,
+                                          Di - d0, tid);
+  scan::stage_x<kSteps, CPB, kThreads>(s.x, x, row0, nt, Di, d0, x_total,
+                                       tid);
+  scan::stage_rows<kSteps, N, kThreads>(s.b, Bc, row0, nt, N, 0, N, tid);
+  scan::stage_rows<kSteps, N, kThreads>(s.c, Cc, row0, nt, N, 0, N, tid);
+  scan::cp_async_commit();
 }
 
 template <typename TX, int N>
@@ -56,13 +94,11 @@ __global__ void __launch_bounds__(kThreads)
                                 const TX* __restrict__ x,
                                 const float* __restrict__ h0,
                                 float* __restrict__ y, float* __restrict__ hT,
-                                int T, int Di) {
+                                int T, int Di, long long x_total) {
   constexpr int TPC = N / kNPT;          // threads per channel
   constexpr int CPB = kThreads / TPC;    // channels per block
-  __shared__ float dt_s[kSteps][CPB];
-  __shared__ float x_s[kSteps][CPB];
-  __shared__ float b_s[kSteps][N];
-  __shared__ float c_s[kSteps][N];
+  constexpr int kPer = kGroup / TPC;     // steps of y each thread stores
+  __shared__ Stage<TX, CPB, N> st[2];
 
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * CPB;
@@ -71,6 +107,7 @@ __global__ void __launch_bounds__(kThreads)
   const int d = d0 + ch;
   const bool active = d < Di;
   const int n0 = part * kNPT;
+  const long long row0 = static_cast<long long>(b) * T;
 
   float a[kNPT], h[kNPT];
 #pragma unroll
@@ -80,40 +117,74 @@ __global__ void __launch_bounds__(kThreads)
                   : 0.f;
   }
 
-  for (int t0 = 0; t0 < T; t0 += kSteps) {
-    const int nt = min(kSteps, T - t0);
-    __syncthreads();  // the previous stretch is consumed
-    for (int i = tid; i < kSteps * CPB; i += kThreads) {
-      const int tt = i / CPB, c = i % CPB;
-      const bool ok = tt < nt && d0 + c < Di;
-      const long long off =
-          (static_cast<long long>(b) * T + t0 + tt) * Di + d0 + c;
-      dt_s[tt][c] = ok ? dt[off] : 0.f;
-      x_s[tt][c] = ok ? to_f32(x[off]) : 0.f;
+  const int n_st = (T + kSteps - 1) / kSteps;
+  if (n_st > 0)
+    stage(st[0], dt, x, Bc, Cc, row0, min(kSteps, T), Di, d0, x_total, tid);
+  for (int s = 0; s < n_st; ++s) {
+    const int t0 = s * kSteps;
+    if (s + 1 < n_st) {
+      stage(st[(s + 1) & 1], dt, x, Bc, Cc, row0 + t0 + kSteps,
+            min(kSteps, T - t0 - kSteps), Di, d0, x_total, tid);
+      scan::cp_async_wait<1>();
+    } else {
+      scan::cp_async_wait<0>();
     }
-    for (int i = tid; i < kSteps * N; i += kThreads) {
-      const int tt = i / N, n = i % N;
-      const bool ok = tt < nt;
-      const long long off = (static_cast<long long>(b) * T + t0 + tt) * N + n;
-      b_s[tt][n] = ok ? Bc[off] : 0.f;
-      c_s[tt][n] = ok ? Cc[off] : 0.f;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float dtv = dt_s[tt][ch];
-      const float dx = dtv * x_s[tt][ch];
-      float yp = 0.f;
+    __syncthreads();  // this stretch has landed for every thread
+    const Stage<TX, CPB, N>& S = st[s & 1];
+    // bfloat16 x rows of even and odd steps sit at these shifts
+    const int sh_even = scan::x_shift(row0 + t0, Di);
+    const int sh_odd = sh_even ^ (Di & 1);
+    // y of step t0 + g + part * kPer + j, for each group g
+    float* yp_out = y + (row0 + t0 + part * kPer) * Di + d;
+    const int n_out = T - t0 - part * kPer;  // steps of this stretch to store
+#pragma unroll 4
+    for (int g = 0; g < kSteps; g += kGroup) {
+      float yp[kGroup];
 #pragma unroll
-      for (int i = 0; i < kNPT; ++i) {
-        h[i] = expf(dtv * a[i]) * h[i] + dx * b_s[tt][n0 + i];
-        yp += h[i] * c_s[tt][n0 + i];
+      for (int u = 0; u < kGroup; ++u) {
+        const int tt = g + u;
+        // a channel past Di reads zeros (dt) and whatever x holds; its
+        // threads store nothing and exchange sums only with each other
+        const float dtv = S.dt[tt][ch];
+        const float dx =
+            __fmul_rn(dtv, S.x[tt].get(ch, (u & 1) ? sh_odd : sh_even));
+        const float4 bv = *reinterpret_cast<const float4*>(&S.b[tt][n0]);
+        const float4 cv = *reinterpret_cast<const float4*>(&S.c[tt][n0]);
+        const float bb[kNPT] = {bv.x, bv.y, bv.z, bv.w};
+        const float cc[kNPT] = {cv.x, cv.y, cv.z, cv.w};
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < kNPT; ++i) {
+          const float ai = expf(__fmul_rn(dtv, a[i]));
+          h[i] = __fmaf_rn(ai, h[i], __fmul_rn(dx, bb[i]));
+          acc = __fmaf_rn(h[i], cc[i], acc);
+        }
+        yp[u] = acc;
       }
+      // butterfly over the channel's TPC threads: the thread with part p
+      // keeps the sums of steps g + p * kPer ... + kPer - 1
+      int cnt = kGroup;
 #pragma unroll
-      for (int off = TPC / 2; off > 0; off >>= 1)
-        yp += __shfl_xor_sync(0xffffffffu, yp, off);
-      if (active && part == 0)
-        y[(static_cast<long long>(b) * T + t0 + tt) * Di + d] = yp;
+      for (int o = TPC / 2; o > 0; o >>= 1) {
+        const bool hi = part & o;
+        cnt >>= 1;
+#pragma unroll
+        for (int j = 0; j < kGroup / 2; ++j) {
+          if (j < cnt) {
+            const float send = hi ? yp[j] : yp[j + cnt];
+            const float keep = hi ? yp[j + cnt] : yp[j];
+            yp[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+          }
+        }
+      }
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (g + j < n_out)
+            yp_out[static_cast<long long>(g + j) * Di] = yp[j];
+      }
     }
+    __syncthreads();  // every thread is done with this buffer
   }
   if (active) {
 #pragma unroll
@@ -132,7 +203,8 @@ int launch(const void* dt, const void* A, const void* Bc, const void* Cc,
       static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(Bc), static_cast<const float*>(Cc),
       static_cast<const TX*>(x), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(hT), T, Di);
+      static_cast<float*>(y), static_cast<float*>(hT), T, Di,
+      static_cast<long long>(B) * T * Di);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,8 +8,9 @@ kernel raises on what it does not take, with no fallback. The same holds
 for each gradient: ``flash_attention`` and ``fused_selective_scan`` become
 ``torch.autograd.Function``s (:class:`FlashAttentionFn`,
 :class:`SelectiveScanFn`) when an input requires a gradient, and their
-backward runs kernels on the card (the attention backward; kernel 5 twice)
-and plain versions on the CPU or under ``core="plain"``.
+backward runs kernels on the card (the attention backward; the selective
+scan's fused backward) and plain versions on the CPU or under
+``core="plain"``.
 """
 from __future__ import annotations
 
@@ -134,22 +135,13 @@ def _selective_scan(dt, A, B_coef, C_coef, x, h0, core):
 
 
 class SelectiveScanFn(torch.autograd.Function):
-    """Kernel 6 in the forward, which keeps only its inputs. The backward
-    recomputes the states and runs the adjoint recurrence, each through
-    kernel 5:
-
-    1. dA = exp(dt * A) and dBx = (dt * x) * B_t, with autograd;
-    2. hs = scan(dA, dBx, h0);
-    3. g_t = dy_t (x) C_t, plus dh_T at the last step;
-    4. lambda_t = g_t + dA_{t+1} * lambda_{t+1}: the reversed scan of g
-       with dA shifted one step earlier (lambda_{T-1} = g_{T-1});
-    5. d dBx = lambda, d dA_t = lambda_t * h_{t-1} (h_{-1} = h0),
-       d h0 = dA_0 * lambda_0, d C_t = sum_d dy_{t,d} h_{t,d,:};
-    6. autograd carries d dA and d dBx into dt, A, B and x.
-
-    Steps 1, 3, 5 and 6 are the elementwise work the JAX package runs
-    outside any kernel (``repro/models/ssm.py::_ssm_coeffs`` and XLA's
-    transpose of its scan)."""
+    """Kernel 6 in the forward, which keeps only its inputs; the fused
+    backward (``csrc/ssm_scan_bwd.cu``) in the backward, which recomputes
+    the states on chip from checkpoints and walks the adjoint recurrence
+    back through them (``ref.fused_selective_scan_bwd`` states the math).
+    Plain versions on the CPU or under ``core="plain"``. The JAX package
+    differentiates its XLA associative scan instead
+    (``repro/models/ssm.py``)."""
 
     @staticmethod
     def forward(ctx, dt, A, B_coef, C_coef, x, h0, core):
@@ -160,32 +152,12 @@ class SelectiveScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh_T):
-        dt, A, B_coef, C_coef, x, h0 = ctx.saved_tensors
-        core = ctx.core
-        f = dt.dtype  # float32 (float64 in gradient checks)
-        with torch.enable_grad():
-            dt_, A_, B_, x_ = (t.detach().requires_grad_()
-                               for t in (dt, A, B_coef, x))
-            dA = torch.exp(dt_[..., None] * A_)
-            dBx = (dt_ * x_.to(f))[..., None] * B_[:, :, None, :]
-        h0f = h0.to(f)
-        hs, _ = ssm_scan(dA.detach(), dBx.detach(), h0f, core=core)
-        g = dy.to(f)[..., None] * C_coef.to(f)[:, :, None, :]
-        g[:, -1] += dh_T.to(f)
-        a_next = torch.zeros_like(hs)
-        a_next[:, :-1] = dA.detach()[:, 1:]
-        lam, _ = ssm_scan(a_next, g, torch.zeros_like(h0f), reverse=True,
-                          core=core)
-        del g, a_next
-        d_dA = torch.empty_like(lam)
-        d_dA[:, 1:] = lam[:, 1:] * hs[:, :-1]
-        d_dA[:, 0] = lam[:, 0] * h0f
-        dC = torch.einsum("btd,btdn->btn", dy.to(f), hs)
-        dh0 = dA.detach()[:, 0] * lam[:, 0]
-        del hs
-        torch.autograd.backward((dA, dBx), (d_dA, lam))
-        return (dt_.grad, A_.grad, B_.grad, dC.to(C_coef.dtype), x_.grad,
-                dh0.to(h0.dtype), None)
+        args = (*ctx.saved_tensors, dy.contiguous(), dh_T.contiguous())
+        if _use_plain(args[0].device, ctx.core, "fused_selective_scan_bwd"):
+            grads = ref.fused_selective_scan_bwd(*args)
+        else:
+            grads = _ss.fused_selective_scan_bwd(*args)
+        return (*grads, None)
 
 
 def fused_selective_scan(dt, A, B_coef, C_coef, x, h0, core: str = "kernel"):

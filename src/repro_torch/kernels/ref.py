@@ -144,6 +144,88 @@ def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor, *,
     return hs, h
 
 
+def _scan_coeffs(dt, A, B_coef, x):
+    """dA = exp(dt * A) and dBx = (dt * x) * B_t, (B, T, Di, N)."""
+    return (torch.exp(dt[..., None] * A),
+            (dt * x)[..., None] * B_coef[:, :, None, :])
+
+
+def fused_selective_scan_bwd(dt: torch.Tensor, A: torch.Tensor,
+                             B_coef: torch.Tensor, C_coef: torch.Tensor,
+                             x: torch.Tensor, h0: torch.Tensor,
+                             dy: torch.Tensor, dh_T: torch.Tensor, *,
+                             chunk: int | None = None):
+    """The gradient of :func:`fused_selective_scan`: (d_dt, d_A, d_B, d_C,
+    d_x, d_h0) from the forward's inputs and the gradients dy (B, T, Di)
+    and dh_T (B, Di, N) of its outputs.
+
+    With ``a_t = exp(dt_t A)``, ``u_t = dt_t x_t`` and the states h_t
+    recomputed by :func:`ssm_scan`, the adjoint is the reversed scan
+    ``lambda_t = dy_t C_t + a_{t+1} lambda_{t+1}`` (``lambda_{T-1} =
+    dy_{T-1} C_{T-1} + dh_T``), and with ``g_t = lambda_t h_{t-1} a_t``
+    (``h_{-1} = h0``): ``d_dt = sum_n (g A + lambda B x)``, ``d_x = dt
+    sum_n lambda B``, ``d_A = sum_{b,t} g dt``, ``d_B = sum_d lambda u``,
+    ``d_C = sum_d dy h_t`` and ``d_h0 = a_0 lambda_0``.
+
+    ``chunk`` steps at a time (all T by default) the states are recomputed
+    from the state entering the chunk, kept by a first sweep, and the
+    adjoint is walked back through them, so no (B, T, Di, N) tensor is
+    held; every element and every sum is formed the same way whatever the
+    chunk (d_A is summed over b, then over t from T - 1 down), so the
+    result does not depend on it. Gradients come in their input's type,
+    computed in float32 (float64 kept, for gradient checks)."""
+    dt32, A32, B32, C32, x32 = (_up(t) for t in (dt, A, B_coef, C_coef, x))
+    h0f, dy32, dh32 = _up(h0), _up(dy), _up(dh_T)
+    T = dt.shape[1]
+    L = T if chunk is None else chunk
+    if L < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    starts, h = [], h0f  # the state entering each chunk
+    for c0 in range(0, T, L):
+        starts.append(h)
+        dA, dBx = _scan_coeffs(dt32[:, c0:c0 + L], A32, B32[:, c0:c0 + L],
+                               x32[:, c0:c0 + L])
+        _, h = ssm_scan(dA, dBx, h)
+    d_dt, d_x = torch.empty_like(dt32), torch.empty_like(x32)
+    d_B, d_C = torch.empty_like(B32), torch.empty_like(C32)
+    d_A = torch.zeros_like(A32)
+    lam_next = torch.zeros_like(h0f)  # lambda at the step after the chunk
+    a_after = torch.zeros_like(h0f)   # a at the step after the chunk
+    for c0, h_in in reversed(list(zip(range(0, T, L), starts))):
+        c1 = min(c0 + L, T)
+        sl = slice(c0, c1)
+        u = dt32[:, sl] * x32[:, sl]
+        dA, dBx = _scan_coeffs(dt32[:, sl], A32, B32[:, sl], x32[:, sl])
+        hs, _ = ssm_scan(dA, dBx, h_in)
+        g = dy32[:, sl, :, None] * C32[:, sl, None, :]
+        if c1 == T:
+            g[:, -1] += dh32
+        a_next = torch.empty_like(dA)
+        a_next[:, :-1] = dA[:, 1:]
+        a_next[:, -1] = a_after
+        lam, _ = ssm_scan(a_next, g, lam_next, reverse=True)
+        del g, a_next
+        h_prev = torch.cat([h_in[:, None], hs[:, :-1]], dim=1)
+        gA = lam * h_prev * dA  # lambda_t h_{t-1} a_t
+        del h_prev
+        lamB = (lam * B32[:, sl, None, :]).sum(-1)
+        d_dt[:, sl] = (gA * A32).sum(-1) + x32[:, sl] * lamB
+        d_x[:, sl] = dt32[:, sl] * lamB
+        d_B[:, sl] = (lam * u[..., None]).sum(2)
+        d_C[:, sl] = (dy32[:, sl, :, None] * hs).sum(2)
+        contrib = gA * dt32[:, sl, :, None]
+        per_t = contrib[0]
+        for b in range(1, contrib.shape[0]):
+            per_t = per_t + contrib[b]
+        for t in range(c1 - c0 - 1, -1, -1):
+            d_A = d_A + per_t[t]
+        del contrib, per_t, gA, hs
+        lam_next, a_after = lam[:, 0], dA[:, 0]
+    d_h0 = a_after * lam_next
+    return (d_dt.to(dt.dtype), d_A.to(A.dtype), d_B.to(B_coef.dtype),
+            d_C.to(C_coef.dtype), d_x.to(x.dtype), d_h0.to(h0.dtype))
+
+
 def quantize_int8(x: torch.Tensor, block: int = 256):
     """Per-block symmetric int8 quantization along the last axis: scale =
     max(max|x| / 127, 1e-12) per block of ``block`` elements, q =

@@ -20,6 +20,13 @@ block against ``jax.grad``: 2e-5 relative to each gradient's largest
 magnitude (measured at most 6.8e-7; the reference differentiates a chunked
 associative scan, the port a sequential one); the adjoint shifted by one
 step moves them by 0.53.
+
+The fused backward's plain version (``ref.fused_selective_scan_bwd``,
+what ``SelectiveScanFn.backward`` runs on the CPU) against ``jax.vjp``
+of the reference's oracle: GRAD_REL of each gradient's largest
+magnitude (measured at most 3e-7); a bfloat16 d_x within one bfloat16
+step (2**-7) of each value, as both round one float32 result. Its
+checkpointed form is bit-equal for every chunk length.
 """
 import dataclasses
 
@@ -277,3 +284,136 @@ def test_state_scan_and_gradient_match_plain_on_card():
     want = torch.autograd.grad((y.sum() + hT.sum()), args)
     for g, w in zip(got, want):
         _close(g.cpu().numpy(), w.cpu().numpy(), rel=GRAD_REL)
+
+
+# ------------------------------------------------------- fused backward
+
+BWD_CASES = [(shape, None) for shape in SHAPES] + [
+    ((2, 1, 24, 16), 16),   # T = 1
+    ((2, 37, 24, 16), 16),  # no chunk divides T
+    ((1, 40, 20, 8), 16)]
+BF16_STEP = 2.0 ** -7
+
+
+def _bwd_inputs(shape, seed=0):
+    """The forward's operands (non-zero h0) and non-zero dy, dh_T."""
+    B, T, Di, N = shape
+    rng = np.random.default_rng(seed + 100)
+    return (*_scan_inputs(shape, seed),
+            rng.standard_normal((B, T, Di), np.float32),
+            rng.standard_normal((B, Di, N), np.float32))
+
+
+def _close_bf16(got, want):
+    """Each value within one bfloat16 step of a float32-rounded value."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    scale = float(np.abs(want).max())
+    bound = BF16_STEP * np.abs(want) + GRAD_REL * scale
+    assert (np.abs(got - want) <= bound).all(), \
+        float((np.abs(got - want) - bound).max())
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_vjp(case, x_dtype):
+    """Every gradient of the selective scan, the plain backward against
+    jax.vjp of the reference's oracle on the same cotangents."""
+    shape, chunk = case
+    dt, A, Bc, Cc, x, h0, dy, dh = _bwd_inputs(shape)
+    jx = jnp.asarray(x).astype(x_dtype)
+    _, vjp = jax.vjp(jref.fused_selective_scan,
+                     *(jnp.asarray(a) for a in (dt, A, Bc, Cc)), jx,
+                     jnp.asarray(h0))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    tx = torch.as_tensor(x).to(getattr(torch, x_dtype))
+    got = tref.fused_selective_scan_bwd(
+        *(torch.as_tensor(a) for a in (dt, A, Bc, Cc)), tx,
+        *(torch.as_tensor(a) for a in (h0, dy, dh)), chunk=chunk)
+    for name, g, w in zip(("d_dt", "d_A", "d_B", "d_C", "d_x", "d_h0"),
+                          got, want):
+        assert g.dtype == (tx.dtype if name == "d_x" else torch.float32)
+        w = np.asarray(w.astype(jnp.float32))
+        if name == "d_x" and x_dtype == "bfloat16":
+            _close_bf16(g.float().numpy(), w)
+        else:
+            _close(g.float().numpy(), w, rel=GRAD_REL)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_plain_backward_same_for_every_chunk(x_dtype):
+    """Checkpointing changes what is held, not what is computed: chunks of
+    5 and 16 steps (neither divides T = 37) give the one-chunk result."""
+    args = [torch.as_tensor(a) for a in _bwd_inputs((2, 37, 24, 16), 1)]
+    args[4] = args[4].to(x_dtype)
+    whole = tref.fused_selective_scan_bwd(*args)
+    for chunk in (5, 16):
+        got = tref.fused_selective_scan_bwd(*args, chunk=chunk)
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w), chunk
+
+
+def test_plain_backward_calls_are_bit_equal():
+    args = [torch.as_tensor(a) for a in _bwd_inputs((2, 12, 96, 16), 2)]
+    for g, w in zip(tref.fused_selective_scan_bwd(*args),
+                    tref.fused_selective_scan_bwd(*args)):
+        assert torch.equal(g, w)
+
+
+def test_selective_scan_backward_dispatch():
+    """SelectiveScanFn.backward on the CPU is the plain backward; the
+    kernel's wrapper takes only CUDA tensors."""
+    args = [torch.as_tensor(a) for a in _bwd_inputs((2, 16, 37, 16), 3)]
+    leaves = [t.clone().requires_grad_() for t in args[:6]]
+    y, hT = tops.fused_selective_scan(*leaves)
+    got = torch.autograd.grad((y, hT), leaves, (args[6], args[7]))
+    for g, w in zip(got, tref.fused_selective_scan_bwd(*args)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tss.fused_selective_scan_bwd(*args)
+
+
+def test_scan_sources_export_what_the_wrappers_bind():
+    """Each library's entry point takes the pointers and ints its wrapper
+    passes (plus the stream), with a plain C interface; the backward sums
+    in a fixed order, with no atomics."""
+    for src, fn, n_ptr, n_int in (
+            (tss.SOURCE, "fused_selective_scan_launch", 8, 5),
+            (tss.BWD_SOURCE, "ssm_scan_bwd_launch", 17, 5),
+            (tss.SCAN_SOURCE, "ssm_scan_launch", 5, 5)):
+        text = src.read_text()
+        head = text[text.index(f"int {fn}("):]
+        head = head[head.index("(") + 1:head.index(")")]
+        assert head.count("void*") == n_ptr + 1, src.name  # + the stream
+        assert head.count("int ") == n_int, src.name
+        assert "#include <torch" not in text
+    text = tss.BWD_SOURCE.read_text()
+    assert "const char* ssm_scan_bwd_error_string(int code)" in text
+    assert "int ssm_scan_bwd_channels_per_block(int N)" in text
+    assert "int ssm_scan_bwd_chunk()" in text
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert "atomic" not in code.lower() and "red." not in code
+    for src in (tss.SOURCE, tss.BWD_SOURCE):
+        assert '#include "scan_stage.cuh"' in src.read_text()
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_on_card():
+    """Needs an NVIDIA card (sm_90a) and nvcc; chip_smoke.py's
+    selective_scan_bwd_vs_plain runs the same comparison at hymba's
+    training shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    for shape in SHAPES + [(2, 37, 300, 16), (1, 100, 1000, 8)]:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            args = [torch.as_tensor(a).cuda() for a in _bwd_inputs(shape)]
+            args[4] = args[4].to(x_dtype)
+            got = tss.fused_selective_scan_bwd(*args)
+            again = tss.fused_selective_scan_bwd(*args)
+            want = tref.fused_selective_scan_bwd(*args)
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, a)
+                if g.dtype == torch.bfloat16:
+                    _close_bf16(g.float().cpu().numpy(),
+                                w.float().cpu().numpy())
+                else:
+                    _close(g.cpu().numpy(), w.cpu().numpy(), rel=GRAD_REL)
