@@ -19,7 +19,11 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    3's three 4-node single cells, Fig. 6's six quick grids and its 2 MiB
    burst x pause grid) and on random shapes, with and without the aux
    observer (DESIGN.md §13 tolerance, bit-exact where every segment has
-   one contributor) and checks two launches agree bitwise;
+   one contributor, NaN where and only where the plain version has it);
+   checks ten launches on the same inputs bit-equal, and each cell
+   launched alone bit-equal to its row of the batched launch, at every
+   slice shape, figure-path grid and random shape; records the block and
+   cluster the wrapper picks at each shape;
 4. holds the fused-accumulate kernel bit-equal to its plain version at
    the fig1 tiles and (300, 640), in four type pairs and two scales, with
    acc unaligned, and in the bfloat16 256 + 1 case;
@@ -39,7 +43,12 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    six quick grids plus the leonardo/64/incast 2 MiB burst x pause grid
    (iteration counts and times against JAX; the Obs. 3 pin);
 8. times kernels 1 and 2, their plain versions, their bounds and, for the
-   fused accumulate, the library call ``torch.add``, per shape;
+   fused accumulate, the library call ``torch.add``, per shape (kernel 1
+   beside its time before its redesign, ``EARLIER_MS``);
+8b. ``engine_graph``: 256 engine steps of the leonardo/256/incast grid
+   captured as one CUDA graph, whose replay must be bit-equal to the same
+   steps run eagerly; prints the wall ms a step of both (a diagnostic for
+   capturing the engine's step loop; the main path does not use it);
 9. holds the flash-attention kernel (kernel 7) against its plain version
    at hymba-1.5b's head shapes (25 query heads over 5 KV heads of 64) at
    S = 128, 1000, 1024 and 1280 (the 1024-token window binds), float32
@@ -135,6 +144,7 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12  # dense tensor-core peak
 SFU_EXP_PER_SM_CLOCK = 16  # special-function units: exps per SM per clock
 FS_TOL = dict(rtol=2e-4, atol=1.0)  # DESIGN.md §13
+REPEATS = 10  # kernel-1 launches on the same inputs held bit-equal
 TIME_RTOL = 0.02
 # lock-step leaves held tighter than §13's atol: times in seconds, and
 # integers and flags held exactly
@@ -294,6 +304,12 @@ SLICE_SHAPES = (("nanjing_ecmp/8/alltoall", "nanjing_ecmp", 8, "alltoall",
                 ("cresco8/256/alltoall", "cresco8", 256, "ring_allgather",
                  "alltoall"))
 MAIN_SHAPE = "leonardo/256/incast"  # the main path's longest grid
+# kernel 1's ms a launch at each slice shape before its redesign (the
+# timing phase on an H100 80GB HBM3 at 700 W, PERF.md §6), printed beside
+# the new times
+EARLIER_MS = {"nanjing_ecmp/8/alltoall": 0.0149, "leonardo/64/incast": 0.0287,
+              "leonardo/256/incast": 0.0497, "lumi/256/incast": 0.0461,
+              "cresco8/256/alltoall": 0.1934}
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -519,13 +535,15 @@ class Smoke:
 
     # ---------------------------------------------------------------- 3
     def compare(self, label, args, kw, with_aux, exact=False):
-        """Kernel vs plain on the same card tensors; returns max abs err."""
+        """Kernel vs plain on the same card tensors, and REPEATS launches
+        of the kernel bit-equal; returns max abs err."""
         torch = self.torch
         from repro_torch.kernels import fabric_step as fs, ref
-        k1 = fs.fabric_step_core(*args, with_aux=with_aux, **kw)
-        k2 = fs.fabric_step_core(*args, with_aux=with_aux, **kw)
+        runs = [fs.fabric_step_core(*args, with_aux=with_aux, **kw)
+                for _ in range(REPEATS)]
         pl = ref.fabric_step_core(*args, with_aux=with_aux, **kw)
         torch.cuda.synchronize()
+        k1 = runs[0]
         worst, parts = 0.0, []
         for k, want in pl.items():
             if want is None:
@@ -550,11 +568,45 @@ class Smoke:
             self.check(bool((err <= tol).all()) and bool(
                 torch.isfinite(got).all()),
                 f"{label}: {k} beyond §13 (max abs {mabs}, rel {mrel})")
-        same = all(torch.equal(k1[k].nan_to_num(), k2[k].nan_to_num())
+        same = all(bits_equal(torch, run[k], k1[k]) for run in runs[1:]
                    for k in k1 if k1[k] is not None)
+        self.check(same, f"{label} aux={int(with_aux)}: {REPEATS} launches "
+                   f"not bit-equal")
         log(f"   {label:32s} aux={int(with_aux)} max abs/rel err: "
-            f"{', '.join(parts)}; two launches bitwise equal: {same}")
+            f"{', '.join(parts)}; {REPEATS} launches bit-equal: {same}")
         return worst
+
+    def batch_invariance(self, label, args, kw):
+        """Each cell launched alone gives its row of the batched launch bit
+        for bit, with and without the aux observer."""
+        torch = self.torch
+        from repro_torch.kernels import fabric_step as fs
+        B = args[0].shape[0]
+        held = True
+        for aux in (False, True):
+            whole = fs.fabric_step_core(*args, with_aux=aux, **kw)
+            same = True
+            for b in range(B):
+                alone = fs.fabric_step_core(*cell_args(args, b),
+                                            with_aux=aux, **kw)
+                same &= all(bits_equal(torch, alone[k][0], whole[k][b])
+                            for k in whole if whole[k] is not None)
+            self.check(same, f"{label} aux={int(aux)}: a cell alone differs "
+                       f"from its row of the batch")
+            held &= same
+        log(f"   {label:32s} B={B}: each cell alone bit-equal to its row "
+            f"(aux 0 and 1): {held}")
+
+    def launch_config(self, label, args, kw):
+        """The block and cluster the wrapper picks at these shapes."""
+        from repro_torch.kernels import fabric_step as fs
+        B, F, H = args[0].shape
+        cfg = fs.launch_config(B, F, H, args[4].shape[1], kw["n_src"],
+                               kw["n_sw"])
+        self.report.setdefault("launch_config", {})[label] = {
+            "threads": cfg.threads, "cluster": cfg.cluster,
+            "smem_bytes": cfg.smem, "grid": cfg.grid}
+        return cfg
 
     def kernel_vs_plain(self):
         self.shapes = {}
@@ -563,23 +615,30 @@ class Smoke:
             args, kw = self.core_inputs(geom, p, seed=100 + i)
             B, F, H = args[0].shape
             self.shapes[label] = (args, kw)
+            cfg = self.launch_config(label, args, kw)
             log(f"   {label}: B={B} F={F} H={H} L={geom.L} "
-                f"n_sw={geom.n_sw} n_src={geom.n_src}")
+                f"n_sw={geom.n_sw} n_src={geom.n_src}; {cfg.threads} "
+                f"threads, cluster {cfg.cluster}, {cfg.smem} B shared")
             for aux in (False, True):
                 err = self.compare(label, args, kw, aux)
                 if label == MAIN_SHAPE and not aux:
                     self.main_err = err
+            self.batch_invariance(label, args, kw)
         for i, (label, geom, p) in enumerate(self.path_cases()):
             args, kw = self.core_inputs(geom, p, seed=200 + i)
             B, F, H = args[0].shape
+            cfg = self.launch_config(label, args, kw)
             log(f"   {label}: B={B} F={F} H={H} L={geom.L} "
-                f"n_sw={geom.n_sw} n_src={geom.n_src}")
+                f"n_sw={geom.n_sw} n_src={geom.n_src}; {cfg.threads} "
+                f"threads, cluster {cfg.cluster}")
             for aux in (False, True):
                 self.compare(label, args, kw, aux)
+            self.batch_invariance(label, args, kw)
         for i, shape in enumerate(RANDOM_SHAPES):
             args, kw = self.random_inputs(shape, seed=i)
             for aux in (False, True):
                 self.compare(f"random {shape}", args, kw, aux)
+            self.batch_invariance(f"random {shape}", args, kw)
         args, kw = self.disjoint_inputs()
         self.compare("disjoint (bit-exact)", args, kw, True, exact=True)
         self.compare("disjoint, zero-capacity links (bit-exact)",
@@ -989,19 +1048,24 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import fabric_step as fs, ref
         self.timings = {}
-        log(f"   {'shape':26s} {'kernel ms':>10s} {'plain ms':>10s} "
-            f"{'bound ms':>10s}  bound by  (mean of the event span)")
+        log(f"   {'shape':26s} {'kernel ms':>10s} {'was ms':>8s} "
+            f"{'plain ms':>10s} {'bound ms':>10s}  bound by  threads x "
+            f"cluster  (mean of the event span)")
         for label, (args, kw) in self.shapes.items():
             k, k_span = self.med_ms(
                 lambda: fs.fabric_step_core(*args, **kw))
             pl, pl_span = self.med_ms(
                 lambda: ref.fabric_step_core(*args, **kw))
             bound, by = bound_ms(args, kw)
+            cfg = self.report["launch_config"][label]
             self.timings[label] = {
                 "ms": k, "plain_ms": pl, "bound_ms": bound, "bound_by": by,
-                "span_ms": k_span, "plain_span_ms": pl_span}
-            log(f"   {label:26s} {k:10.4f} {pl:10.4f} {bound:10.6f}  {by}"
-                f"  ({k_span:.4f} / {pl_span:.4f})")
+                "span_ms": k_span, "plain_span_ms": pl_span,
+                "earlier_ms": EARLIER_MS[label],
+                "threads": cfg["threads"], "cluster": cfg["cluster"]}
+            log(f"   {label:26s} {k:10.4f} {EARLIER_MS[label]:8.4f} "
+                f"{pl:10.4f} {bound:10.6f}  {by}  {cfg['threads']} x "
+                f"{cfg['cluster']}  ({k_span:.4f} / {pl_span:.4f})")
         self.report["timing"] = self.timings
 
         from repro_torch.kernels import fused_reduce as fr
@@ -1025,6 +1089,66 @@ class Smoke:
                 f"{bound:10.6f}  {by}  ({k_span:.4f} / {pl_span:.4f} / "
                 f"{lib_span:.4f})")
         self.report["timing_fused_accumulate"] = self.fr_timings
+
+    def engine_graph(self, n_steps=256):
+        """A diagnostic for capturing the engine's step loop: n_steps engine
+        steps of the leonardo/256/incast grid captured as one CUDA graph,
+        whose replay must be bit-equal to the same steps run eagerly (every
+        kernel of the step, kernel 1 included, is deterministic); prints the
+        wall ms a step of both."""
+        torch = self.torch
+        from repro_torch.core.fabric import simulator as sim
+        _, geom, p = self.grid_case("leonardo", 256, "ring_allgather",
+                                    "incast")
+        consts = sim.run_constants(p)
+
+        def steps(state, n):
+            for _ in range(n):
+                state, _ = sim._step_impl(geom, p, state, False,
+                                          consts=consts)
+            return state
+
+        def clone(state):
+            return {k: v.clone() for k, v in state.items()}
+
+        start = steps(sim.init_state(geom, p), 64)  # queues built up
+        torch.cuda.synchronize()
+        eager = steps(clone(start), n_steps)
+        torch.cuda.synchronize()
+        static = clone(start)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            steps(clone(start), 3)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = steps(static, n_steps)
+        for k, v in start.items():
+            static[k].copy_(v)
+        g.replay()
+        torch.cuda.synchronize()
+        same = all(bits_equal(torch, out[k], eager[k]) for k in eager)
+        self.check(same, f"engine_graph: {n_steps} steps replayed as a CUDA "
+                   f"graph differ from the same steps run eagerly")
+        walls = {}
+        for mode in ("eager", "graph", "graph", "eager"):
+            state = clone(start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "graph":
+                g.replay()
+            else:
+                steps(state, n_steps)
+            torch.cuda.synchronize()
+            walls.setdefault(mode, []).append(
+                1e3 * (time.perf_counter() - t0) / n_steps)
+        log(f"   leonardo/256/incast, B={p.dt.shape[0]}: {n_steps} steps as "
+            f"one CUDA graph bit-equal to eager: {same}; wall ms a step "
+            f"eager {walls['eager']}, graph {walls['graph']}")
+        self.report["engine_graph"] = {"steps": n_steps, "bit_equal": same,
+                                       "eager_ms_per_step": walls["eager"],
+                                       "graph_ms_per_step": walls["graph"]}
 
     # ---------------------------------------------------------------- 9
     def attn_inputs(self, B, S, heads, dtype, seed, Skv=None):
@@ -2113,6 +2237,24 @@ class Smoke:
         self.report["profile"] = out
 
 
+def bits_equal(torch, a, b):
+    """Bit for bit, NaN payloads included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
+    return bool(torch.equal(a, b))
+
+
+def cell_args(args, b):
+    """Kernel 1's operands of cell b alone (B = 1): per-cell rows sliced,
+    geometry rows shared by the batch (1-D) kept."""
+    return tuple(a[b:b + 1] if i not in (2, 6, 7, 8) or a.dim() == 2
+                 else a for i, a in enumerate(args))
+
+
 def leaf_tol(name, dt, ndim):
     """(atol, rtol) of a state or aux leaf in the lock-step check: bytes
     and rates at §13 (atol 1.0, rtol 2e-4); times at rtol 2e-4 and an atol
@@ -2278,6 +2420,7 @@ def main() -> int:
                      ("lockstep", s.lockstep), ("main_path", s.main_path),
                      ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
                      ("timing", s.timing),
+                     ("engine_graph", s.engine_graph),
                      ("flash_attention_vs_plain", s.fa_vs_plain),
                      ("selective_scan_vs_plain", s.scan_vs_plain),
                      ("lm_vs_jax", s.lm_vs_jax), ("serve", s.serve),

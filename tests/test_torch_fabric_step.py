@@ -4,16 +4,25 @@ Pallas kernel (interpret mode), and the CUDA wrapper's contract.
 Tolerance is the DESIGN.md §13 contract (rtol 2e-4, atol 1.0 on ~1e9
 byte/s magnitudes): segment sums may be taken in another order. With at
 most one contributor per segment there is nothing to reorder, and the
-result must be bit-exact."""
+result must be bit-exact.
+
+The CUDA kernel sums every segment in an order its source's header note
+fixes; a numpy model of that order is held to the plain version here,
+and, on a card, the kernel to the model bit for bit."""
+import re
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
+try:  # the card's machine has no JAX: only the card tests run there
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ImportError:  # pragma: no cover - needs a machine without JAX
+    jnp = jops = jref = None
 
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import fabric_step as tfs  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -219,3 +228,417 @@ def test_kernel_matches_plain_on_card():
         for k in want:
             np.testing.assert_allclose(got[k].cpu().numpy(),
                                        want[k].numpy(), **FS_TOL)
+
+
+# ---- the CUDA kernel's summation order (csrc/fabric_step.cu, item 3) ----
+
+f32 = np.float32
+OUTS = ("inject", "achieved", "arrival", "q_new", "caps_eff",
+        "served_stage_max")
+# (label, system, n_nodes, victim, aggressor): chip_smoke.py's slice shapes
+SLICES = {"nanjing_ecmp/8/alltoall": ("nanjing_ecmp", 8, "alltoall",
+                                      "alltoall"),
+          "leonardo/64/incast": ("leonardo", 64, "ring_allgather", "incast")}
+# (F, H, L+1, n_src, n_sw) of chip_smoke.py's five slice shapes, as
+# bench.build_case builds them
+SLICE_DIMS = {"nanjing_ecmp/8/alltoall": (24, 4, 33, 8, 8),
+              "leonardo/64/incast": (63, 8, 1264, 63, 445),
+              "leonardo/256/incast": (255, 8, 3908, 255, 704),
+              "lumi/256/incast": (255, 7, 3580, 255, 744),
+              "cresco8/256/alltoall": (16384, 4, 897, 256, 54)}
+
+
+def _add(a, b):
+    return (a + b).astype(f32) if isinstance(a, np.ndarray) else f32(a + b)
+
+
+def _fold(vals, op):
+    """One block's part of a segment, its contributions in ascending index
+    order: a left fold from 0 of up to SERIAL_MAX, else 32 strided folds
+    from 0 joined by a butterfly over lane ^ 16, 8, 4, 2, 1."""
+    if len(vals) <= tfs.SERIAL_MAX:
+        p = f32(0)
+        for v in vals:
+            p = op(p, v)
+        return p
+    p = np.zeros(32, f32)
+    for j in range(32):
+        for v in vals[j::32]:
+            p[j] = op(p[j], v)
+    for o in (16, 8, 4, 2, 1):
+        p = op(p, p[np.arange(32) ^ o])
+    return f32(p[0])
+
+
+def _parts(seg, rank, vals, op):
+    """{segment: {rank: part}}, each (segment, rank) group folded in
+    ascending index order."""
+    out = {}
+    order = np.lexsort((np.arange(len(seg)), rank, seg))
+    seg, rank, vals = seg[order], rank[order], vals[order]
+    cut = np.flatnonzero((np.diff(seg) != 0) | (np.diff(rank) != 0)) + 1
+    for lo, hi in zip(np.r_[0, cut], np.r_[cut, len(seg)]):
+        if hi > lo:
+            out.setdefault(int(seg[lo]), {})[int(rank[lo])] = _fold(
+                vals[lo:hi], op)
+    return out
+
+
+def _every_rank(parts, cluster, op):
+    """((P_0 op P_1) op ...) op P_{C-1}, a rank without a part giving 0."""
+    v = parts.get(0, f32(0))
+    for c in range(1, cluster):
+        v = op(v, parts.get(c, f32(0)))
+    return v
+
+
+def _contributors(parts, op):
+    """The parts of the ranks that contributed, in rank order."""
+    ranks = sorted(parts)
+    v = parts[ranks[0]]
+    for c in ranks[1:]:
+        v = op(v, parts[c])
+    return v
+
+
+def _order_model(c, sc, n_src, n_sw, with_aux, cluster):
+    """The kernel's step core for one cell in numpy float32, every segment
+    summed in the kernel's order on a cluster of ``cluster`` blocks."""
+    dt, qmax, hf, hs, bj = (f32(x) for x in sc)
+    plinks = c["plinks"]
+    F, H = plinks.shape
+    L1 = len(c["q"])
+    sink = L1 - 1
+    bs = tfs.block_shape(F, H, L1, n_src, n_sw, cluster)
+    frank, lrank = np.arange(F) // bs.nf, np.arange(L1) // bs.nl
+    q, occ, inject = c["q"], c["occ"], c["inject"]
+    with np.errstate(all="ignore"):
+        src = _parts(c["src_id"], frank, inject, _add)
+        src_load = np.array([_every_rank(src.get(s, {}), cluster, _add)
+                             for s in range(n_src)], f32)
+        sat = np.minimum(np.maximum((occ - hs) / (f32(1) - hs), f32(0)),
+                         f32(1))
+        on = c["src_sw"] != 0  # switch 0's stall is pinned to 1
+        sums = [_parts(c["src_sw"][on], lrank[on], v[on], op) for v, op in
+                ((q * sat, _add), (q, _add), (sat, np.maximum))]
+        stall = np.ones(n_sw, f32)
+        for s in range(1, n_sw):
+            hot, tot, mx = (_every_rank(x.get(s, {}), cluster, op) for x, op
+                            in zip(sums, (_add, _add, np.maximum)))
+            stall[s] = f32(1) - hf * mx * f32(hot / np.maximum(tot, f32(1)))
+        ce = c["caps_finite"] * stall[c["dst_sw"]]
+        r = inject * np.minimum(c["host_caps"] / np.maximum(
+            src_load[c["src_id"]], f32(1)), f32(1))
+        inject_s = r.copy()
+        arrival, smax = np.zeros(L1, f32), np.zeros(L1, f32)
+        for h in range(H):
+            lk = plinks[:, h]
+            on = np.flatnonzero(lk < sink)
+            for link, parts in _parts(lk[on], frank[on], r[on],
+                                      _add).items():
+                ld = _contributors(parts, _add)
+                arrival[link] = arrival[link] + ld
+                members = on[lk[on] == link]
+                r[members] = r[members] / np.maximum(ld / ce[link], f32(1))
+            if with_aux:
+                for link, parts in _parts(lk[on], frank[on], r[on],
+                                          _add).items():
+                    smax[link] = np.maximum(smax[link],
+                                            _contributors(parts, _add))
+        q_new = np.minimum(np.maximum(
+            q + (arrival * (f32(1) + bj) - ce) * dt, f32(0)), qmax)
+    q_new[sink] = 0.0
+    return {"inject": inject_s, "achieved": r, "arrival": arrival,
+            "q_new": q_new, "caps_eff": ce,
+            "served_stage_max": smax if with_aux else None}
+
+
+def _grid_cells(system, n, victim, aggr, seed):
+    """The cells of a fig5-style grid (32 KiB and 2 MiB, or 4 and 16 MiB on
+    Nanjing, baseline and steady) with step-core operands made as
+    chip_smoke.py's core_inputs makes them: each flow on one of its
+    candidate paths, rates up to its NIC cap, queues up to 0.9 qmax."""
+    from repro_torch.core import bench, congestion as cong
+    from repro_torch.core.fabric import simulator as sim, systems
+    case = bench.build_case(systems.get_system(system), n, victim, aggr)
+    sizes = (4 << 20, 16 << 20) if system.startswith("nanjing") \
+        else (32 << 10, 2 << 20)
+    dts = bench._cell_dts(case, sizes, 1, None, case.lat())
+    cells = [(float(v), pr) for v in sizes
+             for pr in (cong.no_congestion(), cong.steady())]
+    p = sim.stack_params([case.cell_params(v, pr, d)
+                          for (v, pr), d in zip(cells, dts)])
+    geom = case.geom
+    rng = np.random.RandomState(seed)
+    B, F = p.dt.shape[0], geom.n_flows
+    choice = (rng.rand(B, F) * geom.n_paths.numpy()).astype(np.int64)
+    plinks = geom.paths[geom.flow_ar, torch.as_tensor(choice)].numpy()
+    inject = (p.host_caps * torch.as_tensor(rng.rand(B, F),
+                                            dtype=torch.float32)).numpy()
+    q = torch.as_tensor(rng.rand(B, geom.L + 1), dtype=torch.float32) \
+        * p.qmax_bytes[:, None] * 0.9
+    q[:, -1] = 0.0
+    occ = (q / p.qmax_bytes[:, None]).numpy()
+    geo = {k: getattr(geom, k).numpy() for k in ("src_id", "caps_finite",
+                                                 "src_sw", "dst_sw")}
+    out = [dict(plinks=plinks[b].astype(np.int32), inject=inject[b],
+                host_caps=p.host_caps[b].numpy(), q=q[b].numpy(),
+                occ=occ[b], **geo) for b in range(B)]
+    scalars = [tuple(float(x[b]) for x in (p.dt, p.qmax_bytes, p.hol_factor,
+                                            p.hol_start, p.burst_jitter))
+               for b in range(B)]
+    return out, scalars, geom.n_src, geom.n_sw
+
+
+def _random_cells(shape, B, seed):
+    rng = np.random.RandomState(seed)
+    cells = []
+    for _ in range(B):
+        c = _case(rng, *shape)
+        c["occ"] = _occ(c, SCALARS[1])
+        cells.append(c)
+    return cells, [SCALARS] * B
+
+
+def _plain_cells(cells, scalars, n_src, n_sw, with_aux):
+    t = lambda k: torch.from_numpy(np.stack([c[k] for c in cells]))  # noqa
+    sc = torch.tensor(np.asarray(scalars, np.float32))
+    return tref.fabric_step_core(
+        t("plinks"), t("inject"), t("src_id"), t("host_caps"), t("q"),
+        t("occ"), t("caps_finite"), t("src_sw"), t("dst_sw"), *sc.unbind(1),
+        n_src=n_src, n_sw=n_sw, with_aux=with_aux)
+
+
+def _hold_model_to_plain(cells, scalars, n_src, n_sw, with_aux, cluster):
+    want = _plain_cells(cells, scalars, n_src, n_sw, with_aux)
+    for b, (c, sc) in enumerate(zip(cells, scalars)):
+        got = _order_model(c, sc, n_src, n_sw, with_aux, cluster)
+        for k in OUTS:
+            if want[k] is None:
+                assert got[k] is None
+                continue
+            w, g = want[k][b].numpy(), got[k]
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), k)
+            ok = ~np.isnan(w)
+            np.testing.assert_allclose(g[ok], w[ok], err_msg=f"cell {b} {k}",
+                                       **FS_TOL)
+
+
+@pytest.mark.parametrize("label", sorted(SLICES))
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_matches_plain_at_slice_shapes(label, with_aux):
+    """The kernel's summation order on the hot incast link (leonardo/64)
+    and alltoall's shared links (nanjing), with the cluster the wrapper
+    picks there, within §13 of the plain version."""
+    cells, scalars, n_src, n_sw = _grid_cells(*SLICES[label], seed=100)
+    F, H = cells[0]["plinks"].shape
+    cfg = tfs.launch_config(len(cells), F, H, len(cells[0]["q"]), n_src,
+                            n_sw, with_aux)
+    _hold_model_to_plain(cells, scalars, n_src, n_sw, with_aux, cfg.cluster)
+
+
+@pytest.mark.parametrize("shape", FS_SHAPES)
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_matches_plain_random(shape, with_aux):
+    cells, scalars = _random_cells(shape, 2, sum(shape))
+    _hold_model_to_plain(cells, scalars, shape[3], shape[4], with_aux, 1)
+
+
+@pytest.mark.parametrize("cluster", [2, 8])
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_on_a_cluster_matches_plain(cluster, with_aux):
+    """Parts of a cluster's blocks added in rank order, with segments long
+    enough for the warp's butterfly (about 33 flows a link and hop)."""
+    shape = (700, 3, 20, 9, 4)
+    cells, scalars = _random_cells(shape, 2, 11)
+    _hold_model_to_plain(cells, scalars, shape[3], shape[4], with_aux,
+                         cluster)
+
+
+def test_order_model_is_not_the_plain_order():
+    """The model's butterfly is a different order from the plain
+    version's: with segments longer than SERIAL_MAX some bits differ (the
+    §13 tolerance is what holds them together)."""
+    shape = (700, 3, 20, 9, 4)
+    cells, scalars = _random_cells(shape, 1, 11)
+    want = _plain_cells(cells, scalars, 9, 4, False)["arrival"][0].numpy()
+    got = _order_model(cells[0], scalars[0], 9, 4, False, 1)["arrival"]
+    assert not np.array_equal(got, want)
+    np.testing.assert_allclose(got, want, **FS_TOL)
+
+
+@pytest.mark.parametrize("label", sorted(SLICE_DIMS))
+def test_launch_config_depends_on_shapes_only(label):
+    """The same block and cluster for one cell or 64, with or without the
+    aux observer, and a layout that fits a Hopper block."""
+    F, H, L1, n_src, n_sw = SLICE_DIMS[label]
+    one = tfs.launch_config(1, F, H, L1, n_src, n_sw)
+    many = tfs.launch_config(64, F, H, L1, n_src, n_sw)
+    aux = tfs.launch_config(64, F, H, L1, n_src, n_sw, with_aux=True)
+    assert (one.threads, one.cluster, one.smem) \
+        == (many.threads, many.cluster, many.smem)
+    assert (aux.threads, aux.cluster) == (one.threads, one.cluster)
+    assert (one.grid, many.grid) == (one.cluster, 64 * one.cluster)
+    assert one.smem <= aux.smem <= tfs.SMEM_LIMIT == 232448
+    assert one.threads in (tfs.SMALL_THREADS, tfs.MAX_THREADS)
+    # a small cell is one block; cresco8's 16,384 flows spread over eight
+    assert one.cluster == (8 if F > tfs.FLOWS_PER_BLOCK else 1)
+    assert F <= one.cluster * tfs.FLOWS_PER_BLOCK
+    bs = tfs.block_shape(F, H, L1, n_src, n_sw, one.cluster)
+    assert bs.n_items < 65536 and bs.ib + bs.kb <= 31
+
+
+def test_launch_config_refuses_where_check_smem_refuses():
+    big = dict(F=4095, H=8, L1=20000, n_src=4096, n_sw=1026)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfs.check_smem(big["L1"], big["n_src"], big["n_sw"], True)
+    for B in (1, 64):
+        with pytest.raises(ValueError, match="shared memory"):
+            tfs.launch_config(B, *big.values(), with_aux=True)
+    # 4096-node LUMI without aux passes the gate and fits on a cluster
+    cfg = tfs.launch_config(4, 4095, 8, 14560, 4095, 1026)
+    assert cfg.cluster > 1 and cfg.smem <= tfs.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_launch_config_refuses_more_flows_than_a_cluster_holds(B):
+    """A cell of more than MAX_FLOWS = 8 x 2048 flows (an alltoall over
+    more than 128 nodes) raises, though check_smem passes its rows; one
+    flow fewer runs on a cluster of eight."""
+    assert tfs.MAX_FLOWS == 16384
+    dims = dict(H=4, L1=897, n_src=129, n_sw=54)
+    tfs.check_smem(dims["L1"], dims["n_src"], dims["n_sw"], True)
+    with pytest.raises(ValueError, match="at most 16384 flows"):
+        tfs.launch_config(B, 16385, *dims.values())
+    assert tfs.launch_config(B, 16384, *dims.values()).cluster == 8
+
+
+def test_smem_layout_is_the_sources_layout():
+    """The wrapper lays out the fields of the source's ``Layout`` struct,
+    in its order, and the kernel takes the offsets from the launch: rows
+    in ascending order, the grouping scratch and a cluster's hop tables
+    starting at one offset, the total past both."""
+    code = _c_functions(tfs.SOURCE.read_text())
+    body = re.search(r"struct Layout \{(.*?)\};", code, re.S).group(1)
+    fields = tuple(re.findall(r"\w+", body.replace("int", " ")))
+    assert fields == tfs.LAYOUT_FIELDS
+    words = int(re.search(r"LAYOUT_WORDS = (\d+);", code).group(1))
+    assert words == len(tfs.LAYOUT_FIELDS)
+    for dims, cluster in (((255, 8, 3908, 256, 704), 1),
+                          ((16384, 4, 897, 129, 54), 8),
+                          ((700, 3, 20, 9, 4), 2)):
+        for aux in (False, True):
+            off = dict(zip(tfs.LAYOUT_FIELDS,
+                           tfs.smem_layout(*dims, cluster, aux)))
+            kept = tfs.LAYOUT_FIELDS[:tfs.LAYOUT_FIELDS.index("tmp") + 1]
+            assert [off[k] for k in kept] == sorted(off[k] for k in kept)
+            assert off["tmp"] == off["part"] <= off["list"] <= off["total"]
+            assert off["ord"] < off["total"]
+            assert off["ws"] % 4 == 0  # the radix counts are read as int4
+
+
+def _c_functions(src):
+    """The source with comments dropped."""
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
+def test_launch_signature_matches_argtypes():
+    """The source's extern "C" launcher takes what the wrapper's ctypes
+    argtypes pass, parameter by parameter."""
+    import ctypes
+    code = _c_functions(tfs.SOURCE.read_text())
+    m = re.search(r"int fabric_step_core_launch\((.*?)\)\s*\{", code, re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong,
+             "int*": ctypes.POINTER(ctypes.c_int)}
+    types = [kinds[re.sub(r"\s*\w+$", "", p).replace("const ", "")
+                   .replace(" *", "*")] for p in params]
+    assert types == tfs.ARGTYPES
+    names = [re.findall(r"\w+", p)[-1] for p in params]
+    assert names[-4:] == ["threads", "cluster", "layout", "stream"]
+
+
+def test_kernel_sums_without_float_atomics():
+    """Atomics only count, place, mark and list, on int tables: no float
+    atomicAdd, and no atomic at all on a row of rates or queues."""
+    code = _c_functions(tfs.SOURCE.read_text())
+    calls = re.findall(r"(atomic\w+)\(([^,]+),", code)
+    assert calls
+    ints = ("boff", "hist", "nlong", "nlist", "touch")
+    for fn, target in calls:
+        assert fn in ("atomicAdd", "atomicOr"), fn
+        assert any(t in target for t in ints), (fn, target)
+    assert "float* " not in "".join(t for _, t in calls)
+
+
+def _card_tensors(cells, scalars, n_src, n_sw):
+    def t(k):
+        return torch.from_numpy(np.stack([c[k] for c in cells])).cuda()
+    sc = torch.tensor(np.asarray(scalars, np.float32)).cuda().unbind(1)
+    return (t("plinks"), t("inject"), t("src_id"), t("host_caps"), t("q"),
+            t("occ"), t("caps_finite"), t("src_sw"), t("dst_sw"), *sc), \
+        dict(n_src=n_src, n_sw=n_sw)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32).cpu()
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+
+
+@pytest.mark.cuda
+def test_kernel_launches_bit_equal_and_batch_invariant_on_card():
+    """Ten launches bit-equal; each cell alone bit-equal to its row of the
+    batched launch; and the kernel bit-equal to the order model."""
+    _needs_card()
+    for cells, scalars, n_src, n_sw in (
+            _grid_cells(*SLICES["leonardo/64/incast"], seed=100),
+            (*_random_cells((700, 3, 20, 9, 4), 3, 11), 9, 4)):
+        args, kw = _card_tensors(cells, scalars, n_src, n_sw)
+        cfg = tfs.launch_config(len(cells), *args[0].shape[1:],
+                                args[4].shape[1], n_src, n_sw, True)
+        runs = [tfs.fabric_step_core(*args, with_aux=True, **kw)
+                for _ in range(10)]
+        for run in runs[1:]:
+            for k in OUTS:
+                assert torch.equal(_bits(run[k]), _bits(runs[0][k])), k
+        for b, (c, sc) in enumerate(zip(cells, scalars)):
+            alone = tfs.fabric_step_core(
+                *[a[b:b + 1] if a.dim() > 1 or a.shape[0] == len(cells)
+                  and i not in (2, 6, 7, 8) else a
+                  for i, a in enumerate(args)], with_aux=True, **kw)
+            model = _order_model(c, sc, n_src, n_sw, True, cfg.cluster)
+            for k in OUTS:
+                assert torch.equal(_bits(alone[k][0]), _bits(runs[0][k][b]))
+                np.testing.assert_array_equal(runs[0][k][b].cpu().numpy(),
+                                              model[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_kernel_zero_capacity_nan_pattern_on_card():
+    """Zero-capacity links under silent flows give NaN where, and only
+    where, the plain version does; bit-exact elsewhere (one contributor a
+    segment)."""
+    _needs_card()
+    F, H = 6, 3
+    L = F * H + 4
+    case = _case(np.random.RandomState(3), F, H, L, F + 1, L + 2)
+    case["plinks"] = np.arange(F * H, dtype=np.int32).reshape(F, H)
+    case["plinks"][1, 2] = L
+    case["src_id"] = np.arange(F, dtype=np.int32)
+    case["src_sw"] = np.arange(1, L + 2, dtype=np.int32)
+    case["dst_sw"] = np.roll(np.arange(1, L + 2, dtype=np.int32), 1)
+    case["caps_finite"][[0, 3, 6]] = 0.0
+    case["inject"][:2] = 0.0
+    case["occ"] = _occ(case, SCALARS[1])
+    args, kw = _card_tensors([case], [SCALARS], F + 1, L + 2)
+    got = tfs.fabric_step_core(*args, with_aux=True, **kw)
+    want = _plain_cells([case], [SCALARS], F + 1, L + 2, True)
+    assert np.isnan(want["achieved"][0, :2].numpy()).all()
+    for k in OUTS:
+        g, w = got[k][0].cpu().numpy(), want[k][0].numpy()
+        np.testing.assert_array_equal(g, w, err_msg=k)  # NaN where w has
