@@ -71,13 +71,15 @@ SCENARIO_KEYS = ["system", "n_nodes", "victim", "aggressor", "vector_bytes",
 
 
 def expected_grid_keys(grid) -> "List[tuple]":
-    """The cache-key tuples one grid's rows carry, in result order."""
+    """The cache-key tuples one grid's rows carry, in result order; a
+    scale-batched grid expands its (system, n_nodes) cells."""
     from repro_torch.core import bench
 
     vic = bench.victim_label(grid.victim, grid.phased)
-    return [(grid.system, str(grid.n_nodes), vic, grid.aggressor or "none",
-             str(float(v)), p.label())
-            for v in grid.sizes for p in grid.profiles]
+    cells = list(grid.cells) or [(grid.system, grid.n_nodes)]
+    return [(s, str(n), vic, grid.aggressor or "none", str(float(v)),
+             p.label())
+            for s, n in cells for v in grid.sizes for p in grid.profiles]
 
 
 def scenario_rows(scenario, *, device: torch.device, cache_dir: str,

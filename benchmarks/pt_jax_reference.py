@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|lm|train]``
+[--only fabric|fig7_fig8|lm|train]``
 
 Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
 package as it stands. ``fabric`` (the default part of the run) writes
@@ -16,7 +16,13 @@ the git commit:
   sha256 of the cut goodput trace;
 * fig6_bursty quick, all six grids, and the full burst x pause grid of
   leonardo/64/incast at 2 MiB: per cell the ratio, both times and the
-  iteration counts.
+  iteration counts;
+* fig7_fig8 (also alone, ``--only fig7_fig8``, which rewrites these keys
+  of the file and keeps the others): the fig7_fig8_scale quick grid and a
+  reduced alltoall scale grid (CRESCO8 at 128 nodes and LUMI at 256, 2 MiB,
+  2 ms bursts with 0.2 ms pauses, 8 iterations), per cell as fig6; and an
+  attempt at each full fig7_fig8_scale grid, each in a child process given
+  ``FULL_GRID_S`` seconds: its rows, or that it did not finish.
 
 It calls the benchmarks' row functions directly and never
 ``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
@@ -62,6 +68,12 @@ FIG5_GRIDS = (("leonardo", 64, "incast"), ("leonardo", 256, "incast"),
 # the fig6 grid whose full burst x pause table the port is held to, and
 # its vector size: long enough that the runs cross burst/pause edges
 FIG6_BURST_PAUSE = ("leonardo", 64, "incast", 2 << 20)
+# the reduced alltoall scale grid: cells, sizes, (burst, pause) seconds,
+# n_iters and warmup
+FIG8_ALLTOALL = ((("cresco8", 128), ("lumi", 256)), (2 << 20,),
+                 ((2e-3, 0.2e-3),), 8, 2)
+# seconds a full fig7_fig8_scale grid may take on the JAX CPU path
+FULL_GRID_S = 600
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
 
@@ -226,6 +238,95 @@ def fig6_burst_pause_rows() -> list:
     return _grid_rows(scen, dataclasses.replace(grid, sizes=(v,)))
 
 
+def _scale_rows(label, cells, aggressor, sizes, profiles, n_iters,
+                warmup) -> list:
+    """A run_scale_grid's rows on the JAX package, each with its cell's
+    dt (the bench's choose_dt of that cell)."""
+    from repro.core import bench
+
+    t0 = time.time()
+    results = bench.run_scale_grid(list(cells), "ring_allgather", aggressor,
+                                   sizes, profiles, n_iters=n_iters,
+                                   warmup=warmup)
+    seconds = time.time() - t0
+    cases = {(s, n): bench.build_case(bench.get_system(s), n,
+                                      "ring_allgather", aggressor)
+             for s, n in cells}
+    rows = []
+    for r in results:
+        case = cases[(r.system, r.n_nodes)]
+        prof = next(p for p in profiles if p.label() == r.profile)
+        dt = bench.choose_dt(case.topo, case.n_victims, r.vector_bytes,
+                             case.lat(), n_phases=case.max_phases)
+        rows.append({**_row(r, dt, seconds),
+                     "burst_ms": round(prof.burst_s * 1e3, 4),
+                     "pause_ms": round(prof.pause_s * 1e3, 4),
+                     "burst_s": prof.burst_s, "pause_s": prof.pause_s})
+    print(f"{label} {aggressor} {list(cells)}: "
+          f"{[round(r.ratio, 4) for r in results]} ({seconds:.1f}s)",
+          flush=True)
+    return rows
+
+
+def _scenario_grid_rows(label, quick, index) -> list:
+    from repro.core import scenarios
+
+    scen = scenarios.get("fig7_fig8_scale", quick)
+    g = scen.grids[index]
+    return _scale_rows(label, g.cells, g.aggressor, g.sizes, g.profiles,
+                       scen.n_iters, scen.warmup)
+
+
+def _full_grid(index: int, path: str) -> None:
+    """A child process: one full fig7_fig8_scale grid's rows to ``path``."""
+    rows = _scenario_grid_rows("fig7_fig8 full", False, index)
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def fig7_fig8_rows() -> dict:
+    import multiprocessing
+    import tempfile
+
+    from repro.core import congestion as cong, scenarios
+
+    cells, sizes, profiles, n_iters, warmup = FIG8_ALLTOALL
+    doc = {"fig7_fig8_quick": _scenario_grid_rows("fig7_fig8 quick", True,
+                                                  0),
+           "fig7_fig8_alltoall": _scale_rows(
+               "fig7_fig8 reduced", cells, "alltoall", sizes,
+               tuple(cong.bursty(b, p) for b, p in profiles), n_iters,
+               warmup),
+           "fig7_fig8_full": []}
+    ctx = multiprocessing.get_context("spawn")
+    for i, g in enumerate(scenarios.get("fig7_fig8_scale", False).grids):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rows.json")
+            t0 = time.time()
+            proc = ctx.Process(target=_full_grid, args=(i, path))
+            proc.start()
+            proc.join(FULL_GRID_S)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            seconds = time.time() - t0
+            entry = {"aggressor": g.aggressor,
+                     "cells": [list(c) for c in g.cells],
+                     "limit_s": FULL_GRID_S, "wall_s": seconds}
+            if os.path.exists(path):
+                with open(path) as f:
+                    entry["rows"] = json.load(f)
+            else:
+                entry["rows"] = None
+                entry["not_finished"] = (
+                    f"the JAX CPU path did not finish in {FULL_GRID_S} s "
+                    f"(exit code {proc.exitcode})")
+                print(f"fig7_fig8 full {g.aggressor}: "
+                      f"{entry['not_finished']}", flush=True)
+            doc["fig7_fig8_full"].append(entry)
+    return doc
+
+
 def lm_reference() -> dict:
     """The LM reference rows (module docstring), on the JAX package."""
     import jax
@@ -352,7 +453,7 @@ def main() -> None:
     ap.add_argument("--out", default=None,
                     help="output file (default: the part's file under "
                          "artifacts/bench_cache_torch/)")
-    ap.add_argument("--only", choices=("fabric", "lm", "train"),
+    ap.add_argument("--only", choices=("fabric", "fig7_fig8", "lm", "train"),
                     default=None)
     args = ap.parse_args()
     import jax
@@ -367,8 +468,16 @@ def main() -> None:
                "fig1_breakdown": fig1_rows(),
                "fig3_sawtooth": fig3_rows(),
                "fig6_bursty_quick": fig6_rows(),
-               "fig6_burst_pause": fig6_burst_pause_rows()}
+               "fig6_burst_pause": fig6_burst_pause_rows(),
+               **fig7_fig8_rows()}
         _write(doc, args.out or OUT)
+    if args.only == "fig7_fig8":
+        path = args.out or OUT
+        with open(path) as f:
+            doc = json.load(f)
+        doc.update(fig7_fig8_rows())
+        doc["fig7_fig8_commit"] = _commit()
+        _write(doc, path)
     if args.only in (None, "lm"):
         _write(lm_reference(), (args.only and args.out) or LM_OUT)
     if args.only in (None, "train"):

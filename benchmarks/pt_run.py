@@ -6,7 +6,7 @@ as ``benchmarks/run.py`` is for the JAX package.
 
 Runs on the CUDA device unless ``--device`` names another; without a card
 the default fails. By default it runs every ported figure (fig1, fig3,
-fig4, fig5, fig6). A name the port does not run yet exits non-zero with
+fig4, fig5, fig6, fig7_fig8). A name the port does not run yet exits non-zero with
 the ROADMAP item that ports it. Prints each figure's table plus a final
 ``name,us_per_call,derived`` CSV summary line per point.
 """
@@ -17,11 +17,10 @@ import sys
 import time
 import traceback
 
-PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6")
+PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6", "fig7_fig8")
 NOT_PORTED = {
-    "fig7_fig8": "ROADMAP Queue 1, item 7 (hetero/bucketed run_scale_grid)",
-    "scenarios": "ROADMAP Queue 1, items 7 and 16 (scale-batched grids; "
-                 "the beyond-paper scenario families)",
+    "scenarios": "ROADMAP Queue 1, item 16 (the beyond-paper scenario "
+                 "families: scale_sweep, mixed_topology, ...)",
     "collectives": "ROADMAP Queue 1, item 14 (LM stack: collectives over "
                    "torch.distributed)",
 }
@@ -67,13 +66,14 @@ def main(argv=None) -> int:
         return 2
 
     from benchmarks import (pt_fig1_breakdown, pt_fig3_sawtooth,
-                            pt_fig4_nslb, pt_fig5_steady, pt_fig6_bursty)
+                            pt_fig4_nslb, pt_fig5_steady, pt_fig6_bursty,
+                            pt_fig7_fig8_scale)
     from repro_torch.core.fabric.simulator import resolve_device
 
     device = resolve_device(args.device)
     drivers = {"fig1": pt_fig1_breakdown, "fig3": pt_fig3_sawtooth,
                "fig4": pt_fig4_nslb, "fig5": pt_fig5_steady,
-               "fig6": pt_fig6_bursty}
+               "fig6": pt_fig6_bursty, "fig7_fig8": pt_fig7_fig8_scale}
     summary, failed = [], []
     for name in PORTED:
         if name not in only:

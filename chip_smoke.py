@@ -22,8 +22,12 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    one contributor, NaN where and only where the plain version has it);
    checks ten launches on the same inputs bit-equal, and each cell
    launched alone bit-equal to its row of the batched launch, at every
-   slice shape, figure-path grid and random shape; records the block and
-   cluster the wrapper picks at each shape;
+   slice shape, figure-path grid and random shape; the same at the three
+   wide alltoall shapes (LUMI at 128 and 256 nodes, Leonardo at 256),
+   whose rows partly live in the global-memory workspace, and the wide
+   layout bit-equal to the shared one where both take a cell; records
+   (and prints) the block, cluster, layout and workspace the wrapper
+   picks at each shape;
 4. holds the fused-accumulate kernel bit-equal to its plain version at
    the fig1 tiles and (300, 640), in four type pairs and two scales, with
    acc unaligned, and in the bfloat16 256 + 1 case;
@@ -41,10 +45,16 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    goodput traces through ``benchmarks/pt_fig3_sawtooth.run_point``
    (trace length, goodput and CV against JAX; the Obs. 1 pin) and Fig. 6's
    six quick grids plus the leonardo/64/incast 2 MiB burst x pause grid
-   (iteration counts and times against JAX; the Obs. 3 pin);
+   (iteration counts and times against JAX; the Obs. 3 pin); and Figs.
+   7-8 through the scale-batched engine (``bench.run_scale_grid``): the
+   fig7_fig8_scale quick grid and a reduced alltoall grid with LUMI at 256
+   nodes (iteration counts and times against JAX; the Fig. 7 pin), and,
+   in both buckets, each padded cell bit-equal to itself run alone;
 8. times kernels 1 and 2, their plain versions, their bounds and, for the
    fused accumulate, the library call ``torch.add``, per shape (kernel 1
-   beside its time before its redesign, ``EARLIER_MS``);
+   beside its time before its redesign, ``EARLIER_MS``, and its time in
+   the last redesign's measurement, ``REDESIGN_MS``; kernel 2 and
+   ``torch.add`` also in alternating graph replays, medians and spread);
 8b. ``engine_graph``: 256 engine steps of the leonardo/256/incast grid
    captured as one CUDA graph, whose replay must be bit-equal to the same
    steps run eagerly; prints the wall ms a step of both (a diagnostic for
@@ -310,6 +320,27 @@ MAIN_SHAPE = "leonardo/256/incast"  # the main path's longest grid
 EARLIER_MS = {"nanjing_ecmp/8/alltoall": 0.0149, "leonardo/64/incast": 0.0287,
               "leonardo/256/incast": 0.0497, "lumi/256/incast": 0.0461,
               "cresco8/256/alltoall": 0.1934}
+# kernel 1's ms a launch at the slice shapes after its redesign for Hopper
+# (the timing phase on an H100 80GB HBM3 at 700 W; PERF.md §6): the shapes
+# keep their times within 5% of these
+REDESIGN_MS = {"nanjing_ecmp/8/alltoall": 0.0156, "leonardo/64/incast": 0.0243,
+             "leonardo/256/incast": 0.0345, "lumi/256/incast": 0.0340,
+             "cresco8/256/alltoall": 0.0848}
+# (label, system, n_nodes, victim, aggressor) of the alltoall cells whose
+# rows do not fit a block's shared memory: kernel 1's wide layout (LUMI at
+# 256 nodes is also Fig. 8's alltoall bucket)
+WIDE_SHAPES = (("lumi/128/alltoall", "lumi", 128, "ring_allgather",
+                "alltoall"),
+               ("lumi/256/alltoall", "lumi", 256, "ring_allgather",
+                "alltoall"),
+               ("leonardo/256/alltoall", "leonardo", 256, "ring_allgather",
+                "alltoall"))
+# Figs. 7-8: the reduced alltoall scale grid held to JAX (cells, size,
+# (burst, pause) s, n_iters, warmup: benchmarks/pt_jax_reference.py) and
+# the iterations and chunk of the padded-vs-alone bit checks
+FIG8_ALLTOALL = ((("cresco8", 128), ("lumi", 256)), (2 << 20,),
+                 ((2e-3, 0.2e-3),), 8, 2)
+PAD_CHECK_ITERS, PAD_CHECK_CHUNK = 3, 256
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -473,8 +504,8 @@ class Smoke:
         F = geom.n_flows
         n_paths = geom.n_paths.cpu().numpy()
         choice = (rng.rand(B, F) * n_paths).astype(np.int64)
-        plinks = geom.paths[geom.flow_ar, torch.as_tensor(
-            choice, device=self.dev)].contiguous()
+        plinks = geom.paths[torch.arange(F, device=self.dev),
+                            torch.as_tensor(choice, device=self.dev)]
         inject = (p.host_caps * torch.as_tensor(
             rng.rand(B, F), dtype=torch.float32, device=self.dev)).contiguous()
         q = torch.as_tensor(rng.rand(B, geom.L + 1), dtype=torch.float32,
@@ -598,17 +629,22 @@ class Smoke:
             f"(aux 0 and 1): {held}")
 
     def launch_config(self, label, args, kw):
-        """The block and cluster the wrapper picks at these shapes."""
+        """The block, cluster and layout the wrapper picks at these
+        shapes."""
         from repro_torch.kernels import fabric_step as fs
         B, F, H = args[0].shape
         cfg = fs.launch_config(B, F, H, args[4].shape[1], kw["n_src"],
                                kw["n_sw"])
         self.report.setdefault("launch_config", {})[label] = {
             "threads": cfg.threads, "cluster": cfg.cluster,
-            "smem_bytes": cfg.smem, "grid": cfg.grid}
+            "smem_bytes": cfg.smem, "grid": cfg.grid,
+            "layout": "wide" if cfg.workspace else "shared",
+            "workspace_rows": list(cfg.workspace),
+            "workspace_bytes_a_block": cfg.ws_bytes}
         return cfg
 
     def kernel_vs_plain(self):
+        from repro_torch.kernels import fabric_step as fs
         self.shapes = {}
         for i, (label, system, n, victim, aggr) in enumerate(SLICE_SHAPES):
             case, geom, p = self.grid_case(system, n, victim, aggr)
@@ -624,6 +660,37 @@ class Smoke:
                 if label == MAIN_SHAPE and not aux:
                     self.main_err = err
             self.batch_invariance(label, args, kw)
+        for i, (label, system, n, victim, aggr) in enumerate(WIDE_SHAPES):
+            case, geom, p = self.grid_case(system, n, victim, aggr)
+            args, kw = self.core_inputs(geom, p, seed=150 + i)
+            B, F, H = args[0].shape
+            self.shapes[label] = (args, kw)
+            cfg = self.launch_config(label, args, kw)
+            log(f"   {label}: B={B} F={F} H={H} L={geom.L} "
+                f"n_sw={geom.n_sw} n_src={geom.n_src}; {cfg.threads} "
+                f"threads, cluster {cfg.cluster}, {cfg.smem} B shared, "
+                f"wide layout: {len(cfg.workspace)} rows "
+                f"({', '.join(cfg.workspace)}) in a workspace of "
+                f"{cfg.ws_bytes} B a block, {B * cfg.cluster * cfg.ws_bytes} "
+                f"B in all")
+            self.check(bool(cfg.workspace), f"{label}: not the wide layout")
+            for aux in (False, True):
+                self.compare(label, args, kw, aux)
+            self.batch_invariance(label, args, kw)
+        # the wide layout moves rows, not work: where both layouts take a
+        # cell, the bits are the shared layout's
+        for label in ("leonardo/64/incast", "cresco8/256/alltoall"):
+            args, kw = self.shapes[label]
+            for aux in (False, True):
+                shared = fs.fabric_step_core(*args, with_aux=aux, **kw)
+                wide = fs.fabric_step_core(*args, with_aux=aux, wide=True,
+                                           **kw)
+                same = all(bits_equal(self.torch, wide[k], shared[k])
+                           for k in shared if shared[k] is not None)
+                self.check(same, f"{label} aux={int(aux)}: the wide layout "
+                           f"differs from the shared one")
+                log(f"   {label:32s} aux={int(aux)} wide layout bit-equal "
+                    f"to shared: {same}")
         for i, (label, geom, p) in enumerate(self.path_cases()):
             args, kw = self.core_inputs(geom, p, seed=200 + i)
             B, F, H = args[0].shape
@@ -997,6 +1064,128 @@ class Smoke:
                            f"vs steady {steady}")
         self.report["fig6"] = rows
 
+    def fig7_fig8(self):
+        """Figs. 7-8 through the scale-batched engine: the quick grid (four
+        geometries in one bucket) and the reduced alltoall grid (CRESCO8 at
+        128 nodes padded into LUMI's 256-node bucket: kernel 1's wide
+        layout) held to JAX, the Fig. 7 pin, and each bucket's padded
+        cells bit-equal to themselves run alone."""
+        from repro_torch.core import bench, congestion as cong, scenarios
+        from repro_torch.core.fabric import simulator as sim
+        from repro_torch.kernels import fabric_step as fs
+        ref = self.reference()
+        rows = []
+
+        def hold_all(label, results, wants, wall, steps):
+            for r in results:
+                want = next(w for w in wants if (
+                    w["system"], w["n_nodes"], w["vector_bytes"],
+                    w["profile"]) == (r.system, r.n_nodes, r.vector_bytes,
+                                      r.profile))
+                rows.append({**self.hold(
+                    f"{label} {r.system}/{r.n_nodes}/{r.aggressor} "
+                    f"{r.vector_bytes:.0f} {r.profile}", r, want, wall,
+                    steps), "system": r.system, "n_nodes": r.n_nodes,
+                    "aggressor": r.aggressor})
+
+        def run():
+            quick = scenarios.get("fig7_fig8_scale", True)
+            for grid in quick.grids:
+                t0, s0 = time.time(), sim.step_count
+                results = scenarios.run_grid_spec(quick, grid,
+                                                  device=self.dev)
+                self.torch.cuda.synchronize()
+                wall, steps = time.time() - t0, sim.step_count - s0
+                log(f"   fig7_fig8 quick {grid.aggressor} {grid.cells}: "
+                    f"{steps} steps in {wall:.1f}s")
+                hold_all("fig7_fig8", results, ref["fig7_fig8_quick"], wall,
+                         steps)
+            cells, sizes, bp, n_iters, warmup = FIG8_ALLTOALL
+            t0, s0, l0 = time.time(), sim.step_count, fs.launches
+            results = bench.run_scale_grid(
+                cells, "ring_allgather", "alltoall", sizes,
+                [cong.bursty(b, p) for b, p in bp], n_iters=n_iters,
+                warmup=warmup, device=self.dev)
+            self.torch.cuda.synchronize()
+            wall, steps = time.time() - t0, sim.step_count - s0
+            log(f"   fig8 alltoall {cells}: {steps} steps, "
+                f"{fs.launches - l0} kernel-1 launches in {wall:.1f}s")
+            hold_all("fig8", results, ref["fig7_fig8_alltoall"], wall, steps)
+            return ("fabric_step_core",)
+
+        counts = self.path("fig7_fig8", run)
+        self.fig78_launches = counts["fabric_step_core"]
+        worst = {n: min(r["ratio"] for r in rows if r["system"] == "cresco8"
+                        and r["n_nodes"] == n and r["aggressor"] == "incast")
+                 for n in (64, 128)}
+        log(f"   Fig. 7 pin: cresco8 incast worst ratio 64 nodes "
+            f"{worst[64]:.4f}, 128 nodes {worst[128]:.4f}")
+        self.check(worst[128] > worst[64], f"pin Fig. 7: cresco8 incast "
+                   f"worst ratio at 128 nodes {worst[128]} <= at 64 "
+                   f"{worst[64]}")
+        self.report["fig7_fig8"] = rows
+        # padded == alone, in both buckets
+        quick = scenarios.get("fig7_fig8_scale", True).grids[0]
+        self.pad_check("incast bucket", quick.cells, "incast",
+                       quick.sizes, quick.profiles[:1])
+        cells, sizes, bp, _, _ = FIG8_ALLTOALL
+        self.pad_check("alltoall bucket", cells, "alltoall", sizes,
+                       [cong.bursty(b, p) for b, p in bp])
+
+    def pad_check(self, label, cells, aggr, sizes, profiles):
+        """Each cell of a bucket run padded (run_cells_hetero) gives every
+        output bit for bit as it gives run alone (run_cells), with the
+        kernel; its real flows' and jobs' slots compared."""
+        import numpy as np
+        from repro_torch.core import bench, congestion as cong
+        from repro_torch.core.fabric import simulator as sim, systems
+        from repro_torch.kernels import fabric_step as fs
+        cases = [bench.build_case(systems.get_system(s), n,
+                                  "ring_allgather", aggr) for s, n in cells]
+        dims, stacked = bench.bucket_stack([c.geom for c in cases])
+        kw = dict(chunk=PAD_CHECK_CHUNK, max_chunks=400, stride=8,
+                  device=self.dev)
+
+        def params(case, n_flows=None):
+            dts = bench._cell_dts(case, sizes, len(profiles), None,
+                                  case.lat())
+            sub = [(float(v), p) for v in sizes
+                   for p in [cong.no_congestion(), *profiles]]
+            return sim.stack_params([case.cell_params(v, p, d, n_flows)
+                                     for (v, p), d in zip(sub, dts)])
+        t0 = time.time()
+        out = sim.run_cells_hetero(
+            stacked, sim.stack_params([params(c, dims.n_flows)
+                                       for c in cases]),
+            PAD_CHECK_ITERS, **kw)
+        bucket = fs.launch_config(1, dims.n_flows, dims.max_hops,
+                                  dims.n_links + 1, dims.n_src, dims.n_sw)
+        for k, case in enumerate(cases):
+            alone = sim.run_cells(case.geom, params(case), PAD_CHECK_ITERS,
+                                  **kw)
+            F, J = case.geom.n_flows, case.geom.n_jobs
+            bad = []
+            for name, want in alone.items():
+                got = out[name][k]
+                if name == "fbytes":
+                    got = got[:, :F]
+                elif name in ("t_done", "it"):
+                    got = got[:, :J]
+                if got.shape != want.shape or not np.array_equal(
+                        got.view(np.uint8), want.view(np.uint8)):
+                    bad.append(name)
+            g = case.geom
+            mine = fs.launch_config(1, F, g.paths.shape[-1], g.L + 1,
+                                    g.n_src, g.n_sw)
+            log(f"   {label} {cells[k][0]}/{cells[k][1]}: alone cluster "
+                f"{mine.cluster} {'wide' if mine.workspace else 'shared'}, "
+                f"in the bucket cluster {bucket.cluster} "
+                f"{'wide' if bucket.workspace else 'shared'}; it "
+                f"{alone['it'][:, 0].tolist()}; bit-equal: {not bad}")
+            self.check(not bad, f"{label} {cells[k]}: padded differs from "
+                       f"alone in {bad}")
+        log(f"   {label}: {time.time() - t0:.1f}s")
+
     # ---------------------------------------------------------------- 8
     def graphed(self, fn):
         """One call of fn captured as a CUDA graph, so a replay costs the
@@ -1049,8 +1238,8 @@ class Smoke:
         from repro_torch.kernels import fabric_step as fs, ref
         self.timings = {}
         log(f"   {'shape':26s} {'kernel ms':>10s} {'was ms':>8s} "
-            f"{'plain ms':>10s} {'bound ms':>10s}  bound by  threads x "
-            f"cluster  (mean of the event span)")
+            f"{'redesign':>8s} {'plain ms':>10s} {'bound ms':>10s}  bound by  "
+            f"threads x cluster, layout  (mean of the event span)")
         for label, (args, kw) in self.shapes.items():
             k, k_span = self.med_ms(
                 lambda: fs.fabric_step_core(*args, **kw))
@@ -1058,14 +1247,19 @@ class Smoke:
                 lambda: ref.fabric_step_core(*args, **kw))
             bound, by = bound_ms(args, kw)
             cfg = self.report["launch_config"][label]
+            was, c42 = EARLIER_MS.get(label), REDESIGN_MS.get(label)
             self.timings[label] = {
                 "ms": k, "plain_ms": pl, "bound_ms": bound, "bound_by": by,
                 "span_ms": k_span, "plain_span_ms": pl_span,
-                "earlier_ms": EARLIER_MS[label],
-                "threads": cfg["threads"], "cluster": cfg["cluster"]}
-            log(f"   {label:26s} {k:10.4f} {EARLIER_MS[label]:8.4f} "
-                f"{pl:10.4f} {bound:10.6f}  {by}  {cfg['threads']} x "
-                f"{cfg['cluster']}  ({k_span:.4f} / {pl_span:.4f})")
+                "earlier_ms": was, "redesign_ms": c42,
+                "vs_redesign": k / c42 - 1 if c42 else None,
+                "threads": cfg["threads"], "cluster": cfg["cluster"],
+                "layout": cfg["layout"]}
+            log(f"   {label:26s} {k:10.4f} {was or float('nan'):8.4f} "
+                f"{c42 or float('nan'):8.4f} {pl:10.4f} {bound:10.6f}  {by}  "
+                f"{cfg['threads']} x {cfg['cluster']}, {cfg['layout']}  "
+                f"({k_span:.4f} / {pl_span:.4f})"
+                + (f"  {k / c42 - 1:+.1%} vs the redesign" if c42 else ""))
         self.report["timing"] = self.timings
 
         from repro_torch.kernels import fused_reduce as fr
@@ -1089,6 +1283,46 @@ class Smoke:
                 f"{bound:10.6f}  {by}  ({k_span:.4f} / {pl_span:.4f} / "
                 f"{lib_span:.4f})")
         self.report["timing_fused_accumulate"] = self.fr_timings
+        # kernel 2 against torch.add at the main tile: the two graphs'
+        # replays alternate, so both see the same clocks and neighbours
+        acc, x = self.fr_inputs(MAIN_TILE, "float32", "float32", seed=1)
+        ab = self.alternate_ms(lambda: fr.fused_accumulate(acc, x, 1.0),
+                               lambda: torch.add(acc, x, alpha=1.0))
+        self.fr_timings["alternating"] = ab
+        log(f"   {str(MAIN_TILE)} alternating replays x {ab['n']}: kernel "
+            f"median {ab['a_ms']:.5f} ms (quartiles {ab['a_q1']:.5f}-"
+            f"{ab['a_q3']:.5f}), torch.add {ab['b_ms']:.5f} ms "
+            f"({ab['b_q1']:.5f}-{ab['b_q3']:.5f}); kernel slower beyond "
+            f"the spread: {ab['a_q1'] > ab['b_q3']}")
+
+    def alternate_ms(self, fa, fb, n=400):
+        """Device ms of one call of fa and of fb, their graph replays
+        alternating a, b, b, a, ... between CUDA events while the card is
+        held busy; the medians and quartiles of each."""
+        import numpy as np
+        torch = self.torch
+        ra, rb = self.graphed(fa), self.graphed(fb)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        ev = {"a": [], "b": []}
+        for i in range(n):
+            order = (("a", ra), ("b", rb)) if i % 2 == 0 else \
+                (("b", rb), ("a", ra))
+            for key, run in order:
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                run()
+                e.record()
+                ev[key].append((s, e))
+        torch.cuda.synchronize()
+        out = {"n": n}
+        for key, pairs in ev.items():
+            t = np.array([s.elapsed_time(e) for s, e in pairs])
+            out[f"{key}_ms"] = float(np.median(t))
+            out[f"{key}_q1"] = float(np.percentile(t, 25))
+            out[f"{key}_q3"] = float(np.percentile(t, 75))
+        return out
 
     def engine_graph(self, n_steps=256):
         """A diagnostic for capturing the engine's step loop: n_steps engine
@@ -2419,6 +2653,7 @@ def main() -> int:
                      ("fused_accumulate_vs_plain", s.fr_vs_plain),
                      ("lockstep", s.lockstep), ("main_path", s.main_path),
                      ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
+                     ("fig7_fig8", s.fig7_fig8),
                      ("timing", s.timing),
                      ("engine_graph", s.engine_graph),
                      ("flash_attention_vs_plain", s.fa_vs_plain),
@@ -2449,10 +2684,14 @@ def main() -> int:
     tt = s.train_timing
     pick = lambda d: {k: d[k] for k in (  # noqa: E731
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    wide = {label: {k: s.timings[label][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
+        for label, *_ in WIDE_SHAPES}
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": s.main_launches, "max_abs_err": s.main_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}, {
+        "bound_by": t["bound_by"], "library_ms": None,
+        "fig7_fig8_launches": s.fig78_launches, "wide_shapes": wide}, {
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],

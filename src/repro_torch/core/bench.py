@@ -8,6 +8,9 @@ report mean iteration time and the uncongested/congested ratio.
   grid on ONE flow set, executed as one batched run
   (simulator.run_cells): all cells advance together, each stops when its
   primary job has finished.
+* :func:`run_scale_grid` — heterogeneous ``(system, n_nodes)`` cells,
+  their geometries padded to one bucket and run as one batch
+  (simulator.run_cells_hetero; paper Figs. 7-8).
 * :func:`goodput_trace` — one aggressor-free run and its victim goodput
   trace (paper Fig. 3 self-congestion).
 
@@ -16,7 +19,7 @@ All run on the CUDA device unless ``device`` says otherwise.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -25,11 +28,14 @@ from repro_torch.core import traffic
 from repro_torch.core.fabric.routing import splitmix64
 from repro_torch.core.fabric.simulator import (TDONE_SLOTS, FabricGeometry,
                                                SimParams, _drop_warmup,
+                                               bucket_dims,
                                                check_iter_budget,
                                                make_geometry, make_params,
-                                               resolve_device, run_cell,
-                                               run_cells, stack_params,
-                                               summarize)
+                                               pad_geometry, resolve_device,
+                                               run_cell, run_cells,
+                                               run_cells_hetero,
+                                               stack_geometries,
+                                               stack_params, summarize)
 from repro_torch.core.fabric.systems import (SystemPreset, default_policy,
                                              get_system)  # noqa: F401
 
@@ -156,16 +162,22 @@ class GridCase:
             self.job_names = ["victim", "aggressor"]
 
     def cell_params(self, vector_bytes: float, profile: cong.Profile,
-                    dt: float) -> SimParams:
-        """One cell's parameters (no batch axis)."""
+                    dt: float, n_flows: Optional[int] = None) -> SimParams:
+        """One cell's parameters (no batch axis); ``n_flows`` pads the
+        flow axis to a geometry bucket's width (pad flows: 0 bytes, never
+        alive, and a host cap of 1.0 so no divide sees 0)."""
         if profile.faults or profile.node_cap_frac > 0:
             raise NotImplementedError(
                 "fault events and the intra-node stage are not ported yet "
                 "(ROADMAP Queue 1: fault engine and intra-node stage)")
         bpi = np.where(self.sweep_mask, self.unit_bytes * vector_bytes,
                        self.unit_bytes)
+        host_caps = self.host_caps
+        if n_flows is not None and n_flows > len(bpi):
+            bpi = traffic.pad_rows(bpi, n_flows, 0.0)
+            host_caps = traffic.pad_rows(host_caps, n_flows, 1.0)
         return make_params(self.system.cc, dt=dt, bytes_per_iter=bpi,
-                           host_caps=self.host_caps, env=profile.params(),
+                           host_caps=host_caps, env=profile.params(),
                            policy=self.policy)
 
     def lat(self) -> float:
@@ -305,8 +317,9 @@ def _grid_results(case: GridCase, out: dict, sizes: Sequence[float],
     return results
 
 
-def run_grid(system: SystemPreset, n_nodes: int,
-             victim_coll: str, aggr_coll: str, sizes: Sequence[float],
+def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
+             n_nodes: int, victim_coll: str, aggr_coll: str,
+             sizes: Sequence[float],
              profiles: Sequence[cong.Profile], *, n_iters: int = 60,
              warmup: int = 10, dt: Optional[float] = None,
              max_steps: int = 200_000, chunk: int = 2048,
@@ -317,12 +330,15 @@ def run_grid(system: SystemPreset, n_nodes: int,
     batched run: a per-size baseline (aggressors/background jobs off)
     plus one congested cell per profile, sharing one geometry.
 
-    A list of ``(system, n_nodes)`` cells (the scale-batched engine of the
-    reference) is not ported yet and raises."""
+    ``system`` may also be a list of ``(system, n_nodes)`` cells:
+    heterogeneous topologies and scales, run through
+    :func:`run_scale_grid` (``n_nodes`` is then ignored)."""
     if not isinstance(system, SystemPreset):
-        raise NotImplementedError(
-            "scale-batched cell lists (run_scale_grid) are not ported yet "
-            "(ROADMAP Queue 1: hetero/bucketed run_scale_grid)")
+        return run_scale_grid(system, victim_coll, aggr_coll, sizes,
+                              profiles, n_iters=n_iters, warmup=warmup,
+                              dt=dt, max_steps=max_steps, chunk=chunk,
+                              trace_stride=trace_stride, phased=phased,
+                              jobs=jobs, device=device, core=core)
     device = resolve_device(device)
     check_iter_budget(n_iters)
     case = build_case(system, n_nodes, victim_coll, aggr_coll,
@@ -338,6 +354,130 @@ def run_grid(system: SystemPreset, n_nodes: int,
                     device=device, core=core)
     return _grid_results(case, out, sizes, profiles, dts, n_iters=n_iters,
                          warmup=warmup, chunk=chunk, stride=trace_stride)
+
+
+# --------------------------------------------------------------------------
+# Scale-batched grids: heterogeneous (system, n_nodes) cells in one batch
+# --------------------------------------------------------------------------
+
+# a system preset (or its name) and an allocation size
+ScaleCell = Tuple[Union[str, SystemPreset], int]
+
+
+def _round_pow2(x: int) -> int:
+    """The reference's bucket-size policy: a dim rounded up to a power of
+    two (there, so different cell sets share XLA compiles)."""
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def bucket_stack(geoms: Sequence[FabricGeometry]):
+    """Pad geometries to one bucket and stack them for
+    simulator.run_cells_hetero; returns ``(dims, stacked)``.
+
+    The port pads to the elementwise maximum of the members' dims, not to
+    powers of two (:func:`_round_pow2`) as the reference does: the
+    rounding only lets XLA reuse a compile, and PyTorch compiles nothing,
+    while it would nearly double the links of Fig. 8's alltoall bucket
+    (LUMI at 256 nodes: 34,300 to 65,537) and with them every step's
+    work.
+
+    Where some member has fewer flows than the bucket, the bucket has one
+    source more than any member: pad flows take source ``n_src - 1``
+    (:func:`pad_geometry`), and kernel 1 sets a source's summation order
+    by how many flows it has (a fold past ``SERIAL_MAX`` is a warp's), so
+    a pad flow must not join a real source, even with 0 bytes."""
+    dims = bucket_dims(geoms)
+    if any(g.n_flows < dims.n_flows for g in geoms):
+        dims = dataclasses.replace(dims, n_src=dims.n_src + 1)
+    return dims, stack_geometries([pad_geometry(g, dims) for g in geoms])
+
+
+@dataclasses.dataclass
+class PendingGrid:
+    """A dispatched scale grid: :meth:`results` marshals its outputs into
+    BenchResults, cells major, then sizes, then baseline/profiles."""
+
+    cases: List[GridCase]
+    out: dict  # run_cells_hetero's outputs, leading axes (cell, sub-cell)
+    sizes: tuple
+    profiles: tuple
+    all_dts: List[List[float]]
+    n_iters: int
+    warmup: int
+    chunk: int
+    stride: int
+
+    def results(self) -> List[BenchResult]:
+        return [r for k, case in enumerate(self.cases)
+                for r in _grid_results(case, {n: v[k] for n, v in
+                                              self.out.items()},
+                                       self.sizes, self.profiles,
+                                       self.all_dts[k],
+                                       n_iters=self.n_iters,
+                                       warmup=self.warmup, chunk=self.chunk,
+                                       stride=self.stride)]
+
+
+def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
+                      aggr_coll: str, sizes: Sequence[float],
+                      profiles: Sequence[cong.Profile], *, n_iters: int = 60,
+                      warmup: int = 10, dt: Optional[float] = None,
+                      max_steps: int = 200_000, chunk: int = 2048,
+                      trace_stride: int = 8, phased: bool = False,
+                      jobs: Optional[Sequence[traffic.JobSpec]] = None,
+                      device=None,
+                      core: Optional[str] = None) -> PendingGrid:
+    """Build a cross-scale grid, pad its geometries into one bucket
+    (:func:`bucket_stack`) and run every (cell x size x baseline/profile)
+    sub-cell as one batch; returns the :class:`PendingGrid`. The port's
+    engine runs to the end before it returns (one card, no dispatcher to
+    overlap)."""
+    device = resolve_device(device)
+    check_iter_budget(n_iters)
+    cases = [build_case(get_system(s) if isinstance(s, str) else s, int(n),
+                        victim_coll, aggr_coll, phased=phased, jobs=jobs)
+             for s, n in cells]
+    sizes, profiles = tuple(sizes), tuple(profiles)
+    if not cases:
+        return PendingGrid([], {}, sizes, profiles, [], n_iters, warmup,
+                           chunk, trace_stride)
+    dims, stacked = bucket_stack([case.geom for case in cases])
+    all_dts = [_cell_dts(case, sizes, len(profiles), dt, case.lat())
+               for case in cases]
+    sub_cells = [(float(v), prof) for v in sizes
+                 for prof in [cong.no_congestion(), *profiles]]
+    params = stack_params([
+        stack_params([case.cell_params(v, prof, d, n_flows=dims.n_flows)
+                      for (v, prof), d in zip(sub_cells, all_dts[k])])
+        for k, case in enumerate(cases)])
+    out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
+                           max_chunks=-(-max_steps // chunk),
+                           stride=trace_stride, device=device, core=core)
+    return PendingGrid(cases, out, sizes, profiles, all_dts, n_iters,
+                       warmup, chunk, trace_stride)
+
+
+def run_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
+                   aggr_coll: str, sizes: Sequence[float],
+                   profiles: Sequence[cong.Profile], *, n_iters: int = 60,
+                   warmup: int = 10, dt: Optional[float] = None,
+                   max_steps: int = 200_000, chunk: int = 2048,
+                   trace_stride: int = 8, phased: bool = False,
+                   jobs: Optional[Sequence[traffic.JobSpec]] = None,
+                   device=None,
+                   core: Optional[str] = None) -> List[BenchResult]:
+    """A whole cross-scale experiment, heterogeneous ``(system,
+    n_nodes)`` cells x (vector size x profile), in one batched run over
+    one geometry bucket. Padding is inert (simulator.pad_geometry): a
+    padded cell runs bit for bit as it runs alone. Results come back in
+    input order: cells major, then sizes, then baseline/profiles (a
+    per-cell :func:`run_grid` concatenation)."""
+    return launch_scale_grid(cells, victim_coll, aggr_coll, sizes, profiles,
+                             n_iters=n_iters, warmup=warmup, dt=dt,
+                             max_steps=max_steps, chunk=chunk,
+                             trace_stride=trace_stride, phased=phased,
+                             jobs=jobs, device=device,
+                             core=core).results()
 
 
 def run_point(system: SystemPreset, n_nodes: int, victim_coll: str,

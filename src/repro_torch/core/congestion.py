@@ -42,11 +42,20 @@ def build_program_flowset(topo: Topology, jobs: Sequence[traffic.JobSpec],
                           routing_mode: str = "deterministic",
                           k_max: int = 4, seed: int = 0,
                           validate: bool = True,
+                          pad_to: Tuple[int, int, int] = None,
                           policy_tables: bool = False) -> FlowSet:
     """Compile a multi-job traffic program and bind it to a topology:
     per-flow paths, NIC caps, and the packed phase tables the simulator
-    executes."""
+    executes. ``pad_to=(n_flows, n_jobs, n_phases)`` pads the program to
+    bucket dims (traffic.pad_program; inert 0-byte rows of an
+    envelope-gated pad job); validation runs on the real prefix either
+    way."""
     prog = traffic.compile_programs(jobs, validate=validate)
+    if pad_to is not None:
+        prog = traffic.pad_program(prog, n_flows=pad_to[0],
+                                   n_jobs=pad_to[1], n_phases=pad_to[2])
+        if validate:
+            traffic.check_program(prog)  # still exact on the valid prefix
     return bind_program(topo, prog, routing_mode=routing_mode, k_max=k_max,
                         seed=seed, policy_tables=policy_tables)
 

@@ -14,8 +14,9 @@ a congestion-control model (cc.py) and a routing policy. Each step:
      and program-completion bookkeeping.
 
 Two structures carry a run: :class:`FabricGeometry` (static structure of
-one experiment, shared by every cell of a sweep) and :class:`SimParams`
-(everything a sweep varies, with a leading cell axis on every field).
+one experiment, shared by every cell of a sweep, or one row a cell in the
+scale-batched engine) and :class:`SimParams` (everything a sweep varies,
+with a leading cell axis on every field).
 Where the JAX reference switches on per-cell data (routing policy, CC
 kind) under ``vmap``, this port evaluates the branches that occur in the
 batch and selects with ``torch.where``. Every float is float32, the sim
@@ -28,7 +29,7 @@ state and chunk count stop) while the others run on.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from repro_torch.core.fabric.routing import (POLICY_ADAPTIVE, POLICY_ECMP,
                                              POLICY_FIXED, POLICY_FLOWLET,
                                              POLICY_NSLB)
 from repro_torch.core.fabric.topology import Topology
+from repro_torch.core.traffic import pad_rows
 from repro_torch.kernels import ops as kernel_ops
 
 # Fixed iteration-time buffer; completed iterations beyond it fold into
@@ -163,8 +165,10 @@ GEOMETRY_FIELDS = {
 class FabricGeometry:
     """Link capacities, switch adjacency, packed flow paths and the
     traffic-program tables, as tensors on one device. Shared by every
-    cell of a batched run. ``from_numpy`` builds one from the JAX
-    package's field arrays."""
+    cell of a batched run, or, with a leading axis on every tensor field
+    (:func:`stack_geometries`, :meth:`take`), one row a geometry or a cell
+    (``per_cell``). ``from_numpy`` builds one from the JAX package's field
+    arrays."""
 
     caps_pad: torch.Tensor  # (L+1,) with inf sink
     caps_finite: torch.Tensor  # (L+1,) with 1.0 sink
@@ -193,27 +197,38 @@ class FabricGeometry:
 
     def __post_init__(self):
         # constants the step derives from the geometry alone, computed once
-        F, K, _ = self.paths.shape
+        F, K, H = self.paths.shape[-3:]
         dev = self.paths.device
+        victims = self.is_victim.reshape(-1, F).any(0).nonzero()
         derived = {
             # minimal-path bias of the routing score
             "path_bias": 0.05 * self.path_len
-            / torch.clamp_min(self.path_len[:, :1], 1),
-            "k_valid": torch.arange(K, device=dev)[None, :]
-            < self.n_paths[:, None],
-            "flow_ar": torch.arange(F, device=dev),
+            / torch.clamp_min(self.path_len[..., :1], 1),
+            "k_valid": torch.arange(K, device=dev)
+            < self.n_paths[..., None],
             "job_ar": torch.arange(self.n_jobs, device=dev),
             "wildcard": self.flow_phase < 0,
             "tdone_ar": torch.arange(TDONE_SLOTS, device=dev),
-            "n_victims": torch.clamp_min(self.is_victim.sum(), 1)
-            .to(_F32).reshape(1),
+            "n_victims": torch.clamp_min(self.is_victim.sum(-1), 1)
+            .to(_F32).reshape(-1),
+            # one past the last flow that is a victim in any row: the
+            # victim sums run over [0, victim_end)
+            "victim_end": int(victims.max()) + 1 if len(victims) else 0,
         }
+        # the adaptive score's gather index into a cell's queue row: one
+        # row, or one a cell
+        derived["paths_idx"] = self.paths.reshape(-1, F * K * H).to(_I64)
         for k, v in derived.items():
             object.__setattr__(self, k, v)
 
     @property
+    def per_cell(self) -> bool:
+        """Whether every tensor field has a leading row axis."""
+        return self.paths.dim() == 4
+
+    @property
     def n_flows(self) -> int:
-        return self.is_victim.shape[0]
+        return self.is_victim.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -223,13 +238,23 @@ class FabricGeometry:
         return {"L": self.L, "n_sw": self.n_sw, "n_src": self.n_src,
                 "n_jobs": self.n_jobs, "intra_node": self.intra_node}
 
+    def _map(self, fn) -> "FabricGeometry":
+        return FabricGeometry(
+            **{k: fn(getattr(self, k)) for k in GEOMETRY_FIELDS},
+            **self.meta())
+
     def to(self, device) -> "FabricGeometry":
         device = torch.device(device)
         if device == self.device:
             return self
-        return FabricGeometry(
-            **{k: getattr(self, k).to(device) for k in GEOMETRY_FIELDS},
-            **self.meta())
+        return self._map(lambda x: x.to(device))
+
+    def take(self, idx: torch.Tensor) -> "FabricGeometry":
+        """The rows ``idx`` of a stacked geometry: one row a cell."""
+        if not self.per_cell:
+            raise ValueError("take needs a stacked geometry "
+                             "(stack_geometries)")
+        return self._map(lambda x: x[idx].contiguous())
 
     @classmethod
     def from_numpy(cls, arrays: dict, *, L: int, n_sw: int, n_src: int,
@@ -326,6 +351,132 @@ def make_geometry(topo: Topology, flows: FlowSet, prune: bool = True,
                                      n_jobs=flows.n_jobs,
                                      intra_node=int(bool(intra_node)),
                                      device=device)
+
+
+# --------------------------------------------------------------------------
+# Geometry padding: heterogeneous topologies in one batch
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometryDims:
+    """Bucket shape every member geometry is padded to. Equal dims make
+    geometries stackable (:func:`stack_geometries`); routing policy is
+    per-cell data, so mixed-routing cells share a bucket."""
+
+    n_links: int  # L (sink lives at index n_links)
+    n_flows: int
+    k_max: int
+    max_hops: int
+    n_sw: int
+    n_src: int
+    n_jobs: int
+    n_phases: int
+    # 0/1 flag, not a size: never rounded up by a bucket policy
+    intra_node: int = 0
+
+
+def geometry_dims(geom: FabricGeometry) -> GeometryDims:
+    return GeometryDims(
+        n_links=geom.L, n_flows=geom.n_flows,
+        k_max=int(geom.paths.shape[-2]), max_hops=int(geom.paths.shape[-1]),
+        n_sw=geom.n_sw, n_src=geom.n_src, n_jobs=geom.n_jobs,
+        n_phases=int(geom.phase_gap.shape[-1]),
+        intra_node=int(geom.intra_node))
+
+
+_DIM_FLAG_FIELDS = ("intra_node",)
+
+
+def bucket_dims(geoms: Sequence[FabricGeometry],
+                round_up=None) -> GeometryDims:
+    """Elementwise max over member dims, each optionally rounded up by
+    ``round_up`` (a bucket-size policy); flag fields max without
+    rounding."""
+    dims = [geometry_dims(g) for g in geoms]
+    out = {}
+    for f in dataclasses.fields(GeometryDims):
+        v = max(getattr(d, f.name) for d in dims)
+        if round_up is not None and f.name not in _DIM_FLAG_FIELDS:
+            v = round_up(v)
+        out[f.name] = v
+    return GeometryDims(**out)
+
+
+def pad_geometry(geom: FabricGeometry, dims: GeometryDims) -> FabricGeometry:
+    """Pad one geometry to a bucket shape with inert padding, so a padded
+    cell runs bit for bit as it runs alone (tests/test_torch_scale.py):
+
+    * pad links ([L, n_links)) are referenced by no path, see zero
+      arrival and belong to switch 0 (whose stall is pinned to 1);
+    * pad flows carry a sink-only path, zero path length, source
+      ``n_src - 1`` and ``is_victim == False``; their bytes (SimParams)
+      are 0, which keeps them out of ``alive``, so they inject 0.0;
+    * pad jobs have ``n_phases == 1`` and no member flows;
+    * pad switches and sources are referenced by no link or real flow.
+
+    The old sink (index ``geom.L``) is remapped to the new sink
+    (``dims.n_links``) everywhere in the path table. On the CPU; the
+    result lies where ``geom`` does."""
+    cur = geometry_dims(geom)
+    for f in dataclasses.fields(GeometryDims):
+        if getattr(dims, f.name) < getattr(cur, f.name):
+            raise ValueError(
+                f"pad_geometry: {f.name}={getattr(dims, f.name)} < "
+                f"current {getattr(cur, f.name)}")
+    a = {k: getattr(geom, k).cpu().numpy() for k in GEOMETRY_FIELDS}
+    L_old, L_new = geom.L, dims.n_links
+    F, J = dims.n_flows, dims.n_jobs
+    paths = np.where(a["paths"] >= L_old, L_new, a["paths"]).astype(np.int32)
+    padded = np.full((F, dims.k_max, dims.max_hops), L_new, np.int32)
+    padded[: paths.shape[0], : paths.shape[1], : paths.shape[2]] = paths
+    path_len = np.zeros((F, dims.k_max), np.float32)
+    path_len[: a["path_len"].shape[0], : a["path_len"].shape[1]] = \
+        a["path_len"]
+
+    def links(name, fill, dtype):
+        out = np.full((L_new + 1,), fill, dtype)
+        out[:L_old] = a[name][:L_old]
+        return out
+    phase_gap = np.zeros((J, dims.n_phases), np.float32)
+    phase_gap[: a["phase_gap"].shape[0], : a["phase_gap"].shape[1]] = \
+        a["phase_gap"]
+    arrays = {
+        "caps_pad": links("caps_pad", np.inf, np.float32),
+        "caps_finite": links("caps_finite", 1.0, np.float32),
+        "dst_sw": links("dst_sw", 0, np.int32),
+        "src_sw": links("src_sw", 0, np.int32),
+        # pad links stay GROUP_NONE: no fault event can ever scale them
+        "link_group": links("link_group", 0, np.int32),
+        "link_sw_group": links("link_sw_group", 0, np.int32),
+        "paths": padded, "path_len": path_len,
+        "n_paths": pad_rows(a["n_paths"], F, 1),
+        "spray_choice": pad_rows(a["spray_choice"], F, 0),
+        "is_victim": pad_rows(a["is_victim"], F, False),
+        "fixed_choice": pad_rows(a["fixed_choice"], F, 0),
+        "ecmp_choice": pad_rows(a["ecmp_choice"], F, 0),
+        "nslb_choice": pad_rows(a["nslb_choice"], F, 0),
+        "src_id": pad_rows(a["src_id"], F, dims.n_src - 1),
+        "flow_job": pad_rows(a["flow_job"], F, J - 1),
+        "flow_phase": pad_rows(a["flow_phase"], F, 0),
+        "n_phases": pad_rows(a["n_phases"], J, 1), "phase_gap": phase_gap,
+    }
+    return FabricGeometry.from_numpy(
+        arrays, L=L_new, n_sw=dims.n_sw, n_src=dims.n_src, n_jobs=J,
+        intra_node=dims.intra_node, device=geom.device)
+
+
+def stack_geometries(geoms: Sequence[FabricGeometry]) -> FabricGeometry:
+    """Stack same-shape geometries into one with a leading row axis on
+    every tensor field. All meta fields must agree: pad to a common
+    :class:`GeometryDims` first."""
+    metas = {tuple(g.meta().values()) for g in geoms}
+    if len(metas) != 1:
+        raise ValueError(f"cannot stack geometries with differing meta "
+                         f"fields: {sorted(metas)}")
+    return FabricGeometry(
+        **{k: torch.stack([getattr(g, k) for g in geoms])
+           for k in GEOMETRY_FIELDS}, **geoms[0].meta())
 
 
 # --------------------------------------------------------------------------
@@ -465,7 +616,7 @@ def _base_state(geom: FabricGeometry, p: SimParams) -> dict:
         # traffic-program state: per-job phase counter, remaining compute
         # gap of the current phase, completed program iterations
         "ph": zeros(B, J, dtype=_I64),
-        "gap": geom.phase_gap[:, 0].expand(B, J).clone(),
+        "gap": geom.phase_gap[..., 0].expand(B, J).clone(),
         "it": zeros(B, J, dtype=_I64),
         "t_done": zeros(B, J, TDONE_SLOTS),
         "qd_acc": zeros(B),
@@ -551,6 +702,22 @@ def _cc_update(p: SimParams, c, a, fmark, fstrength, can_dec, consts):
     return c_new, dec
 
 
+def victim_sums(rows: List[torch.Tensor], n: int) -> List[torch.Tensor]:
+    """Each (B, F) row summed over its first ``n`` flows as a pairwise
+    tree over a power of two: ((x0 + x1) + (x2 + x3)) + ..., zeros past
+    ``n``. Elementwise adds round alike on the CPU and the card, and
+    flows appended past ``n`` (a bucket's padding) or zeros there leave
+    every sum's bits as they are, which ``Tensor.sum`` (its order set by
+    the row's length) does not."""
+    x = torch.stack(rows)[..., :n]
+    width = 1 << max(0, n - 1).bit_length()
+    if width != x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return list(x[..., 0])
+
+
 def step(geom: FabricGeometry, p: SimParams, state: dict,
          core: Optional[str] = None):
     """One step of every cell; returns (new_state, victim goodput (B,))."""
@@ -581,14 +748,15 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     if consts is None:
         consts = run_constants(p)
     B = p.dt.shape[0]
-    F, K, H = geom.paths.shape
+    F, K, H = geom.paths.shape[-3:]
     dt = p.dt
     dtc = dt[:, None]
     t = state["t"]
     # aggressor envelope at sim time t, per cell
     env_t = envelope_at(p.env, t, with_random=consts["has_random"])[:, None]
     # phase membership; negative phase id = member of every phase
-    in_phase = (geom.flow_phase == state["ph"][:, geom.flow_job]) \
+    fjob = geom.flow_job.expand(B, F)
+    in_phase = (geom.flow_phase == state["ph"].gather(1, fjob)) \
         | geom.wildcard
     alive = (state["rem"] > 0) & in_phase & (t[:, None]
                                              >= _per_flow(p.flow_start))
@@ -603,7 +771,8 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     rc = state["rc"]
     policies = consts["policies"]
     if POLICY_ADAPTIVE in policies or POLICY_FLOWLET in policies:
-        score = occ[:, geom.paths].amax(dim=3) + geom.path_bias
+        hops = occ.gather(1, geom.paths_idx.expand(B, -1)).view(B, F, K, H)
+        score = hops.amax(dim=3) + geom.path_bias
         score = torch.where(geom.k_valid, score, float("inf"))
         best_score, best = score.min(dim=2)
 
@@ -625,7 +794,8 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     rc_new = rc if POLICY_FLOWLET not in policies else \
         torch.where(pol == POLICY_FLOWLET, flowlet, rc)
     idle_new = torch.where(active, 0.0, state["idle"] + dtc)
-    plinks = geom.paths[geom.flow_ar, choice]  # (B, F, H) int32
+    plinks = geom.paths.expand(B, F, K, H).gather(
+        2, choice[:, :, None, None].expand(B, F, 1, H))[:, :, 0]  # int32
     valid = plinks < geom.L
     pl_flat = plinks.reshape(B, F * H).to(_I64)
 
@@ -673,17 +843,18 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     # per-job barrier: a phase completes when its slowest flow has drained
     pending = (in_phase & (rem > 0)).to(_I32)
     busy = torch.zeros((B, geom.n_jobs), dtype=_I32, device=dt.device) \
-        .scatter_reduce_(1, geom.flow_job.expand(B, F), pending, "amax",
-                         include_self=True) > 0
+        .scatter_reduce_(1, fjob, pending, "amax", include_self=True) > 0
     gap = state["gap"] - dtc * (~busy)
     advance = ~busy & (gap <= 0)
     ph = state["ph"]
     ph_next = torch.where(advance, (ph + 1) % geom.n_phases, ph)
     wrap = advance & (ph + 1 >= geom.n_phases)
-    gap = torch.where(advance, geom.phase_gap[geom.job_ar, ph_next], gap)
+    J, P = geom.phase_gap.shape[-2:]
+    gap = torch.where(advance, geom.phase_gap.expand(B, J, P).gather(
+        2, ph_next[..., None])[..., 0], gap)
     # flows of the newly entered phase reload their byte budget
-    enter = advance[:, geom.flow_job] \
-        & ((geom.flow_phase == ph_next[:, geom.flow_job]) | geom.wildcard)
+    enter = advance.gather(1, fjob) \
+        & ((geom.flow_phase == ph_next.gather(1, fjob)) | geom.wildcard)
     rem = torch.where(enter, p.bytes_per_iter, rem)
     # a job wrapping its last phase completed one program iteration
     it = state["it"]
@@ -698,8 +869,9 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     # queueing delay experienced by victim flows (seconds)
     qdel = torch.where(valid, (q / geom.caps_finite).gather(1, pl_flat)
                        .view(B, F, H), 0.0).amax(dim=2)
-    mean_qdel = (qdel * geom.is_victim).sum(1) / geom.n_victims
-    vict_goodput = (a * geom.is_victim).sum(1)
+    mean_qdel, vict_goodput = victim_sums(
+        [qdel * geom.is_victim, a * geom.is_victim], geom.victim_end)
+    mean_qdel = mean_qdel / geom.n_victims
 
     new_state = {"c": c, "rem": rem, "q": q, "arr": out["arrival"],
                  "thresh": thresh, "last_dec": last_dec,
@@ -731,8 +903,8 @@ def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
 
     Before every chunk one device sync reads which cells still run
     (``it[:, 0] < n_iters``); finished cells are frozen, so their state
-    and chunk count stop where they were, and only the running cells are
-    stepped."""
+    and chunk count stop where they were, and only the running cells (and,
+    for a geometry with one row a cell, their rows) are stepped."""
     assert chunk % stride == 0, (chunk, stride)
     trace_chunk = chunk // stride
     B = p.dt.shape[0]
@@ -750,10 +922,11 @@ def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
         whole = bool(running.all())
         sub = state if whole else {n: v[idx] for n, v in state.items()}
         sp = p if whole else p.take(idx)
+        sg = geom if whole or not geom.per_cell else geom.take(idx)
         consts = run_constants(sp)
         gps = []
         for s in range(chunk):
-            sub, gp = _step_impl(geom, sp, sub, with_aux=False, core=core,
+            sub, gp = _step_impl(sg, sp, sub, with_aux=False, core=core,
                                  consts=consts)
             if s % stride == 0:
                 gps.append(gp)
@@ -784,6 +957,30 @@ def run_cells(geom: FabricGeometry, params: SimParams, n_iters: int,
     device = resolve_device(device)
     return _run_cell(geom.to(device), params.to(device), int(n_iters),
                      chunk, max_chunks, stride, core, with_trace)
+
+
+def run_cells_hetero(geoms: FabricGeometry, params: SimParams,
+                     n_iters: int, *, chunk: int = 2048,
+                     max_chunks: int = 98, stride: int = 8, device=None,
+                     core: Optional[str] = None,
+                     with_trace: bool = True) -> dict:
+    """Scale-batched engine: ``geoms`` is a stack of bucket-padded
+    geometries (leading axis G, :func:`stack_geometries`) and ``params``
+    carries two leading axes, (G, S): S sub-cells on each geometry. All
+    G x S cells run as one batch, one launch of each kernel a step, each
+    cell on its own geometry row. Returns numpy arrays with both leading
+    axes."""
+    G, S = params.dt.shape[:2]
+    if not geoms.per_cell or geoms.paths.shape[0] != G:
+        raise ValueError(f"params of {G} geometries x {S} sub-cells need "
+                         f"a stack of {G} geometries")
+    device = resolve_device(device)
+    flat = params._map(lambda x: x.reshape(G * S, *x.shape[2:]))
+    rows = torch.arange(G, device=device).repeat_interleave(S)
+    out = _run_cell(geoms.to(device).take(rows), flat.to(device),
+                    int(n_iters), chunk, max_chunks, stride, core,
+                    with_trace)
+    return {k: v.reshape(G, S, *v.shape[1:]) for k, v in out.items()}
 
 
 def run_cell(geom: FabricGeometry, p: SimParams, n_iters: int, **kw) -> dict:

@@ -2,11 +2,12 @@
 
 A :class:`Scenario` is a list of :class:`Grid` specs (each one
 ``bench.run_grid`` call: one flow set, every size x profile x
-baseline/congested cell batched) or a tuple of ``points`` that a benchmark
-script interprets. The port registers the paper's figures so far: Fig. 1
-(ring AllReduce breakdown), Fig. 3 (self-congestion sawtooth), Fig. 4 (NSLB
-on/off), Fig. 5 (steady congestion at scale) and Fig. 6 (bursty
-congestion).
+baseline/congested cell batched; or, with ``cells``, one scale-batched
+``bench.run_scale_grid`` call) or a tuple of ``points`` that a benchmark
+script interprets. The port registers the paper's figures: Fig. 1 (ring
+AllReduce breakdown), Fig. 3 (self-congestion sawtooth), Fig. 4 (NSLB
+on/off), Fig. 5 (steady congestion at scale), Fig. 6 (bursty congestion)
+and Figs. 7-8 (bursty congestion at larger scale).
 """
 from __future__ import annotations
 
@@ -26,8 +27,10 @@ MiB = 2 ** 20
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """One flow-program's worth of cells: sizes x profiles (plus the
-    implied per-size baselines), batched by bench.run_grid.
-    ``cells`` (a scale-batched cell list) is not ported yet."""
+    implied per-size baselines), batched by bench.run_grid. ``cells``, a
+    tuple of ``(system, n_nodes)`` pairs, makes the grid scale-batched
+    (bench.run_scale_grid: geometries padded into one bucket);
+    ``system``/``n_nodes`` are then a label and 0."""
 
     system: str
     n_nodes: int
@@ -66,12 +69,10 @@ def get(name: str, quick: bool = False) -> Scenario:
 
 def run_grid_spec(scenario: Scenario, grid: Grid, *, device=None,
                   core=None) -> List[bench.BenchResult]:
-    if grid.cells:
-        raise NotImplementedError(
-            "scale-batched grids are not ported yet (ROADMAP Queue 1: "
-            "hetero/bucketed run_scale_grid)")
+    system = list(grid.cells) if grid.cells \
+        else systems.get_system(grid.system)
     return bench.run_grid(
-        systems.get_system(grid.system), grid.n_nodes, grid.victim,
+        system, grid.n_nodes, grid.victim,
         grid.aggressor, grid.sizes, grid.profiles,
         n_iters=scenario.n_iters, warmup=scenario.warmup,
         phased=grid.phased, jobs=list(grid.jobs) or None, device=device,
@@ -143,6 +144,28 @@ def fig6_bursty(quick: bool = False) -> Scenario:
         "Paper Fig. 6 / Obs. 3: bursty congestion at 64 nodes — "
         "(burst x pause) duty-cycle heatmaps per system x aggressor x size.",
         grids)
+
+
+@register
+def fig7_fig8_scale(quick: bool = False) -> Scenario:
+    """The (system x n_nodes) ladder in one run_scale_grid call per
+    aggressor (quick: 2 scales x 2 systems, incast only: the Fig. 7
+    claim that a wider congestion tree collapses less)."""
+    cells = (("cresco8", 64), ("cresco8", 128),
+             ("lumi", 64), ("lumi", 128)) if quick else \
+        (("cresco8", 64), ("cresco8", 128), ("lumi", 256))
+    sizes = (2 * MiB,) if quick else (32 * KiB, 2 * MiB)
+    bursts = (2.0,) if quick else BURSTS_MS
+    pauses = (0.2, 8.0) if quick else PAUSES_MS
+    aggrs = ("incast",) if quick else FIG5_AGGRESSORS
+    grids = tuple(Grid("scale", 0, a, sizes, _bursty_grid(bursts, pauses),
+                       cells=cells)
+                  for a in aggrs)
+    return Scenario(
+        "fig7_fig8_scale",
+        "Paper Figs. 7-8: bursty congestion at larger scale (CRESCO8 "
+        "64/128 nodes, LUMI 256 nodes), scale-batched.",
+        grids, n_iters=12 if quick else 20, warmup=3 if quick else 4)
 
 
 # --------------------------------------------------------------------------

@@ -334,6 +334,57 @@ def check_program(prog: TrafficProgram) -> None:
                 f"{want_steps} model steps")
 
 
+# --------------------------------------------------------------------------
+# Padding to bucket dims (the scale-batched engine)
+# --------------------------------------------------------------------------
+
+# Name of the synthetic job that owns padding flow rows. It is
+# envelope-gated (so pad flows are never victims) and its flows carry 0
+# bytes (so they are never ``alive`` in the simulator).
+PAD_JOB_NAME = "_pad"
+
+
+def pad_rows(x: np.ndarray, n: int, fill) -> np.ndarray:
+    """Pad axis 0 of ``x`` to length ``n`` with ``fill``, keeping dtype:
+    the one padding idiom of program tables, geometry fields and per-flow
+    parameters."""
+    out = np.full((n,) + x.shape[1:], fill, x.dtype)
+    out[: len(x)] = x
+    return out
+
+
+def pad_program(prog: TrafficProgram, *, n_flows: int, n_jobs: int,
+                n_phases: int) -> TrafficProgram:
+    """Pad a program's flat arrays and job tables to bucket dims.
+
+    Padding flows are (0 -> 0, 0 bytes) rows owned by a synthetic
+    :data:`PAD_JOB_NAME` job at index ``n_jobs - 1``; padding jobs run an
+    empty single-phase program. :func:`check_program` stays exact on the
+    valid prefix: it iterates ``prog.jobs`` only and masks flows by owning
+    job."""
+    F, J, P = prog.n_flows, len(prog.n_phases), int(prog.phase_gap.shape[1])
+    if n_flows < F or n_jobs < J or n_phases < P:
+        raise ValueError(f"pad_program: target ({n_flows}, {n_jobs}, "
+                         f"{n_phases}) smaller than ({F}, {J}, {P})")
+    if n_flows > F and n_jobs == J:
+        raise ValueError("padding flows need a padding job to own them: "
+                         "grow n_jobs alongside n_flows")
+    pad_j = n_jobs - 1  # all pad flows attach to the last pad job
+    phase_gap = np.zeros((n_jobs, n_phases), np.float32)
+    phase_gap[:J, :P] = prog.phase_gap
+    return TrafficProgram(
+        jobs=prog.jobs,  # real jobs only: check_program sees the prefix
+        src=pad_rows(prog.src, n_flows, 0),
+        dst=pad_rows(prog.dst, n_flows, 0),
+        bytes_per_phase=pad_rows(prog.bytes_per_phase, n_flows, 0.0),
+        flow_job=pad_rows(prog.flow_job, n_flows, pad_j),
+        flow_phase=pad_rows(prog.flow_phase, n_flows, 0),
+        n_phases=pad_rows(prog.n_phases, n_jobs, 1),
+        phase_gap=phase_gap,
+        env_gated=pad_rows(prog.env_gated, n_jobs, True),
+        sweep_mask=pad_rows(prog.sweep_mask, n_flows, False))
+
+
 def split_nodes(nodes: Sequence[int],
                 jobs: Sequence[JobSpec]) -> List[JobSpec]:
     """Interleave an allocation among jobs missing a node set (paper

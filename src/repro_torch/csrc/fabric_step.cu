@@ -14,23 +14,38 @@
 // dependent phases on one SM (each a few shared-memory round trips, an
 // IEEE divide or a barrier), so the design keeps that chain short.
 //
-// Layout. One cell runs on a cluster of C blocks of T threads; C and T
-// depend on the cell's shapes (F, H, L+1, n_src, n_sw) alone, never on
-// the batch (kernels/fabric_step.py::launch_config): C = 1 up to 2048
-// flows, and more only where a block's rows would not fit. Block `rank`
-// owns the flows [rank*nf, (rank+1)*nf), the links [rank*nl, ...), the
-// sources [rank*ns, ...) and the switches [rank*nw, ...) (nf = ceil(F/C),
-// and so on); the other blocks reach its rows through distributed shared
-// memory, with barrier.cluster between phases.
+// Layout. One cell runs on a cluster of C blocks of T threads; C, T and
+// the layout depend on the cell's shapes (F, H, L+1, n_src, n_sw) alone,
+// never on the batch (kernels/fabric_step.py::launch_config): C = 1 up to
+// 2048 flows, and more only where a block's rows would not fit. Block
+// `rank` owns the flows [rank*nf, (rank+1)*nf), the links [rank*nl, ...),
+// the sources [rank*ns, ...) and the switches [rank*nw, ...) (nf = F on
+// one block and FLOWS_PER_BLOCK on a cluster, so flow i is block
+// i / 2048's whatever the cluster, and flows appended to a cell (a
+// bucket's padding) never move a real flow to another block; nl =
+// ceil((L+1)/C), and so on); the other blocks reach its rows through
+// distributed shared memory, with barrier.cluster between phases.
+//
+// Wide layout. Where a block's rows do not fit 227 KB of shared memory
+// (an alltoall over 128 or more LUMI nodes: L+1 up to 34,300 links and
+// 2048 flows x 7 hops a block), the launch moves rows to a global-memory
+// workspace, one stretch a block, which the wrapper allocates: a row's
+// offset at or past Layout::total is a word of that stretch. Only where
+// a row lives changes; every operation and its order stay, so a cell
+// gives the same bits in either layout. A peer reaches a workspace row at
+// its own stretch's offset; barrier.cluster (arrive.release,
+// wait.acquire) orders those accesses across the cluster as it orders
+// distributed shared memory, and __syncthreads within a block.
 //
 // 1. Prologue: every operand row is copied into shared memory at once
 //    (cp.async), the path table hop-major.
 // 2. Grouping, in an order fixed by the cell's operands alone:
-//    * flows by source and links by switch (switch 0, whose stall is
-//      pinned to 1, left out) in one counting sort: integer counts, one
-//      block scan, placement by integer atomics; a bucket's order is
-//      restored by index where it is summed (a sorting network in
-//      registers, or a warp that ranks each item);
+//    * the block's flows by source, and every link of the cell whose
+//      switch the block owns by switch (switch 0, whose stall is pinned
+//      to 1, left out), in one counting sort: integer counts, one block
+//      scan, placement by integer atomics; a bucket's order is restored
+//      by index where it is summed (a sorting network in registers, or a
+//      warp that ranks each item);
 //    * each hop's flows by link: a stable LSD radix sort of the F*H hop
 //      items (h*(L+1) + link, flow), 8 bits a pass (counts by shared
 //      atomics, ranks in a tile by eight ballots), padded hops left out;
@@ -42,12 +57,17 @@
 //      ((0 + v0) + v1) + ...;
 //    * a longer part is one warp's: lane j folds v_j, v_{j+32}, ... from
 //      0, then a butterfly p += shfl_xor(p, o) for o = 16, 8, 4, 2, 1;
-//    * with C > 1 the blocks' parts are added in rank order: src_load and
-//      the switch sums over every rank, a rank without a part adding 0,
-//      ((P_0 + P_1) + ...) + P_{C-1}; a hop's link loads and served rates
-//      over the ranks that contributed, starting from the first.
-//    The switch's sat is a max (maximum from 0, order-free). No float
-//    atomics: integer atomics only count, place, mark and list.
+//    * with C > 1 the blocks' parts are added in rank order: src_load over
+//      every rank, a rank without a part adding 0, ((P_0 + P_1) + ...) +
+//      P_{C-1}; a hop's link loads and served rates over the ranks that
+//      contributed, starting from the first.
+//    A switch's sums are one part, whatever C: its owner folds all its
+//    links (reading q and occ of another block's links from the
+//    operands), so they do not depend on how the links are split, and a
+//    cell padded into a larger bucket (more links, a larger cluster)
+//    sums them as it does alone. The switch's sat is a max (maximum from
+//    0, order-free). No float atomics: integer atomics only count, place,
+//    mark and list.
 // 4. Hops, each on the links it touches: with C = 1 one thread (or warp)
 //    a segment sums the load, adds it to arrival and takes the
 //    over-subscription divide; after a barrier each flow divides its rate
@@ -80,6 +100,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int SERIAL_MAX = 8;  // longest segment part one thread sums
+constexpr int FLOWS_PER_BLOCK = 2048;  // flows a block of a cluster owns
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ERR_SHAPE = -2;  // items or keys do not fit the encoding
 
@@ -119,7 +140,7 @@ __host__ __device__ inline Shape make_shape(int F, int H, int L1, int n_src,
   s.n_sw = n_sw;
   s.C = C;
   s.with_aux = with_aux;
-  s.nf = (F + C - 1) / C;
+  s.nf = C > 1 ? FLOWS_PER_BLOCK : F;
   s.nl = (L1 + C - 1) / C;
   s.ns = (n_src + C - 1) / C;
   s.nw = (n_sw + C - 1) / C;
@@ -135,6 +156,8 @@ __host__ __device__ inline Shape make_shape(int F, int H, int L1, int n_src,
 // these fields in this order. The grouping scratch of the prologue
 // (tmp ... ord) and a cluster's hop tables (part ... list) share one
 // stretch.
+// An offset at or past `total` (the shared words) is a word of the block's
+// workspace stretch, of gtotal - total words.
 struct Layout {
   int ws, small, items, segs, longl, longb, spl;
   int r, hcap, sid;                  // [nf]
@@ -142,9 +165,9 @@ struct Layout {
   int srcp, srcl, swp, stall;        // sources and switches
   int tmp, ssw, boff, scr, ord;      // grouping
   int part, spart, touch, list;      // C > 1: a hop's parts, touched links
-  int total;
+  int total, gtotal;
 };
-constexpr int LAYOUT_WORDS = 30;
+constexpr int LAYOUT_WORDS = 31;
 static_assert(sizeof(Layout) == LAYOUT_WORDS * sizeof(int),
               "Layout is LAYOUT_WORDS ints");
 
@@ -165,6 +188,7 @@ struct Ptrs {
   float* q_new;
   float* caps_eff;
   float* served_max;
+  unsigned* gws;  // the wide layout's workspace: gtotal - total words a block
   long long s_src_id, s_host_caps, s_caps_finite, s_src_sw, s_dst_sw;
 };
 
@@ -348,11 +372,11 @@ __device__ __forceinline__ float warp_sum(int n, V val) {
 
 // hot_q, tot_q and sat of a switch's long part, by one warp: lane j folds
 // its members j, j+32, ... (sums from 0, the max from 0), then a butterfly
-// each.
-template <class V>
-__device__ __forceinline__ void warp_fold3(int n, V link, const float* qr,
-                                           const float* satr, float& hot,
-                                           float& tot, float& mx) {
+// each. qv and satv give a link's queue and sat.
+template <class V, class QV, class SV>
+__device__ __forceinline__ void warp_fold3(int n, V link, QV qv, SV satv,
+                                           float& hot, float& tot,
+                                           float& mx) {
   const int lane = threadIdx.x & 31;
   hot = 0.0f;
   tot = 0.0f;
@@ -360,7 +384,7 @@ __device__ __forceinline__ void warp_fold3(int n, V link, const float* qr,
 #pragma unroll 1
   for (int j = lane; j < n; j += 32) {
     const int i = link(j);
-    const float ql = qr[i], sa = satr[i];
+    const float ql = qv(i), sa = satv(i);
     hot = hot + ql * sa;
     tot = tot + ql;
     mx = maximum(mx, sa);
@@ -408,7 +432,12 @@ __device__ __forceinline__ void sort8(int (&x)[SERIAL_MAX]) {
 }
 
 // The shape and the layout stay in the parameter bank (__grid_constant__):
-// a by-value copy of them took registers and spilled.
+// a by-value copy of them took registers and spilled. WIDE: some rows are
+// in the workspace, so a row pointer is generic; without it every row is
+// in shared memory and its accesses compile to shared loads and stores
+// with 32-bit addresses (generic ones cost the shared layout 15-23% a
+// launch on an H100).
+template <bool WIDE>
 __global__ void __launch_bounds__(512)
     fabric_step_core_kernel(const Ptrs P, const __grid_constant__ Shape S,
                             const __grid_constant__ Layout Y) {
@@ -458,48 +487,70 @@ __global__ void __launch_bounds__(512)
   const float hol_start = P.scalars[b * 5 + 3];
   const float jitter = P.scalars[b * 5 + 4];
 
+  // a row at a layout offset: shared memory below Y.total, else the
+  // block's stretch of the workspace
+  const long long gstride = Y.gtotal - Y.total;
+  unsigned* const gblk = P.gws + static_cast<long long>(blockIdx.x) * gstride;
+  auto word = [&](int off) {
+    if constexpr (WIDE) {
+      return off < Y.total ? smu + off : gblk + (off - Y.total);
+    } else {
+      return smu + off;
+    }
+  };
+  auto rowi = [&](int off) { return reinterpret_cast<int*>(word(off)); };
+  auto rowf = [&](int off) { return reinterpret_cast<float*>(word(off)); };
+  auto shared_row = [&](const void* p) {
+    if constexpr (WIDE) {
+      const unsigned char* c = static_cast<const unsigned char*>(p);
+      return c >= smem_raw && c < smem_raw + 4ll * Y.total;
+    } else {
+      return true;
+    }
+  };
   int* reg_lo = smi + Y.small;  // [R] first segment of each hop
   int* reg_hi = reg_lo + R;     // [R] one past its last
   int* long_lo = reg_hi + R;    // [R] its first long segment in longl
   int* long_hi = long_lo + R;   // [R] one past its last
   int* nlist = long_hi + R;     // [2] touched links listed, by hop parity
   int* nlong = nlist + 2;       // long source and switch buckets
-  unsigned* items = smu + Y.items;
-  int* segs = smi + Y.segs;
-  const int* spl = smi + Y.spl;  // the block's plinks, hop-major [H][nf]
-  int* longl = smi + Y.longl;
-  int* longb = smi + Y.longb;
-  float* r = smf + Y.r;          // inject, then the rate through the hops
-  float* hcap = smf + Y.hcap;    // host_caps, then the NIC-scaled inject
-  int* sid = smi + Y.sid;
-  float* qr = smf + Y.q;
-  float* satr = smf + Y.sat;     // occ, then sat
-  float* ce = smf + Y.ce;        // caps_finite, then caps_eff
-  float* arr = smf + Y.arr;
-  float* ovr = smf + Y.ovr;      // over factor of the hop
-  int* dsw = smi + Y.ovr;        // dst_sw until caps_eff is formed
-  float* smax = smf + Y.smax;
+  unsigned* items = word(Y.items);
+  int* segs = rowi(Y.segs);
+  int* spl = rowi(Y.spl);        // the block's plinks, hop-major [H][nf]
+  int* longl = rowi(Y.longl);
+  int* longb = rowi(Y.longb);
+  float* r = rowf(Y.r);          // inject, then the rate through the hops
+  float* hcap = rowf(Y.hcap);    // host_caps, then the NIC-scaled inject
+  int* sid = rowi(Y.sid);
+  float* qr = rowf(Y.q);
+  float* satr = rowf(Y.sat);     // occ, then sat
+  float* ce = rowf(Y.ce);        // caps_finite, then caps_eff
+  float* arr = rowf(Y.arr);
+  float* ovr = rowf(Y.ovr);      // over factor of the hop
+  int* dsw = rowi(Y.ovr);        // dst_sw until caps_eff is formed
+  float* smax = rowf(Y.smax);
   float* srcp = smf + Y.srcp;    // [C][ns] parts of src_load by rank
   float* srcl = smf + Y.srcl;
-  float* swp = smf + Y.swp;      // [3][C][nw] hot_q, tot_q, sat parts
+  float* swp = smf + Y.swp;      // [3][nw] hot_q, tot_q, sat by switch
   float* stall = smf + Y.stall;
-  int* ssw = smi + Y.ssw;
+  int* ssw = rowi(Y.ssw);        // src_sw of every link
   // buckets: source s is bucket s, switch s bucket n_src + s; a flow's
-  // and a link's index are its items
+  // index and nf + a link's index are its items
   const int NB = S.n_src + S.n_sw;
-  int* boff = smi + Y.boff;      // counts, then bucket bounds
-  int* scr = smi + Y.scr;        // items by bucket, in placement order
-  int* ord = smi + Y.ord;        // a long bucket's items in index order
-  float* part = smf + Y.part;    // [C][nl] a hop's load parts by rank
-  float* spart = smf + Y.spart;  // [C][nl] its served parts
-  unsigned* touch = smu + Y.touch;  // ranks that posted a part, by link
-  int* list = smi + Y.list;      // [2][nl] touched links, by hop parity
+  int* boff = rowi(Y.boff);      // counts, then bucket bounds
+  int* scr = rowi(Y.scr);        // items by bucket, in placement order
+  int* ord = rowi(Y.ord);        // a long bucket's items in index order
+  float* part = rowf(Y.part);    // [C][nl] a hop's load parts by rank
+  float* spart = rowf(Y.spart);  // [C][nl] its served parts
+  unsigned* touch = word(Y.touch);  // ranks that posted a part, by link
+  int* list = rowi(Y.list);      // [2][nl] touched links, by hop parity
 
-  // a row of the block that owns it (this block's own, or its peer's
-  // through distributed shared memory)
+  // a row of the block that owns it: this block's own, its peer's
+  // through distributed shared memory, or its peer's workspace stretch
   auto at = [&](auto* row, int owner) {
-    return (C == 1 || owner == rank) ? row
-                                     : cluster.map_shared_rank(row, owner);
+    if (C == 1 || owner == rank) return row;
+    return shared_row(row) ? cluster.map_shared_rank(row, owner)
+                           : row + (owner - rank) * gstride;
   };
   auto sync_cluster = [&]() {
     if (C > 1) cluster.sync();
@@ -515,33 +566,38 @@ __global__ void __launch_bounds__(512)
   };
 
   // ---- 1. prologue: operands in, tables zeroed, counts and items ----
-  // every operand row the block reads is in flight at once
+  // every operand row the block reads is in flight at once (a workspace
+  // row is a plain copy)
+  auto stage = [&](auto* dst, const auto* src) {
+    if (shared_row(dst)) copy_async(dst, src);
+    else *dst = *src;
+  };
 #pragma unroll 1
   for (int i = tid; i < nf; i += T) {
-    copy_async(r + i, inject + f0 + i);
-    copy_async(hcap + i, host_caps + f0 + i);
-    copy_async(sid + i, src_id + f0 + i);
+    stage(r + i, inject + f0 + i);
+    stage(hcap + i, host_caps + f0 + i);
+    stage(sid + i, src_id + f0 + i);
   }
 #pragma unroll 1
   for (int i = tid; i < nl; i += T) {
-    copy_async(qr + i, q + l0 + i);
-    copy_async(satr + i, occ + l0 + i);
-    copy_async(ce + i, caps_finite + l0 + i);
-    copy_async(dsw + i, dst_sw + l0 + i);
-    copy_async(ssw + i, src_sw + l0 + i);
+    stage(qr + i, q + l0 + i);
+    stage(satr + i, occ + l0 + i);
+    stage(ce + i, caps_finite + l0 + i);
+    stage(dsw + i, dst_sw + l0 + i);
   }
+#pragma unroll 1
+  for (int i = tid; i < L1; i += T) stage(ssw + i, src_sw + i);
   const int* pl = plinks + static_cast<long long>(f0) * H;
   for (int h = 0; h < H; ++h) {
 #pragma unroll 1
-    for (int i = tid; i < nf; i += T)
-      copy_async(smi + Y.spl + h * nf + i, pl + i * H + h);
+    for (int i = tid; i < nf; i += T) stage(spl + h * nf + i, pl + i * H + h);
   }
 #pragma unroll 1
   for (int i = tid; i <= NB; i += T) boff[i] = 0;
 #pragma unroll 1
   for (int i = tid; i < C * S.ns; i += T) srcp[i] = 0.0f;
 #pragma unroll 1
-  for (int i = tid; i < 3 * C * S.nw; i += T) swp[i] = 0.0f;
+  for (int i = tid; i < 3 * S.nw; i += T) swp[i] = 0.0f;
   if (aux) {
 #pragma unroll 1
     for (int i = tid; i < nl; i += T) smax[i] = 0.0f;
@@ -551,11 +607,21 @@ __global__ void __launch_bounds__(512)
   copy_async_wait();
   __syncthreads();
   const float hs_den = 1.0f - hol_start;
+  auto sat_of = [&](float o) {
+    return minimum(maximum((o - hol_start) / hs_den, 0.0f), 1.0f);
+  };
 #pragma unroll 1
-  for (int i = tid; i < nl; i += T) {
-    satr[i] = minimum(maximum((satr[i] - hol_start) / hs_den, 0.0f), 1.0f);
-    if (ssw[i] != 0) atomicAdd(&boff[S.n_src + ssw[i] + 1], 1);  // 0: out
-  }
+  for (int i = tid; i < nl; i += T) satr[i] = sat_of(satr[i]);
+  // fn(l, s) for each link l whose switch s this block owns (switch 0 left
+  // out)
+  auto my_links = [&](auto fn) {
+#pragma unroll 1
+    for (int l = tid; l < L1; l += T) {
+      const int s = ssw[l];
+      if (s != 0 && s >= w0 && s < w0 + nw) fn(l, s);
+    }
+  };
+  my_links([&](int, int s) { atomicAdd(&boff[S.n_src + s + 1], 1); });
 #pragma unroll 1
   for (int i = tid; i < nf; i += T) atomicAdd(&boff[sid[i] + 1], 1);
   for (int h = 0; h < H; ++h) {
@@ -576,10 +642,10 @@ __global__ void __launch_bounds__(512)
   scan_counts(boff + 1, NB, smi + Y.ws);
 #pragma unroll 1
   for (int i = tid; i < nf; i += T) scr[atomicAdd(&boff[sid[i]], 1)] = i;
-#pragma unroll 1
-  for (int i = tid; i < nl; i += T)
-    if (ssw[i] != 0) scr[atomicAdd(&boff[S.n_src + ssw[i]], 1)] = nf + i;
-  const unsigned* srt = radix_sort(items, smu + Y.tmp, N, ib, S.kb,
+  my_links([&](int l, int s) {
+    scr[atomicAdd(&boff[S.n_src + s], 1)] = nf + l;
+  });
+  const unsigned* srt = radix_sort(items, word(Y.tmp), N, ib, S.kb,
                                    smi + Y.ws, smi + Y.ws + 256 * 16);
   auto key_at = [&](int pos) { return srt[pos] >> ib; };
   {
@@ -650,13 +716,16 @@ __global__ void __launch_bounds__(512)
     const int o = C == 1 ? 0 : s / S.ns;
     at(srcp, o)[rank * S.ns + (s - o * S.ns)] = v;
   };
+  // a switch's sums, whole: this block owns the switch
   auto post_sw = [&](int s, float hot, float tot, float mx) {
-    const int o = C == 1 ? 0 : s / S.nw, loc = s - o * S.nw;
-    float* t = at(swp, o);
-    t[(0 * C + rank) * S.nw + loc] = hot;
-    t[(1 * C + rank) * S.nw + loc] = tot;
-    t[(2 * C + rank) * S.nw + loc] = mx;
+    swp[0 * S.nw + s - w0] = hot;
+    swp[1 * S.nw + s - w0] = tot;
+    swp[2 * S.nw + s - w0] = mx;
   };
+  // a link's queue and sat: its own rows with C == 1 (every link is this
+  // block's), else the operands
+  auto q_of = [&](int l) { return C == 1 ? qr[l] : q[l]; };
+  auto s_of = [&](int l) { return C == 1 ? satr[l] : sat_of(occ[l]); };
 #pragma unroll 1
   // bucket k spans [k ? boff[k-1] : 0, boff[k]) of scr; a short one is
   // ordered in registers, a long one by a warp into ord
@@ -678,11 +747,13 @@ __global__ void __launch_bounds__(512)
       post_src(k, fold(n, v));
       continue;
     }
-#pragma unroll
-    for (int j = 0; j < SERIAL_MAX; ++j) fi[j] -= nf;
     float qv[SERIAL_MAX], sv[SERIAL_MAX];
-    gather(qr, n, fi, qv);
-    gather(satr, n, fi, sv);
+#pragma unroll
+    for (int j = 0; j < SERIAL_MAX; ++j)
+      if (j < n) {
+        qv[j] = q_of(fi[j] - nf);
+        sv[j] = s_of(fi[j] - nf);
+      }
     float hot = 0.0f, tot = 0.0f, mx = 0.0f;
 #pragma unroll
     for (int j = 0; j < SERIAL_MAX; ++j)
@@ -711,14 +782,14 @@ __global__ void __launch_bounds__(512)
       if (lane == 0) post_src(k, v);
     } else {
       float hot, tot, mx;
-      warp_fold3(n, [&](int m) { return ord[lo + m] - nf; }, qr, satr, hot,
+      warp_fold3(n, [&](int m) { return ord[lo + m] - nf; }, q_of, s_of, hot,
                  tot, mx);
       if (lane == 0) post_sw(k - S.n_src, hot, tot, mx);
     }
   }
   sync_cluster();
 
-  // ---- owners add the ranks' parts: src_load, the stall per switch ----
+  // ---- owners add the ranks' parts of src_load; the stall per switch ----
 #pragma unroll 1
   for (int i = tid; i < ns; i += T) {
     float v = srcp[i];
@@ -727,14 +798,8 @@ __global__ void __launch_bounds__(512)
   }
 #pragma unroll 1
   for (int i = tid; i < nw; i += T) {
-    float hot = swp[(0 * C) * S.nw + i];
-    float tot = swp[(1 * C) * S.nw + i];
-    float mx = swp[(2 * C) * S.nw + i];
-    for (int c = 1; c < C; ++c) {
-      hot = hot + swp[(0 * C + c) * S.nw + i];
-      tot = tot + swp[(1 * C + c) * S.nw + i];
-      mx = maximum(mx, swp[(2 * C + c) * S.nw + i]);
-    }
+    const float hot = swp[0 * S.nw + i], tot = swp[1 * S.nw + i];
+    const float mx = swp[2 * S.nw + i];
     const float share = hot / maximum(tot, 1.0f);
     const float st = 1.0f - hol_factor * mx * share;
     stall[i] = w0 + i == 0 ? 1.0f : st;  // 0 == host endpoint
@@ -950,15 +1015,18 @@ __global__ void __launch_bounds__(512)
   if (C > 1) cluster.sync();  // peers may still read this block's rows
 }
 
-int g_smem_set = -1;  // dynamic shared memory the kernel is allowed so far
+// dynamic shared memory each instantiation is allowed so far
+int g_smem_set[2] = {-1, -1};
 
 }  // namespace
 
 extern "C" {
 
 // Launches one step core for B cells on `stream`, each on a cluster of
-// `cluster` blocks of `threads` threads, with a block's shared memory laid
-// out by `layout` (LAYOUT_WORDS host ints: Layout's fields in order).
+// `cluster` blocks of `threads` threads, with a block's rows laid out by
+// `layout` (LAYOUT_WORDS host ints: Layout's fields in order) in shared
+// memory and, past layout total, in `workspace` (B * cluster stretches of
+// gtotal - total words; null when there are none).
 // Pointers are device pointers; s_* are batch strides in elements (0 =
 // shared by all cells). Returns the cudaError_t of the attribute call or
 // the launch, or ERR_SHAPE when the wrapper's configuration does not fit
@@ -968,7 +1036,8 @@ int fabric_step_core_launch(
     const void* host_caps, const void* q, const void* occ,
     const void* caps_finite, const void* src_sw, const void* dst_sw,
     const void* scalars, void* inject_out, void* achieved, void* arrival,
-    void* q_new, void* caps_eff, void* served_max, int B, int F, int H,
+    void* q_new, void* caps_eff, void* served_max, void* workspace, int B,
+    int F, int H,
     int L1, int n_src, int n_sw, long long s_src_id, long long s_host_caps,
     long long s_caps_finite, long long s_src_sw, long long s_dst_sw,
     int with_aux, int threads, int cluster, const int* layout,
@@ -977,15 +1046,19 @@ int fabric_step_core_launch(
   Layout y;
   memcpy(&y, layout, sizeof(Layout));
   const int smem_bytes = 4 * y.total;
-  if (s.ib + s.kb > 31 || s.N >= 65536 || threads % 32 || threads < 64 ||
-      threads > 512 || cluster < 1 || cluster > 8)
+  if (F > cluster * s.nf || s.ib + s.kb > 31 || s.N >= 65536 ||
+      threads % 32 || threads < 64 ||
+      threads > 512 || cluster < 1 || cluster > 8 || y.gtotal < y.total ||
+      (y.gtotal > y.total && workspace == nullptr))
     return ERR_SHAPE;
-  if (smem_bytes > g_smem_set) {
+  const bool wide = y.gtotal > y.total;
+  void (*kernel)(Ptrs, Shape, Layout) = wide
+      ? fabric_step_core_kernel<true> : fabric_step_core_kernel<false>;
+  if (smem_bytes > g_smem_set[wide]) {
     cudaError_t e = cudaFuncSetAttribute(
-        fabric_step_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    g_smem_set = smem_bytes;
+    g_smem_set[wide] = smem_bytes;
   }
   const Ptrs p = {
       static_cast<const int*>(plinks), static_cast<const float*>(inject),
@@ -996,8 +1069,8 @@ int fabric_step_core_launch(
       static_cast<const float*>(scalars), static_cast<float*>(inject_out),
       static_cast<float*>(achieved), static_cast<float*>(arrival),
       static_cast<float*>(q_new), static_cast<float*>(caps_eff),
-      static_cast<float*>(served_max), s_src_id, s_host_caps, s_caps_finite,
-      s_src_sw, s_dst_sw};
+      static_cast<float*>(served_max), static_cast<unsigned*>(workspace),
+      s_src_id, s_host_caps, s_caps_finite, s_src_sw, s_dst_sw};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * cluster);
   cfg.blockDim = dim3(threads);
@@ -1010,7 +1083,7 @@ int fabric_step_core_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, fabric_step_core_kernel, p, s, y);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, s, y);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

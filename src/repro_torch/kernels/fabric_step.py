@@ -9,10 +9,13 @@ current stream. It replaces the TPU kernel
 wrapper has the same signature and return dict.
 
 The kernel runs each cell on a cluster of blocks whose size, like the
-block's thread count, :func:`launch_config` picks from the cell's shapes
-alone, so the order of every segment sum (the source's header note) does
-not depend on the batch. The wrapper only takes CUDA tensors and never
-falls back: a shape, type or shared-memory size the kernel does not take
+block's thread count and its layout, :func:`launch_config` picks from the
+cell's shapes alone, so the order of every segment sum (the source's
+header note) does not depend on the batch. A cell whose rows do not fit
+a block's shared memory takes the wide layout: the rows that do not fit
+live in a global-memory workspace, one stretch a block, which the wrapper
+allocates for each launch on the current stream. The wrapper only takes CUDA
+tensors and never falls back: a shape or type the kernel does not take
 raises. ``launches`` counts the kernel launches since import (or since a
 caller reset it).
 """
@@ -40,19 +43,31 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 MAX_THREADS = 512
 SMALL_THREADS = 128
 SMALL_CELL = 1024
-# the most flows a cell may have: a cluster of the largest size, each
-# block holding its flows' hop items in shared memory
+# the most flows a cell may have: a cluster of the largest size of
+# FLOWS_PER_BLOCK flows a block
 MAX_FLOWS = CLUSTER_SIZES[-1] * FLOWS_PER_BLOCK
-# the fields of the source's `Layout`, in order: a block's rows in dynamic
-# shared memory, then the total (word offsets; the launch passes them)
+# the fields of the source's `Layout`, in order: a block's rows, then the
+# words of shared memory and the words of shared memory and workspace
+# together (word offsets; the launch passes them). An offset below
+# `total` is in dynamic shared memory, one at or past it in the block's
+# stretch of the workspace.
 LAYOUT_FIELDS = (
     "ws", "small", "items", "segs", "longl", "longb", "spl", "r", "hcap",
     "sid", "q", "sat", "ce", "arr", "ovr", "smax", "srcp", "srcl", "swp",
     "stall", "tmp", "ssw", "boff", "scr", "ord", "part", "spart", "touch",
-    "list", "total")
-# fabric_step_core_launch: 16 pointers, B F H L1 n_src n_sw, five batch
-# strides, with_aux threads cluster, the layout, the stream
-ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
+    "list", "total", "gtotal")
+# the rows the wide layout moves to the workspace, in this order, until
+# the rest fits: a cluster's hop tables, the grouping scratch, the link
+# rows, then the flow and hop-item rows. The block scans' scratch, the
+# hop bounds and the source and switch rows (small, and read by peers
+# through distributed shared memory) always stay in shared memory.
+WIDE_ROWS = ("part", "spart", "list", "touch", "tmp", "scr", "ord", "boff",
+             "ssw", "q", "sat", "ce", "arr", "ovr", "smax", "spl", "segs",
+             "items", "longl", "longb", "r", "hcap", "sid")
+# fabric_step_core_launch: 17 pointers (the 16 operands and outputs, the
+# workspace), B F H L1 n_src n_sw, five batch strides, with_aux threads
+# cluster, the layout, the stream
+ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 \
     + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3 \
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 
@@ -73,30 +88,14 @@ def _load():
     return _lib
 
 
-def smem_bytes(L1: int, n_src: int, n_sw: int, with_aux: bool) -> int:
-    """Shared memory a cell's rows took in one block before the cluster
-    layout: src_load, hot_q/tot_q/sw_sat, caps_eff/load/arrival (+ served
-    with aux), 4 bytes each. :func:`check_smem` gates shapes on it."""
-    return 4 * (n_src + 3 * n_sw + (4 if with_aux else 3) * L1)
-
-
-def check_smem(L1: int, n_src: int, n_sw: int, with_aux: bool) -> int:
-    """:func:`smem_bytes`, or ValueError above Hopper's 227 KB per block
-    (4096-node LUMI without aux needs about 203 KB): the shapes the kernel
-    takes, as it took them when one block held a cell's rows."""
-    smem = smem_bytes(L1, n_src, n_sw, with_aux)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fabric_step_core needs {smem} bytes of shared memory per "
-            f"block (L+1={L1}, n_src={n_src}, n_sw={n_sw}, aux={with_aux}); "
-            f"Hopper allows {SMEM_LIMIT}")
-    return smem
-
-
 class BlockShape(NamedTuple):
     """What one block of a cell's cluster holds (``make_shape`` in the
     source): flows, links, sources and switches it owns, the hop items it
-    sorts (nf * H), and an item's index and key bits."""
+    sorts (nf * H), and an item's index and key bits. On a cluster a block
+    owns ``FLOWS_PER_BLOCK`` flows whatever F is, so flow i is block
+    i // 2048's in any cluster: flows appended to a cell (a bucket's
+    padding, which adds only exact zeros) leave every real flow's block,
+    and so every part's order, as they are."""
     nf: int
     nl: int
     ns: int
@@ -110,112 +109,158 @@ def block_shape(F: int, H: int, L1: int, n_src: int, n_sw: int,
                 cluster: int) -> BlockShape:
     def per(n):
         return -(-n // cluster)
-    nf, nl = per(F), per(L1)
+    nf, nl = (FLOWS_PER_BLOCK if cluster > 1 else F), per(L1)
     return BlockShape(nf, nl, per(n_src), per(n_sw), nf * H,
                       (nf - 1).bit_length(), (H * L1).bit_length())
 
 
 def smem_layout(F: int, H: int, L1: int, n_src: int, n_sw: int,
-                cluster: int, with_aux: bool) -> tuple:
-    """The word offsets of :data:`LAYOUT_FIELDS`, the last the total: the
-    only description of a block's shared memory (the kernel takes it from
-    the launch). The rows every phase keeps come first; the grouping
-    scratch of the prologue and a cluster's hop tables then share one
-    stretch."""
+                cluster: int, with_aux: bool, workspace=()) -> tuple:
+    """The word offsets of :data:`LAYOUT_FIELDS`: the only description of
+    a block's rows (the kernel takes it from the launch). In shared
+    memory the rows every phase keeps come first; the grouping scratch of
+    the prologue and a cluster's hop tables then share one stretch. The
+    rows named in ``workspace`` are placed one after another past the
+    shared total, in the block's stretch of the workspace."""
     s = block_shape(F, H, L1, n_src, n_sw, cluster)
     N, nf, nl, C = s.n_items, s.nf, s.nl, cluster
     cl = C > 1
     kept = (("ws", 256 * 16 + 40),  # sort counts by digit and warp; scans
             ("small", 4 * (H + 1) + 4), ("items", N), ("segs", N + 1),
             ("longl", N // (SERIAL_MAX + 1) + 1),
-            ("longb", (nf + nl) // (SERIAL_MAX + 1) + 1),
+            ("longb", (nf + L1) // (SERIAL_MAX + 1) + 1),
             ("spl", N),  # the block's path table, hop-major [H][nf]
             ("r", nf), ("hcap", nf), ("sid", nf),
             ("q", nl), ("sat", nl), ("ce", nl), ("arr", nl), ("ovr", nl),
             ("smax", nl if with_aux else 0),
             ("srcp", C * s.ns), ("srcl", s.ns),
-            ("swp", 3 * C * s.nw), ("stall", s.nw))
-    grouping = (("tmp", N), ("ssw", nl), ("boff", n_src + n_sw + 1),
-                ("scr", nf + nl), ("ord", nf + nl))
+            ("swp", 3 * s.nw), ("stall", s.nw))
+    # the block's flows by source and every link of its switches by
+    # switch: up to nf + L1 items
+    grouping = (("tmp", N), ("ssw", L1), ("boff", n_src + n_sw + 1),
+                ("scr", nf + L1), ("ord", nf + L1))
     hops = (("part", C * nl if cl else 0),
             ("spart", C * nl if cl and with_aux else 0),
             ("touch", nl if cl else 0), ("list", 2 * nl if cl else 0))
-    off, o = {}, 0
+    off = {}
 
     def place(rows, o):
         for name, words in rows:
-            off[name] = o
-            o += words
+            if name not in workspace:
+                off[name] = o
+                o += words
         return o
     shared = place(kept, 0)
-    o = max(place(grouping, shared), place(hops, shared))
-    off["total"] = o
+    total = max(place(grouping, shared), place(hops, shared))
+    off["total"] = o = total
+    for name, words in kept + grouping + hops:
+        if name in workspace:
+            off[name] = o
+            o += words
+    off["gtotal"] = o
     return tuple(off[name] for name in LAYOUT_FIELDS)
 
 
 class LaunchConfig(NamedTuple):
-    grid: int      # blocks: B cells x cluster
-    threads: int   # threads a block
-    cluster: int   # blocks a cell
-    smem: int      # dynamic shared memory a block, bytes
-    layout: tuple  # word offsets of LAYOUT_FIELDS (:func:`smem_layout`)
+    grid: int       # blocks: B cells x cluster
+    threads: int    # threads a block
+    cluster: int    # blocks a cell
+    smem: int       # dynamic shared memory a block, bytes
+    layout: tuple   # word offsets of LAYOUT_FIELDS (:func:`smem_layout`)
+    workspace: tuple  # the rows in the workspace (empty: shared layout)
+    ws_bytes: int   # workspace a block, bytes (0: shared layout)
 
 
-def _fits(F, H, L1, n_src, n_sw, cluster, with_aux) -> bool:
+def _encodes(F, H, L1, n_src, n_sw, cluster) -> bool:
+    """A block's hop items fit the kernel's 16-bit counts and 31-bit
+    (key, index) words."""
     s = block_shape(F, H, L1, n_src, n_sw, cluster)
-    return s.n_items < 65536 and s.ib + s.kb <= 31 and 4 * smem_layout(
-        F, H, L1, n_src, n_sw, cluster, with_aux)[-1] <= SMEM_LIMIT
+    return s.n_items < 65536 and s.ib + s.kb <= 31
+
+
+def _words(F, H, L1, n_src, n_sw, cluster, with_aux, workspace=()) -> int:
+    return smem_layout(F, H, L1, n_src, n_sw, cluster, with_aux,
+                       workspace)[LAYOUT_FIELDS.index("total")]
 
 
 @functools.lru_cache(maxsize=None)
-def _cell_config(F, H, L1, n_src, n_sw, with_aux):
-    """(threads, cluster, layout, the layout as a ctypes int array) of a
-    cell of these shapes; cached, so a step pays one lookup."""
-    check_smem(L1, n_src, n_sw, with_aux)
+def _cell_config(F, H, L1, n_src, n_sw, with_aux, wide=None):
+    """(threads, cluster, layout, workspace rows, the layout as a ctypes
+    int array) of a cell of these shapes; cached, so a step pays one
+    lookup. ``wide`` None picks the layout; True moves every row of
+    :data:`WIDE_ROWS` to the workspace at the cluster the shared layout
+    would take (its bits are the shared layout's)."""
     if F > MAX_FLOWS:
         raise ValueError(
             f"fabric_step_core takes at most {MAX_FLOWS} flows a cell (a "
             f"cluster of {CLUSTER_SIZES[-1]} blocks of {FLOWS_PER_BLOCK}), "
             f"got F={F}")
     least = -(-F // FLOWS_PER_BLOCK)
-    sizes = [c for c in CLUSTER_SIZES if c >= least]
-    cluster = next((c for aux in (True, False) for c in sizes
-                    if _fits(F, H, L1, n_src, n_sw, c, aux)), None)
-    if cluster is None or not _fits(F, H, L1, n_src, n_sw, cluster,
-                                     with_aux):
+    sizes = [c for c in CLUSTER_SIZES
+             if c >= least and _encodes(F, H, L1, n_src, n_sw, c)]
+    if not sizes:
         raise ValueError(
-            f"fabric_step_core: no cluster of {CLUSTER_SIZES} holds a cell "
-            f"of F={F}, H={H}, L+1={L1}, n_src={n_src}, n_sw={n_sw} "
-            f"(aux={with_aux}) in {SMEM_LIMIT} bytes a block, with fewer "
-            f"than 65536 hop items a block and item keys of 31 bits")
+            f"fabric_step_core: no cluster of {CLUSTER_SIZES} takes a cell "
+            f"of F={F}, H={H}, L+1={L1} with fewer than 65536 hop items a "
+            f"block and item keys of 31 bits")
+
+    def fits(c, aux, rows=()):
+        return 4 * _words(F, H, L1, n_src, n_sw, c, aux, rows) <= SMEM_LIMIT
+    cluster = next((c for aux in (True, False) for c in sizes
+                    if fits(c, aux)), None)
+    rows = ()
+    if wide:
+        cluster = cluster or sizes[0]
+        rows = WIDE_ROWS
+    elif cluster is None or not fits(cluster, with_aux):
+        # the wide layout, on the cluster the shared one takes without aux
+        # (else the smallest), with the fewest rows moved
+        cluster = cluster or sizes[0]
+        rows = next((WIDE_ROWS[:k] for k in range(1, len(WIDE_ROWS) + 1)
+                     if fits(cluster, with_aux, WIDE_ROWS[:k])), None)
+        if rows is None:
+            raise ValueError(
+                f"fabric_step_core: a cell of F={F}, H={H}, L+1={L1}, "
+                f"n_src={n_src}, n_sw={n_sw} does not fit {SMEM_LIMIT} "
+                f"bytes a block even with its rows in the workspace")
     s = block_shape(F, H, L1, n_src, n_sw, cluster)
     threads = MAX_THREADS if s.n_items + s.nf + s.nl > SMALL_CELL \
         else SMALL_THREADS
-    layout = smem_layout(F, H, L1, n_src, n_sw, cluster, with_aux)
-    return threads, cluster, layout, (ctypes.c_int * len(layout))(*layout)
+    layout = smem_layout(F, H, L1, n_src, n_sw, cluster, with_aux, rows)
+    return (threads, cluster, layout, rows,
+            (ctypes.c_int * len(layout))(*layout))
 
 
 def launch_config(B: int, F: int, H: int, L1: int, n_src: int, n_sw: int,
-                  with_aux: bool = False) -> LaunchConfig:
+                  with_aux: bool = False, wide=None) -> LaunchConfig:
     """The launch of B cells of these shapes. The cluster and the block
     depend on (F, H, L+1, n_src, n_sw) alone, never on B or ``with_aux``,
     so each segment sum runs in the same order in any batch: the smallest
     cluster with at most ``FLOWS_PER_BLOCK`` flows a block whose layout
-    fits with the aux observer (else without it); ``MAX_THREADS`` threads a
-    block, ``SMALL_THREADS`` for a small cell (the phases are
-    latency-bound, and more warps hide more of it where there is work for
-    them).
+    fits shared memory with the aux observer (else without it);
+    ``MAX_THREADS`` threads a block, ``SMALL_THREADS`` for a small cell
+    (the phases are latency-bound, and more warps hide more of it where
+    there is work for them).
 
-    Raises ValueError where :func:`check_smem` does, and also for a cell
-    of more than ``MAX_FLOWS`` = 16,384 flows (an alltoall over more than
-    128 nodes), or one that no cluster of 8 holds: a block's layout over
-    ``SMEM_LIMIT``, 65,536 hop items or more a block, or item keys and
-    indices over 31 bits. The kernel before the redesign kept no flow row
-    in shared memory and took any F."""
-    threads, cluster, layout, _ = _cell_config(F, H, L1, n_src, n_sw,
-                                               bool(with_aux))
-    return LaunchConfig(B * cluster, threads, cluster, 4 * layout[-1],
-                        layout)
+    Where no cluster's shared layout fits, the cell takes the wide
+    layout on the smallest cluster (or, where only the aux observer's
+    rows do not fit, on the cluster it takes without them): the leading
+    rows of
+    :data:`WIDE_ROWS` move to a global-memory workspace until the rest
+    fits (the paper's wide alltoall cells, e.g. LUMI at 128 and 256
+    nodes). Only the memory a row lives in changes, never an operation
+    or its order, so a cell both layouts take gives the same bits in
+    both (``wide=True`` forces the wide layout, for that check).
+
+    Raises ValueError for a cell of more than ``MAX_FLOWS`` = 16,384
+    flows (an alltoall over more than 256 nodes), or one whose hop items
+    no cluster of 8 encodes (65,536 or more a block, or item keys and
+    indices over 31 bits)."""
+    threads, cluster, layout, rows, _ = _cell_config(
+        F, H, L1, n_src, n_sw, bool(with_aux), wide)
+    total, gtotal = layout[-2], layout[-1]
+    return LaunchConfig(B * cluster, threads, cluster, 4 * total, layout,
+                        rows, 4 * (gtotal - total))
 
 
 def _stride(x: torch.Tensor, B: int, n: int, name: str) -> int:
@@ -239,9 +284,9 @@ def pack_scalars(dt, qmax_bytes, hol_factor, hol_start,
 def fabric_step_core(plinks, inject, src_id, host_caps, q, occ, caps_finite,
                      src_sw, dst_sw, dt, qmax_bytes, hol_factor, hol_start,
                      burst_jitter, *, n_src: int, n_sw: int,
-                     with_aux: bool = False, scalars=None):
+                     with_aux: bool = False, scalars=None, wide=None):
     """One launch of the fused step core for all B cells, each on the
-    cluster :func:`launch_config` picks.
+    cluster and layout :func:`launch_config` picks (``wide`` as there).
 
     ``scalars`` is :func:`pack_scalars` of the five scalar arguments; a
     caller that launches many steps with the same parameters packs them
@@ -269,8 +314,8 @@ def fabric_step_core(plinks, inject, src_id, host_caps, q, occ, caps_finite,
                _stride(caps_finite, B, L1, "caps_finite"),
                _stride(src_sw, B, L1, "src_sw"),
                _stride(dst_sw, B, L1, "dst_sw"))
-    threads, cluster, _, c_layout = _cell_config(F, H, L1, n_src, n_sw,
-                                                 bool(with_aux))
+    threads, cluster, layout, _, c_layout = _cell_config(
+        F, H, L1, n_src, n_sw, bool(with_aux), wide)
     if scalars is None:
         scalars = pack_scalars(dt, qmax_bytes, hol_factor, hol_start,
                                burst_jitter)
@@ -288,6 +333,11 @@ def fabric_step_core(plinks, inject, src_id, host_caps, q, occ, caps_finite,
     inject_s, achieved = out(F), out(F)
     arrival, q_new, caps_eff = out(L1), out(L1), out(L1)
     served = out(L1) if with_aux else None
+    # the wide layout's rows: each block's stretch is written before it is
+    # read in the launch, so the buffer needs no clearing
+    ws_words = B * cluster * (layout[-1] - layout[-2])
+    ws = torch.empty(ws_words, dtype=torch.int32, device=dev) \
+        if ws_words else None
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -298,6 +348,7 @@ def fabric_step_core(plinks, inject, src_id, host_caps, q, occ, caps_finite,
             scalars.data_ptr(), inject_s.data_ptr(), achieved.data_ptr(),
             arrival.data_ptr(), q_new.data_ptr(), caps_eff.data_ptr(),
             served.data_ptr() if with_aux else None,
+            ws.data_ptr() if ws_words else None,
             B, F, H, L1, n_src, n_sw, *strides, int(with_aux), threads,
             cluster, c_layout, stream)
     if rc != 0:

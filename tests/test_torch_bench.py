@@ -74,6 +74,10 @@ def test_entry_points_default_to_the_card():
     scen = tscen.get("fig5_steady", True)
     with pytest.raises(RuntimeError, match="CUDA"):
         tscen.run_grid_spec(scen, scen.grids[0])
-    with pytest.raises(NotImplementedError, match="run_scale_grid"):
+    # a cell list runs through the scale-batched engine, on the card too
+    with pytest.raises(RuntimeError, match="CUDA"):
         tbench.run_grid([(sysp, 8)], 0, "alltoall", "alltoall", (1.0,),
-                        (tcong.steady(),), device="cpu")
+                        (tcong.steady(),))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbench.run_scale_grid([("nanjing_ecmp", 8)], "alltoall", "alltoall",
+                              (1.0,), (tcong.steady(),), n_iters=2)

@@ -188,7 +188,8 @@ def test_dispatch_cpu_goes_to_plain_version():
 
 def test_kernel_wrapper_refuses_what_it_cannot_take():
     """The CUDA wrapper raises, never falls back: on CPU tensors, and on a
-    geometry whose rows do not fit in one block's shared memory."""
+    geometry whose hop items no cluster encodes (the rows that do not fit
+    shared memory go to the workspace instead)."""
     F, H, L, n_src, n_sw = FS_SHAPES[0]
     case = _case(np.random.RandomState(1), F, H, L, n_src, n_sw)
     t = lambda k: torch.from_numpy(case[k])  # noqa: E731
@@ -198,13 +199,13 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
             t("caps_finite"), t("src_sw"), t("dst_sw"), *sc)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfs.fabric_step_core(*args, n_src=n_src, n_sw=n_sw)
-    assert tfs.smem_bytes(3908, 255, 704, False) == 4 * (255 + 3 * 704
-                                                         + 3 * 3908)
-    big = tfs.smem_bytes(20000, 4096, 1026, True)
-    assert big > tfs.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        tfs.check_smem(20000, 4096, 1026, True)
-    tfs.check_smem(14560, 4095, 1026, False)  # 4096-node LUMI fits
+    # 2048 flows of 8 hops over 2**21 links: (key, index) over 31 bits on
+    # every cluster
+    with pytest.raises(ValueError, match="31 bits"):
+        tfs.launch_config(1, 2048, 8, 1 << 21, 64, 64)
+    # the rows of a 4096-node LUMI cell go to the workspace, not refused
+    cfg = tfs.launch_config(1, 4095, 8, 20000, 4096, 1026, with_aux=True)
+    assert cfg.workspace and cfg.smem <= tfs.SMEM_LIMIT
 
 
 @pytest.mark.cuda
@@ -310,7 +311,7 @@ def _order_model(c, sc, n_src, n_sw, with_aux, cluster):
     L1 = len(c["q"])
     sink = L1 - 1
     bs = tfs.block_shape(F, H, L1, n_src, n_sw, cluster)
-    frank, lrank = np.arange(F) // bs.nf, np.arange(L1) // bs.nl
+    frank = np.arange(F) // bs.nf
     q, occ, inject = c["q"], c["occ"], c["inject"]
     with np.errstate(all="ignore"):
         src = _parts(c["src_id"], frank, inject, _add)
@@ -318,12 +319,15 @@ def _order_model(c, sc, n_src, n_sw, with_aux, cluster):
                              for s in range(n_src)], f32)
         sat = np.minimum(np.maximum((occ - hs) / (f32(1) - hs), f32(0)),
                          f32(1))
-        on = c["src_sw"] != 0  # switch 0's stall is pinned to 1
-        sums = [_parts(c["src_sw"][on], lrank[on], v[on], op) for v, op in
+        # switch 0's stall is pinned to 1; a switch's sums are one part,
+        # its owner's, whatever the cluster
+        on = c["src_sw"] != 0
+        whole = np.zeros(int(on.sum()), np.int64)
+        sums = [_parts(c["src_sw"][on], whole, v[on], op) for v, op in
                 ((q * sat, _add), (q, _add), (sat, np.maximum))]
         stall = np.ones(n_sw, f32)
         for s in range(1, n_sw):
-            hot, tot, mx = (_every_rank(x.get(s, {}), cluster, op) for x, op
+            hot, tot, mx = (_every_rank(x.get(s, {}), 1, op) for x, op
                             in zip(sums, (_add, _add, np.maximum)))
             stall[s] = f32(1) - hf * mx * f32(hot / np.maximum(tot, f32(1)))
         ce = c["caps_finite"] * stall[c["dst_sw"]]
@@ -372,7 +376,7 @@ def _grid_cells(system, n, victim, aggr, seed):
     rng = np.random.RandomState(seed)
     B, F = p.dt.shape[0], geom.n_flows
     choice = (rng.rand(B, F) * geom.n_paths.numpy()).astype(np.int64)
-    plinks = geom.paths[geom.flow_ar, torch.as_tensor(choice)].numpy()
+    plinks = geom.paths[torch.arange(F), torch.as_tensor(choice)].numpy()
     inject = (p.host_caps * torch.as_tensor(rng.rand(B, F),
                                             dtype=torch.float32)).numpy()
     q = torch.as_tensor(rng.rand(B, geom.L + 1), dtype=torch.float32) \
@@ -447,9 +451,11 @@ def test_order_model_matches_plain_random(shape, with_aux):
 @pytest.mark.parametrize("cluster", [2, 8])
 @pytest.mark.parametrize("with_aux", [False, True])
 def test_order_model_on_a_cluster_matches_plain(cluster, with_aux):
-    """Parts of a cluster's blocks added in rank order, with segments long
-    enough for the warp's butterfly (about 33 flows a link and hop)."""
-    shape = (700, 3, 20, 9, 4)
+    """Parts of a cluster's blocks added in rank order (3000 flows: two
+    blocks of FLOWS_PER_BLOCK hold them, the rest of the cluster none),
+    with segments long enough for the warp's butterfly (about 150 flows a
+    link and hop)."""
+    shape = (3000, 3, 20, 9, 4)
     cells, scalars = _random_cells(shape, 2, 11)
     _hold_model_to_plain(cells, scalars, shape[3], shape[4], with_aux,
                          cluster)
@@ -489,25 +495,30 @@ def test_launch_config_depends_on_shapes_only(label):
 
 
 def test_launch_config_refuses_where_check_smem_refuses():
+    """What the old per-block gate refused (rows over 227 KB: 4096-node
+    LUMI with aux) now runs in the wide layout, on the cluster the cell
+    takes without aux, for any batch; so does 4096-node LUMI without aux
+    (a cluster's blocks group every link of their switches, up to L+1
+    items each, so its rows no longer fit shared memory)."""
     big = dict(F=4095, H=8, L1=20000, n_src=4096, n_sw=1026)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfs.check_smem(big["L1"], big["n_src"], big["n_sw"], True)
+    plain = tfs.launch_config(1, *big.values())
     for B in (1, 64):
-        with pytest.raises(ValueError, match="shared memory"):
-            tfs.launch_config(B, *big.values(), with_aux=True)
-    # 4096-node LUMI without aux passes the gate and fits on a cluster
+        cfg = tfs.launch_config(B, *big.values(), with_aux=True)
+        assert cfg.grid == B * cfg.cluster and cfg.smem <= tfs.SMEM_LIMIT
+        assert cfg.workspace == tfs.WIDE_ROWS[:len(cfg.workspace)]
+        assert cfg.ws_bytes > 0 and cfg.cluster == plain.cluster
     cfg = tfs.launch_config(4, 4095, 8, 14560, 4095, 1026)
     assert cfg.cluster > 1 and cfg.smem <= tfs.SMEM_LIMIT
+    assert cfg.workspace and cfg.ws_bytes > 0
 
 
 @pytest.mark.parametrize("B", [1, 64])
 def test_launch_config_refuses_more_flows_than_a_cluster_holds(B):
     """A cell of more than MAX_FLOWS = 8 x 2048 flows (an alltoall over
-    more than 128 nodes) raises, though check_smem passes its rows; one
-    flow fewer runs on a cluster of eight."""
+    more than 256 nodes) raises, though its rows would fit; 16,384 flows
+    run on a cluster of eight."""
     assert tfs.MAX_FLOWS == 16384
     dims = dict(H=4, L1=897, n_src=129, n_sw=54)
-    tfs.check_smem(dims["L1"], dims["n_src"], dims["n_sw"], True)
     with pytest.raises(ValueError, match="at most 16384 flows"):
         tfs.launch_config(B, 16385, *dims.values())
     assert tfs.launch_config(B, 16384, *dims.values()).cluster == 8
@@ -642,3 +653,202 @@ def test_kernel_zero_capacity_nan_pattern_on_card():
     for k in OUTS:
         g, w = got[k][0].cpu().numpy(), want[k][0].numpy()
         np.testing.assert_array_equal(g, w, err_msg=k)  # NaN where w has
+
+
+# ---- the wide layout: rows in a global-memory workspace ----
+
+# (F, H, L+1, n_src, n_sw) of the paper's cells no cluster's shared layout
+# holds (bench.build_case, victim ring_allgather), and Fig. 8's alltoall
+# bucket padded to powers of two
+WIDE_DIMS = {"lumi/128/alltoall": (4096, 7, 20512, 128, 750),
+             "lumi/256/alltoall": (16384, 7, 34300, 256, 754),
+             "leonardo/256/alltoall": (16384, 8, 13709, 256, 704),
+             "fig8 alltoall bucket, pow2": (16384, 8, 65536, 256, 1024)}
+
+
+@pytest.mark.parametrize("label", sorted(WIDE_DIMS))
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_launch_config_takes_the_wide_cells(label, with_aux):
+    """The cells the shared layout refused get a launch: a cluster of at
+    most 2048 flows a block whose hop items encode, shared memory within
+    Hopper's 227 KB, and the rest of the rows in the workspace."""
+    dims = WIDE_DIMS[label]
+    cfg = tfs.launch_config(3, *dims, with_aux=with_aux)
+    F = dims[0]
+    assert F <= cfg.cluster * tfs.FLOWS_PER_BLOCK
+    assert cfg.grid == 3 * cfg.cluster and cfg.threads == tfs.MAX_THREADS
+    assert cfg.smem <= tfs.SMEM_LIMIT and cfg.ws_bytes > 0
+    assert cfg.workspace == tfs.WIDE_ROWS[:len(cfg.workspace)]
+    bs = tfs.block_shape(*dims, cfg.cluster)
+    assert bs.n_items < 65536 and bs.ib + bs.kb <= 31
+    # the same cluster with or without aux: one summation order
+    assert cfg.cluster == tfs.launch_config(1, *dims).cluster
+
+
+def test_wide_dims_are_the_cases():
+    """WIDE_DIMS are the shapes bench.build_case gives those cells."""
+    from repro_torch.core import bench
+    from repro_torch.core.fabric import systems
+    for label, dims in WIDE_DIMS.items():
+        if "bucket" in label:
+            continue
+        system, n, aggr = label.split("/")
+        g = bench.build_case(systems.get_system(system), int(n),
+                             "ring_allgather", aggr).geom
+        F, _, H = g.paths.shape
+        assert (F, H, g.L + 1, g.n_src, g.n_sw) == dims, label
+
+
+@pytest.mark.parametrize("dims,cluster", [((16384, 7, 34300, 256, 754), 8),
+                                          ((700, 3, 20, 9, 4), 2)])
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_smem_layout_wide(dims, cluster, with_aux):
+    """A workspace row lies past the shared total, one after another up to
+    gtotal; the rows left in shared memory keep the shared layout's order
+    and fit within it."""
+    shared = dict(zip(tfs.LAYOUT_FIELDS,
+                      tfs.smem_layout(*dims, cluster, with_aux)))
+    assert shared["gtotal"] == shared["total"]
+    for k in (4, len(tfs.WIDE_ROWS)):
+        rows = tfs.WIDE_ROWS[:k]
+        off = dict(zip(tfs.LAYOUT_FIELDS,
+                       tfs.smem_layout(*dims, cluster, with_aux, rows)))
+        moved = sorted(off[r] for r in rows)
+        assert moved[0] == off["total"] and moved[-1] < off["gtotal"] \
+            or moved[-1] == off["gtotal"]
+        assert off["total"] <= shared["total"]
+        left = [f for f in tfs.LAYOUT_FIELDS[:-2] if f not in rows]
+        assert all(off[f] < off["total"] or off[f] == off["total"] == 0
+                   or off[f] <= off["total"] for f in left)
+        assert off["ws"] == 0 and "ws" not in rows and "small" not in rows
+
+
+@pytest.mark.parametrize("label", ["nanjing_ecmp/8/alltoall",
+                                   "leonardo/64/incast"])
+def test_order_model_wide_equals_shared(label):
+    """A cell both layouts take runs on the same cluster and block in
+    either (the wide layout moves rows, not work), so the order model is
+    one: it holds to the plain version within §13 there and on a cluster."""
+    cells, scalars, n_src, n_sw = _grid_cells(*SLICES[label], seed=100)
+    F, H = cells[0]["plinks"].shape
+    dims = (F, H, len(cells[0]["q"]), n_src, n_sw)
+    shared = tfs.launch_config(len(cells), *dims, with_aux=True)
+    wide = tfs.launch_config(len(cells), *dims, with_aux=True, wide=True)
+    assert (wide.cluster, wide.threads) == (shared.cluster, shared.threads)
+    assert wide.workspace == tfs.WIDE_ROWS and not shared.workspace
+    assert wide.smem < shared.smem
+    _hold_model_to_plain(cells[:2], scalars[:2], n_src, n_sw, True,
+                         wide.cluster)
+
+
+def test_order_model_at_a_wide_shape_matches_plain():
+    """LUMI at 128 nodes under alltoall (the wide layout on a cluster of
+    two): the kernel's order within §13 of the plain version."""
+    cells, scalars, n_src, n_sw = _grid_cells(
+        "lumi", 128, "ring_allgather", "alltoall", seed=101)
+    F, H = cells[0]["plinks"].shape
+    cfg = tfs.launch_config(1, F, H, len(cells[0]["q"]), n_src, n_sw)
+    assert cfg.workspace and cfg.cluster == 2
+    _hold_model_to_plain(cells[3:], scalars[3:], n_src, n_sw, False,
+                         cfg.cluster)
+
+
+def test_switch_sums_do_not_depend_on_the_cluster():
+    """A switch's sums are one fold over its links in index order on any
+    cluster (a padded cell's bits must not move with its bucket's
+    cluster): the order model's stall, and so caps_eff, is the same on
+    one block and on eight."""
+    cells, scalars = _random_cells((700, 3, 300, 9, 40), 1, 13)
+    one = _order_model(cells[0], scalars[0], 9, 40, False, 1)
+    eight = _order_model(cells[0], scalars[0], 9, 40, False, 8)
+    np.testing.assert_array_equal(one["caps_eff"], eight["caps_eff"])
+
+
+def _pad_cell(c, n_src, F_to, n_pad_links):
+    """``c`` padded as bench.bucket_stack pads a geometry and its params:
+    pad flows of 0 bytes (inject 0, host cap 1.0) on a source of their own
+    (``n_src``) with the sink-only path, pad links on switch 0 with zero
+    queues and capacity 1.0 before the sink, which moves past them."""
+    F, H = c["plinks"].shape
+    L = len(c["q"]) - 1
+    Lp = L + n_pad_links
+    plinks = np.full((F_to, H), Lp, np.int32)
+    plinks[:F] = np.where(c["plinks"] == L, Lp, c["plinks"])
+
+    def flows(name, fill):
+        return np.concatenate([c[name], np.full(F_to - F, fill,
+                                                c[name].dtype)])
+
+    def links(name, fill):
+        x = c[name]
+        return np.concatenate([x[:L], np.full(n_pad_links, fill, x.dtype),
+                               x[L:]])
+    return dict(plinks=plinks, inject=flows("inject", 0),
+                src_id=flows("src_id", n_src),
+                host_caps=flows("host_caps", 1), q=links("q", 0),
+                occ=links("occ", 0), caps_finite=links("caps_finite", 1),
+                src_sw=links("src_sw", 0), dst_sw=links("dst_sw", 0))
+
+
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_padded_cell_equals_alone(with_aux):
+    """A cell of 3000 flows alone (a cluster of two) and padded to 16,384
+    flows and 25 more links (a cluster of eight): a flow is block
+    i // FLOWS_PER_BLOCK's on any cluster, so every part of the cell is
+    summed in one order in both and the order model gives the same bits
+    on the cell's flows and links."""
+    F, H, L, n_src, n_sw = shape = (3000, 3, 40, 9, 6)
+    cells, scalars = _random_cells(shape, 1, 17)
+    c, sc = cells[0], scalars[0]
+    n_pad = 25
+    padded = _pad_cell(c, n_src, tfs.MAX_FLOWS, n_pad)
+    alone_cfg = tfs.launch_config(1, F, H, L + 1, n_src, n_sw, with_aux)
+    pad_cfg = tfs.launch_config(1, tfs.MAX_FLOWS, H, L + n_pad + 1,
+                                n_src + 1, n_sw, with_aux)
+    assert (alone_cfg.cluster, pad_cfg.cluster) == (2, 8)
+    alone = _order_model(c, sc, n_src, n_sw, with_aux, alone_cfg.cluster)
+    got = _order_model(padded, sc, n_src + 1, n_sw, with_aux,
+                       pad_cfg.cluster)
+    links = np.r_[np.arange(L), L + n_pad]
+    for k in OUTS:
+        if alone[k] is None:
+            continue
+        g = got[k][:F] if k in ("inject", "achieved") else got[k][links]
+        np.testing.assert_array_equal(g.view(np.uint32),
+                                      alone[k].view(np.uint32), k)
+    assert not got["arrival"][L:L + n_pad].any()
+
+
+@pytest.mark.cuda
+def test_kernel_wide_layout_on_card():
+    """The wide layout at LUMI's 128-node alltoall shape within §13 of the
+    plain version and bit-equal to the order model, ten launches
+    bit-equal; and on a cell both layouts take, the wide layout bit-equal
+    to the shared one."""
+    _needs_card()
+    cells, scalars, n_src, n_sw = _grid_cells(
+        "lumi", 128, "ring_allgather", "alltoall", seed=101)
+    args, kw = _card_tensors(cells, scalars, n_src, n_sw)
+    cfg = tfs.launch_config(len(cells), *args[0].shape[1:],
+                            args[4].shape[1], n_src, n_sw, True)
+    assert cfg.workspace
+    runs = [tfs.fabric_step_core(*args, with_aux=True, **kw)
+            for _ in range(10)]
+    want = _plain_cells(cells, scalars, n_src, n_sw, True)
+    for k in OUTS:
+        for run in runs[1:]:
+            assert torch.equal(_bits(run[k]), _bits(runs[0][k])), k
+        np.testing.assert_allclose(runs[0][k].cpu().numpy(), want[k].numpy(),
+                                   err_msg=k, **FS_TOL)
+    model = _order_model(cells[0], scalars[0], n_src, n_sw, True,
+                         cfg.cluster)
+    for k in OUTS:
+        np.testing.assert_array_equal(runs[0][k][0].cpu().numpy(), model[k],
+                                      err_msg=k)
+    cells, scalars, n_src, n_sw = _grid_cells(*SLICES["leonardo/64/incast"],
+                                              seed=100)
+    args, kw = _card_tensors(cells, scalars, n_src, n_sw)
+    shared = tfs.fabric_step_core(*args, with_aux=True, **kw)
+    wide = tfs.fabric_step_core(*args, with_aux=True, wide=True, **kw)
+    for k in OUTS:
+        assert torch.equal(_bits(shared[k]), _bits(wide[k])), k

@@ -1,6 +1,6 @@
 """The port's figure runner as a user calls it: ``benchmarks/pt_run.py``
 runs a ported figure on the CPU when asked, and refuses, naming the
-ROADMAP item, a figure the port does not run yet."""
+ROADMAP item, a name the port does not run yet."""
 import pytest
 
 pytest.importorskip("torch")
@@ -13,7 +13,7 @@ def test_pt_run_fig1_on_cpu_and_refuses_unported(tmp_path, capsys):
                         "--cache-dir", str(tmp_path)]) == 0
     assert (tmp_path / "fig1_breakdown.csv").exists()
     assert "fig1[1048576]" in capsys.readouterr().out
-    for name in ("fig7_fig8", "scenarios", "collectives"):
+    for name in ("scenarios", "collectives"):
         assert pt_run.main(["--only", name]) != 0
         assert "ROADMAP" in capsys.readouterr().err
 
