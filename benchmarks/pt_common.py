@@ -9,6 +9,8 @@ The port's rows go under ``artifacts/bench_cache_torch/<device type>/``
 from __future__ import annotations
 
 import csv
+import json
+import math
 import os
 from typing import Callable, Dict, Iterable, List
 
@@ -16,6 +18,8 @@ import torch
 
 CACHE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                           "artifacts", "bench_cache_torch")
+# the JAX package's rows (benchmarks/pt_jax_reference.py)
+REFERENCE = os.path.join(CACHE_ROOT, "jax_reference.json")
 
 
 def device_name(device: torch.device) -> str:
@@ -36,7 +40,8 @@ def _load_cache(cache_dir: str, name: str, keys: List[str],
     cache: Dict[tuple, Dict] = {}
     if os.path.exists(path) and not force:
         with open(path) as f:
-            for row in csv.DictReader(f):
+            lines = (line for line in f if not line.startswith("#"))
+            for row in csv.DictReader(lines):
                 # rows from an older cache layout (missing a key column)
                 # are treated as misses and recomputed
                 if any(row.get(k) in (None, "") for k in keys):
@@ -75,7 +80,8 @@ def expected_grid_keys(grid) -> "List[tuple]":
     scale-batched grid expands its (system, n_nodes) cells."""
     from repro_torch.core import bench
 
-    vic = bench.victim_label(grid.victim, grid.phased)
+    vic = bench.resolve_victim_label(grid.victim, grid.phased,
+                                     list(grid.jobs) or None)
     cells = list(grid.cells) or [(grid.system, grid.n_nodes)]
     return [(s, str(n), vic, grid.aggressor or "none", str(float(v)),
              p.label())
@@ -83,10 +89,11 @@ def expected_grid_keys(grid) -> "List[tuple]":
 
 
 def scenario_rows(scenario, *, device: torch.device, cache_dir: str,
-                  force: bool = False) -> List[Dict]:
+                  force: bool = False, comment: str = "") -> List[Dict]:
     """Run a registered scenario through ``repro_torch.core.scenarios``
     with grid-level CSV caching: a grid whose cells are all cached is
-    skipped; otherwise the whole grid re-runs as one batched run."""
+    skipped; otherwise the whole grid re-runs as one batched run.
+    ``comment`` heads the CSV as ``#`` lines."""
     from repro_torch.core import scenarios as scen
 
     path, cache = _load_cache(cache_dir, scenario.name, SCENARIO_KEYS, force)
@@ -101,11 +108,64 @@ def scenario_rows(scenario, *, device: torch.device, cache_dir: str,
             row["device"] = device_name(device)
             cache[tuple(row[k] for k in SCENARIO_KEYS)] = row
             rows.append(row)
-        _write(path, SCENARIO_KEYS, cache)
+        _write(path, SCENARIO_KEYS, cache, comment)
     return rows
 
 
-def _write(path: str, keys: List[str], cache: Dict[tuple, Dict]):
+def _row_key(r) -> tuple:
+    return (r["system"], int(r["n_nodes"]), r["victim"], r["aggressor"],
+            float(r["vector_bytes"]), r["profile"])
+
+
+def jax_agreement(name: str, rows: List[Dict], quick: bool,
+                  reference: str = REFERENCE) -> str:
+    """One line comparing a family's rows with the JAX package's rows of
+    the same grids (``scenarios_quick`` or ``scenarios_full`` of
+    ``reference``): how many rows have a JAX twin, how many ratios agree
+    to the CSV's 4 digits, the largest ratio difference and the largest
+    relative time difference (at the CSV's 0.1 us rounding); and the
+    JAX grids that did not finish."""
+    try:
+        with open(reference) as f:
+            doc = json.load(f)
+    except OSError:
+        return f"{name}: no JAX rows ({reference} missing)"
+    if quick:
+        want, missing = doc.get("scenarios_quick", {}).get(name) or [], []
+    else:
+        entries = doc.get("scenarios_full", {}).get(name) or []
+        want = [r for e in entries for r in e["rows"] or []]
+        missing = [e for e in entries if e["rows"] is None]
+    by_key = {_row_key(w): w for w in want}
+    n = same = 0
+    d_ratio = d_time = 0.0
+    for r in rows:
+        w = by_key.get(_row_key(r))
+        if w is None:
+            continue
+        n += 1
+        ratio = float(r["ratio"])
+        if math.isnan(ratio) or math.isnan(w["ratio"]):
+            same += math.isnan(ratio) and math.isnan(w["ratio"])
+            continue
+        same += ratio == round(w["ratio"], 4)
+        d_ratio = max(d_ratio, abs(ratio - w["ratio"]))
+        for col, k in (("t_uncongested_us", "t_uncongested_s"),
+                       ("t_congested_us", "t_congested_s")):
+            d_time = max(d_time, abs(float(r[col]) / (w[k] * 1e6) - 1))
+    out = (f"{name} vs JAX ({'quick' if quick else 'full'}): {n} of "
+           f"{len(rows)} rows have a JAX row; ratios equal to 4 digits in "
+           f"{same}, worst |ratio diff| {d_ratio:.2e}, worst time rel diff "
+           f"{d_time:.2e}")
+    if missing:
+        out += (f"; {len(missing)} JAX grid(s) did not finish: "
+                + ", ".join(f"{e['aggressor'] or 'none'} ({e['not_finished']})"
+                            for e in missing))
+    return out
+
+
+def _write(path: str, keys: List[str], cache: Dict[tuple, Dict],
+           comment: str = ""):
     fields: List[str] = []
     for row in cache.values():
         for k in row:
@@ -113,6 +173,8 @@ def _write(path: str, keys: List[str], cache: Dict[tuple, Dict]):
                 fields.append(k)
     tmp = path + ".tmp"
     with open(tmp, "w", newline="") as f:
+        for line in comment.splitlines():
+            f.write(f"# {line}\n")
         w = csv.DictWriter(f, fieldnames=fields)
         w.writeheader()
         for row in cache.values():

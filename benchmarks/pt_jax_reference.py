@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|lm|train]``
+[--only fabric|fig7_fig8|scenarios|lm|train]``
 
 Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
 package as it stands. ``fabric`` (the default part of the run) writes
@@ -23,6 +23,16 @@ the git commit:
   2 ms bursts with 0.2 ms pauses, 8 iterations), per cell as fig6; and an
   attempt at each full fig7_fig8_scale grid, each in a child process given
   ``FULL_GRID_S`` seconds: its rows, or that it did not finish.
+
+``scenarios`` (``--only scenarios``, which adds these keys to the file
+and keeps the others as they are) runs the nine beyond-paper families
+(``SCENARIO_FAMILIES``): ``scenarios_quick`` holds the rows of every
+quick grid, each with its grid's index; ``scenarios_full`` holds, per
+family and full grid, its rows or that it did not finish: each full grid
+runs in a child process given ``FULL_GRID_S`` seconds and at most
+``CHILD_RSS_GIB`` GiB of resident memory, ``SCENARIO_WORKERS`` at a time.
+Per row: the ratio, both times, the iteration counts, ``job_times`` and
+``dnf``.
 
 It calls the benchmarks' row functions directly and never
 ``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
@@ -74,6 +84,15 @@ FIG8_ALLTOALL = ((("cresco8", 128), ("lumi", 256)), (2 << 20,),
                  ((2e-3, 0.2e-3),), 8, 2)
 # seconds a full fig7_fig8_scale grid may take on the JAX CPU path
 FULL_GRID_S = 600
+# the beyond-paper families (benchmarks/new_scenarios.py and the fault
+# families of benchmarks/fault_scenarios.py), the resident memory a
+# child running one full grid may reach before it is stopped, and how
+# many such children run at once
+SCENARIO_FAMILIES = ("ramp_onset", "random_telegraph", "multi_tenant",
+                     "phased_collectives", "multi_job_mix", "scale_sweep",
+                     "mixed_topology", "link_fault", "intra_node")
+CHILD_RSS_GIB = 8
+SCENARIO_WORKERS = 2
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
 
@@ -327,6 +346,112 @@ def fig7_fig8_rows() -> dict:
     return doc
 
 
+def _family_grid_rows(name: str, quick: bool, index: int) -> list:
+    """One registry grid of a family on the JAX package, as rows."""
+    from repro.core import scenarios
+
+    scen = scenarios.get(name, quick)
+    t0 = time.time()
+    results = scenarios.run_grid_spec(scen, scen.grids[index])
+    seconds = time.time() - t0
+    rows = [{"grid": index, "system": r.system, "n_nodes": r.n_nodes,
+             "victim": r.victim, "aggressor": r.aggressor,
+             "profile": r.profile, "vector_bytes": r.vector_bytes,
+             "ratio": r.ratio, "t_uncongested_s": r.t_uncongested_s,
+             "t_congested_s": r.t_congested_s, "n_iters": list(r.n_iters),
+             "job_times": [list(j) for j in r.job_times], "dnf": r.dnf,
+             "wall_s": seconds} for r in results]
+    print(f"{name} {'quick' if quick else 'full'} grid {index}: "
+          f"{[round(r.ratio, 4) for r in results]} ({seconds:.1f}s)",
+          flush=True)
+    return rows
+
+
+def _family_grid_child(name: str, index: int, path: str) -> None:
+    """A child process: one full grid's rows to ``path``."""
+    rows = _family_grid_rows(name, False, index)
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def _rss_gib(pid: int) -> float:
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2 ** 20
+    except OSError:
+        pass
+    return 0.0
+
+
+def scenario_rows() -> dict:
+    """The quick grids of every family in this process; each full grid
+    in a child process, ``SCENARIO_WORKERS`` at a time, stopped at
+    ``FULL_GRID_S`` seconds or ``CHILD_RSS_GIB`` GiB."""
+    import multiprocessing
+    import tempfile
+
+    from repro.core import scenarios
+
+    quick = {name: [row for i in range(len(scenarios.get(name,
+                                                         True).grids))
+                    for row in _family_grid_rows(name, True, i)]
+             for name in SCENARIO_FAMILIES}
+    todo = [(name, i, g) for name in SCENARIO_FAMILIES
+            for i, g in enumerate(scenarios.get(name, False).grids)]
+    full = {name: [] for name in SCENARIO_FAMILIES}
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        running = []
+        while todo or running:
+            while todo and len(running) < SCENARIO_WORKERS:
+                name, i, g = todo.pop(0)
+                path = os.path.join(tmp, f"{name}_{i}.json")
+                proc = ctx.Process(target=_family_grid_child,
+                                   args=(name, i, path))
+                proc.start()
+                running.append((name, i, g, path, proc, time.time(), 0.0))
+            time.sleep(1.0)
+            still = []
+            for name, i, g, path, proc, t0, peak in running:
+                peak = max(peak, _rss_gib(proc.pid))
+                late = time.time() - t0 > FULL_GRID_S
+                big = peak > CHILD_RSS_GIB
+                if proc.is_alive() and not (late or big):
+                    still.append((name, i, g, path, proc, t0, peak))
+                    continue
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+                entry = {"grid": i, "system": g.system,
+                         "aggressor": g.aggressor, "victim": g.victim,
+                         "phased": g.phased,
+                         "cells": [list(c) for c in g.cells],
+                         "limit_s": FULL_GRID_S,
+                         "wall_s": time.time() - t0,
+                         "peak_rss_gib": round(peak, 2)}
+                if os.path.exists(path) and not (late or big):
+                    with open(path) as f:
+                        entry["rows"] = json.load(f)
+                else:
+                    entry["rows"] = None
+                    entry["not_finished"] = (
+                        f"the JAX CPU path did not finish in {FULL_GRID_S} s"
+                        if late or not big else
+                        f"stopped at {peak:.1f} GiB of resident memory "
+                        f"(limit {CHILD_RSS_GIB})") \
+                        + f" (exit code {proc.exitcode})"
+                    print(f"{name} full grid {i}: {entry['not_finished']}",
+                          flush=True)
+                full[name].append(entry)
+            running = still
+    for name in full:
+        full[name].sort(key=lambda e: e["grid"])
+    return {"scenarios_quick": quick, "scenarios_full": full,
+            "scenarios_commit": _commit()}
+
+
 def lm_reference() -> dict:
     """The LM reference rows (module docstring), on the JAX package."""
     import jax
@@ -453,8 +578,8 @@ def main() -> None:
     ap.add_argument("--out", default=None,
                     help="output file (default: the part's file under "
                          "artifacts/bench_cache_torch/)")
-    ap.add_argument("--only", choices=("fabric", "fig7_fig8", "lm", "train"),
-                    default=None)
+    ap.add_argument("--only", choices=("fabric", "fig7_fig8", "scenarios",
+                                       "lm", "train"), default=None)
     args = ap.parse_args()
     import jax
 
@@ -477,6 +602,12 @@ def main() -> None:
             doc = json.load(f)
         doc.update(fig7_fig8_rows())
         doc["fig7_fig8_commit"] = _commit()
+        _write(doc, path)
+    if args.only == "scenarios":
+        path = args.out or OUT
+        with open(path) as f:
+            doc = json.load(f)
+        doc.update(scenario_rows())
         _write(doc, path)
     if args.only in (None, "lm"):
         _write(lm_reference(), (args.only and args.out) or LM_OUT)

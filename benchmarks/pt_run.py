@@ -5,9 +5,11 @@ as ``benchmarks/run.py`` is for the JAX package.
 [--only fig1,fig3] [--device cpu] [--cache-dir DIR]``
 
 Runs on the CUDA device unless ``--device`` names another; without a card
-the default fails. By default it runs every ported figure (fig1, fig3,
-fig4, fig5, fig6, fig7_fig8). A name the port does not run yet exits non-zero with
-the ROADMAP item that ports it. Prints each figure's table plus a final
+the default fails. By default it runs every ported benchmark: the paper's
+figures (fig1, fig3, fig4, fig5, fig6, fig7_fig8), the beyond-paper
+families (scenarios) and the link-fault and intra-node families with
+their engine checks (faults). A name the port does not run yet exits
+non-zero with the ROADMAP item that ports it. Prints each figure's table plus a final
 ``name,us_per_call,derived`` CSV summary line per point.
 """
 from __future__ import annotations
@@ -17,10 +19,9 @@ import sys
 import time
 import traceback
 
-PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6", "fig7_fig8")
+PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6", "fig7_fig8", "scenarios",
+          "faults")
 NOT_PORTED = {
-    "scenarios": "ROADMAP Queue 1, item 16 (the beyond-paper scenario "
-                 "families: scale_sweep, mixed_topology, ...)",
     "collectives": "ROADMAP Queue 1, item 14 (LM stack: collectives over "
                    "torch.distributed)",
 }
@@ -65,15 +66,17 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         return 2
 
-    from benchmarks import (pt_fig1_breakdown, pt_fig3_sawtooth,
-                            pt_fig4_nslb, pt_fig5_steady, pt_fig6_bursty,
-                            pt_fig7_fig8_scale)
+    from benchmarks import (pt_fault_scenarios, pt_fig1_breakdown,
+                            pt_fig3_sawtooth, pt_fig4_nslb, pt_fig5_steady,
+                            pt_fig6_bursty, pt_fig7_fig8_scale,
+                            pt_new_scenarios)
     from repro_torch.core.fabric.simulator import resolve_device
 
     device = resolve_device(args.device)
     drivers = {"fig1": pt_fig1_breakdown, "fig3": pt_fig3_sawtooth,
                "fig4": pt_fig4_nslb, "fig5": pt_fig5_steady,
-               "fig6": pt_fig6_bursty, "fig7_fig8": pt_fig7_fig8_scale}
+               "fig6": pt_fig6_bursty, "fig7_fig8": pt_fig7_fig8_scale,
+               "scenarios": pt_new_scenarios, "faults": pt_fault_scenarios}
     summary, failed = [], []
     for name in PORTED:
         if name not in only:

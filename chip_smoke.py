@@ -50,6 +50,22 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    fig7_fig8_scale quick grid and a reduced alltoall grid with LUMI at 256
    nodes (iteration counts and times against JAX; the Fig. 7 pin), and,
    in both buckets, each padded cell bit-equal to itself run alone;
+7b. ``scenarios``: kernel 1 with per-cell link capacities scaled by fault
+   tables (some links at or below ``FAULT_FLOOR``) against its plain
+   version at the link_fault quick bucket's shapes (the wide layout
+   forced and held bit-equal to the shared one) and at lumi/256/alltoall
+   (the wide layout), ten launches bit-equal and each cell alone
+   bit-equal to its row; the inertness gate on the card (an all-``none``
+   table and ``node_cap = inf`` against no table, 48 steps of
+   leonardo/16, every state leaf bit for bit); the first quick grid of
+   each beyond-paper and fault family (``FAMILY_GRIDS``; phased_collectives'
+   first flat/phased pair; less the ``FAMILY_CUTS`` cells, for time)
+   through ``scenarios.run_grid_spec``, held to
+   ``jax_reference.json["scenarios_quick"]`` (iteration counts equal,
+   times and ``job_times`` within 2%) and to the fault drivers' pins
+   (flap < 0.9, degrade < 0.95, intra-node monotone), one kernel-1 launch
+   a step; and the link_fault and intra_node buckets' padded cells
+   bit-equal to themselves run alone;
 8. times kernels 1 and 2, their plain versions, their bounds and, for the
    fused accumulate, the library call ``torch.add``, per shape (kernel 1
    beside its time before its redesign, ``EARLIER_MS``, and its time in
@@ -341,6 +357,22 @@ WIDE_SHAPES = (("lumi/128/alltoall", "lumi", 128, "ring_allgather",
 FIG8_ALLTOALL = ((("cresco8", 128), ("lumi", 256)), (2 << 20,),
                  ((2e-3, 0.2e-3),), 8, 2)
 PAD_CHECK_ITERS, PAD_CHECK_CHUNK = 3, 256
+# the beyond-paper families (their first quick grid; phased_collectives'
+# first flat/phased pair) held to jax_reference.json's scenarios_quick
+FAMILY_GRIDS = (("ramp_onset", (0,)), ("random_telegraph", (0,)),
+                ("multi_tenant", (0,)), ("phased_collectives", (0, 1)),
+                ("multi_job_mix", (0,)), ("scale_sweep", (0,)),
+                ("mixed_topology", (0,)), ("link_fault", (0,)),
+                ("intra_node", (0,)))
+# cells of those grids left out to keep the script's wall near 900 s (the
+# slowest of each grid; pt_run --only scenarios runs them): a profile
+# label or a (system, n_nodes) cell per family
+FAMILY_CUTS = {"ramp_onset": ("steady",),
+               "mixed_topology": (("haicgu_ib", 16),)}
+# the sim time (s) at which kernel 1's fault-scaled capacities are taken:
+# inside every window of the tables fault_tables builds
+FAULT_T = 0.5e-3
+INERT_NODES = 16  # leonardo allocation of the on-card inertness gate
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -494,18 +526,22 @@ class Smoke:
             yield (f"fig6 {g.system}/{g.n_nodes}/{g.aggressor} "
                    f"{g.sizes[0]:.0f}", geom, p)
 
-    def core_inputs(self, geom, p, seed):
-        """Step-core operands at a grid's shapes: each flow on one of its
-        candidate paths, rates up to its NIC cap, queues up to qmax."""
+    def core_inputs(self, geom, p, seed, caps=None):
+        """Step-core operands at a grid's shapes (a geometry of one row, or
+        one a cell): each flow on one of its candidate paths, rates up to
+        its NIC cap, queues up to qmax; ``caps`` in place of the
+        geometry's link capacities."""
         torch = self.torch
         import numpy as np
         rng = np.random.RandomState(seed)
         B = p.dt.shape[0]
         F = geom.n_flows
-        n_paths = geom.n_paths.cpu().numpy()
-        choice = (rng.rand(B, F) * n_paths).astype(np.int64)
-        plinks = geom.paths[torch.arange(F, device=self.dev),
-                            torch.as_tensor(choice, device=self.dev)]
+        paths = geom.paths.expand(B, *geom.paths.shape[-3:])
+        n_paths = geom.n_paths.expand(B, F).cpu().numpy()
+        choice = torch.as_tensor((rng.rand(B, F) * n_paths).astype(np.int64),
+                                 device=self.dev)
+        plinks = paths.gather(2, choice[:, :, None, None].expand(
+            B, F, 1, paths.shape[-1]))[:, :, 0].contiguous()
         inject = (p.host_caps * torch.as_tensor(
             rng.rand(B, F), dtype=torch.float32, device=self.dev)).contiguous()
         q = torch.as_tensor(rng.rand(B, geom.L + 1), dtype=torch.float32,
@@ -513,9 +549,9 @@ class Smoke:
         q[:, -1] = 0.0
         occ = q / p.qmax_bytes[:, None]
         return (plinks, inject, geom.src_id, p.host_caps, q, occ,
-                geom.caps_finite, geom.src_sw, geom.dst_sw, p.dt,
-                p.qmax_bytes, p.hol_factor, p.hol_start, p.burst_jitter), \
-            dict(n_src=geom.n_src, n_sw=geom.n_sw)
+                geom.caps_finite if caps is None else caps, geom.src_sw,
+                geom.dst_sw, p.dt, p.qmax_bytes, p.hol_factor, p.hol_start,
+                p.burst_jitter), dict(n_src=geom.n_src, n_sw=geom.n_sw)
 
     def random_inputs(self, shape, seed, B=2):
         torch = self.torch
@@ -1132,16 +1168,21 @@ class Smoke:
         self.pad_check("alltoall bucket", cells, "alltoall", sizes,
                        [cong.bursty(b, p) for b, p in bp])
 
-    def pad_check(self, label, cells, aggr, sizes, profiles):
+    def pad_check(self, label, cells, aggr, sizes, profiles,
+                  victim="ring_allgather"):
         """Each cell of a bucket run padded (run_cells_hetero) gives every
         output bit for bit as it gives run alone (run_cells), with the
-        kernel; its real flows' and jobs' slots compared."""
+        kernel; its real flows' and jobs' slots compared. Profiles with
+        faults put the inert table on the other cells, a node-capped one
+        arms the intra-node stage, as the grid runners do."""
         import numpy as np
         from repro_torch.core import bench, congestion as cong
         from repro_torch.core.fabric import simulator as sim, systems
         from repro_torch.kernels import fabric_step as fs
-        cases = [bench.build_case(systems.get_system(s), n,
-                                  "ring_allgather", aggr) for s, n in cells]
+        with_ft = cong.needs_fault_table(profiles)
+        intra = any(p.node_cap_frac > 0 for p in profiles)
+        cases = [bench.build_case(systems.get_system(s), n, victim, aggr,
+                                  intra_node=intra) for s, n in cells]
         dims, stacked = bench.bucket_stack([c.geom for c in cases])
         kw = dict(chunk=PAD_CHECK_CHUNK, max_chunks=400, stride=8,
                   device=self.dev)
@@ -1151,8 +1192,9 @@ class Smoke:
                                   case.lat())
             sub = [(float(v), p) for v in sizes
                    for p in [cong.no_congestion(), *profiles]]
-            return sim.stack_params([case.cell_params(v, p, d, n_flows)
-                                     for (v, p), d in zip(sub, dts)])
+            return sim.stack_params([case.cell_params(
+                v, p, d, n_flows, with_fault_table=with_ft)
+                for (v, p), d in zip(sub, dts)])
         t0 = time.time()
         out = sim.run_cells_hetero(
             stacked, sim.stack_params([params(c, dims.n_flows)
@@ -1185,6 +1227,180 @@ class Smoke:
             self.check(not bad, f"{label} {cells[k]}: padded differs from "
                        f"alone in {bad}")
         log(f"   {label}: {time.time() - t0:.1f}s")
+
+    # --------------------------------------------------------------- 7b
+    def fault_tables(self, B, seed):
+        """B different fault tables, each with a hot link down for good (its
+        capacity at FAULT_FLOOR, or below where a switch outage hits it too)
+        and, by cell, a degrading edge, a jittering fabric or a switch
+        outage, all live at FAULT_T."""
+        import numpy as np
+        from repro_torch.core import congestion as cong
+        out = []
+        for b in range(B):
+            ev = [cong.outage(0.0, 1.0, 1.0)]
+            ev.append(cong.degrade(0.0, 1e-3, 0.7, cong.GROUP_EDGE_UP)
+                      if b % 2 else
+                      cong.jitter(0.0, 1.0, 0.6, cong.GROUP_FABRIC,
+                                  seed=seed + b))
+            if b % 3 == 0:
+                ev.append(cong.switch_outage(0.0, 1.0, 0.9))
+            out.append(cong.fault_table(ev))
+        return self.torch.as_tensor(np.stack(out), device=self.dev)
+
+    def fault_core_inputs(self, geom, p, seed):
+        """core_inputs with each cell's link capacities scaled by its fault
+        table at FAULT_T, as the engine's fault stage scales them."""
+        torch = self.torch
+        from repro_torch.core import envelopes as env
+        B, L1 = p.dt.shape[0], geom.L + 1
+        scale = env.fault_scale_at(
+            self.fault_tables(B, seed), geom.link_group.view(-1, L1),
+            torch.full((B,), FAULT_T, dtype=torch.float32, device=self.dev),
+            geom.link_sw_group.view(-1, L1))
+        # rows multiply, so a link two events hit may sit below the floor
+        floor = (scale <= env.FAULT_FLOOR).any(1)
+        self.check(bool(floor.all()), "fault caps: a cell without a link at "
+                   "or below FAULT_FLOOR")
+        return self.core_inputs(geom, p, seed,
+                                caps=(geom.caps_finite * scale).contiguous())
+
+    def fault_kernel_checks(self):
+        """Kernel 1 with per-cell fault-scaled capacities against its plain
+        version: on the link_fault quick bucket (padded geometries, one row
+        a cell; shared layout, and the wide layout forced and held to it)
+        and on lumi/256/alltoall (the wide layout)."""
+        from repro_torch.core import bench, congestion as cong, scenarios
+        from repro_torch.core.fabric import simulator as sim, systems
+        from repro_torch.kernels import fabric_step as fs
+        grid = scenarios.get("link_fault", True).grids[0]
+        cases = [bench.build_case(systems.get_system(s), n, grid.victim,
+                                  grid.aggressor) for s, n in grid.cells]
+        dims, stacked = bench.bucket_stack([c.geom for c in cases])
+        subs = [(float(v), pr) for v in grid.sizes
+                for pr in [cong.no_congestion(), *grid.profiles]]
+        params, rows = [], []
+        for k, case in enumerate(cases):
+            dts = bench._cell_dts(case, grid.sizes, len(grid.profiles), None,
+                                  case.lat())
+            params += [case.cell_params(v, pr, d, dims.n_flows,
+                                        with_fault_table=True)
+                       for (v, pr), d in zip(subs, dts)]
+            rows += [k] * len(subs)
+        geom = stacked.to(self.dev).take(self.torch.as_tensor(
+            rows, device=self.dev))
+        p = sim.stack_params(params).to(self.dev)
+        shapes = [("link_fault quick bucket", geom, p)]
+        _, g256, p256 = self.grid_case("lumi", 256, "ring_allgather",
+                                       "alltoall")
+        shapes.append(("lumi/256/alltoall", g256, p256))
+        for i, (label, g, pp) in enumerate(shapes):
+            args, kw = self.fault_core_inputs(g, pp, seed=400 + i)
+            B, F, H = args[0].shape
+            cfg = self.launch_config(f"faults {label}", args, kw)
+            log(f"   faults {label}: B={B} F={F} H={H} L={g.L} per-cell "
+                f"caps {tuple(args[6].shape)}; cluster {cfg.cluster}, "
+                f"{'wide' if cfg.workspace else 'shared'} layout")
+            for aux in (False, True):
+                err = self.compare(f"faults {label}", args, kw, aux)
+                self.fault_err = max(getattr(self, "fault_err", 0.0), err)
+            self.batch_invariance(f"faults {label}", args, kw)
+            if not cfg.workspace:
+                for aux in (False, True):
+                    shared = fs.fabric_step_core(*args, with_aux=aux, **kw)
+                    wide = fs.fabric_step_core(*args, with_aux=aux,
+                                               wide=True, **kw)
+                    same = all(bits_equal(self.torch, wide[k], shared[k])
+                               for k in shared if shared[k] is not None)
+                    self.check(same, f"faults {label} aux={int(aux)}: the "
+                               f"wide layout differs from the shared one")
+                    log(f"   faults {label:24s} aux={int(aux)} wide layout "
+                        f"bit-equal to shared: {same}")
+
+    def scenarios(self):
+        """The beyond-paper families on the card: kernel 1 with
+        fault-scaled per-cell capacities, the inertness gate, each family's
+        first quick grid (phased_collectives' first flat/phased pair)
+        through scenarios.run_grid_spec held to the JAX rows with the fault
+        drivers' pins, and the link_fault and intra_node buckets' padded
+        cells bit-equal to themselves alone."""
+        import dataclasses
+        import math
+        from benchmarks import pt_fault_scenarios as pfs
+        from repro_torch.core import scenarios
+        from repro_torch.core.fabric import simulator as sim
+        self.fault_kernel_checks()
+        t0 = time.time()
+        gate = pfs.inertness_gate(self.dev, n_nodes=INERT_NODES)
+        log(f"   inertness (leonardo/{INERT_NODES}, {pfs.GATE_STEPS} steps, "
+            f"kernel 1): all-none table {gate['table'] or 'bit-identical'}, "
+            f"node_cap inf {gate['intra'] or 'bit-identical'} "
+            f"({time.time() - t0:.1f}s)")
+        self.check(not any(gate.values()), f"inertness: leaves differ {gate}")
+        ref = self.reference()["scenarios_quick"]
+        rows, walls = [], {}
+
+        def run():
+            for name, idx in FAMILY_GRIDS:
+                scen = scenarios.get(name, True)
+                t1, s1 = time.time(), sim.step_count
+                for gi in idx:
+                    cut = FAMILY_CUTS.get(name, ())
+                    grid = dataclasses.replace(
+                        scen.grids[gi],
+                        profiles=tuple(p for p in scen.grids[gi].profiles
+                                       if p.label() not in cut),
+                        cells=tuple(c for c in scen.grids[gi].cells
+                                    if c not in cut))
+                    results = scenarios.run_grid_spec(scen, grid,
+                                                      device=self.dev)
+                    self.torch.cuda.synchronize()
+                    wants = [w for w in ref[name] if w["grid"] == gi]
+                    for r in results:
+                        want = next(w for w in wants if (
+                            w["system"], w["n_nodes"], w["vector_bytes"],
+                            w["profile"]) == (r.system, r.n_nodes,
+                                              r.vector_bytes, r.profile))
+                        label = (f"{name} {r.system}/{r.n_nodes}/"
+                                 f"{r.victim}/{r.aggressor} {r.profile}")
+                        row = self.hold(label, r, want, 0.0, 0)
+                        got_j = [(n, k) for n, _, k in r.job_times]
+                        want_j = [(n, k) for n, _, k in want["job_times"]]
+                        self.check(got_j == want_j, f"{label}: job_times "
+                                   f"{got_j} != {want_j}")
+                        for (_, t, _), (_, wt, _) in zip(r.job_times,
+                                                         want["job_times"]):
+                            self.check(abs(t / wt - 1) <= TIME_RTOL,
+                                       f"{label}: job time {t} vs {wt}")
+                        rows.append({**row, "family": name, "grid": gi,
+                                     "profile": r.profile,
+                                     "job_times": list(r.job_times)})
+                walls[name] = {"wall_s": time.time() - t1,
+                               "steps": sim.step_count - s1}
+                log(f"   {name}: {walls[name]['steps']} steps in "
+                    f"{walls[name]['wall_s']:.1f}s")
+            return ("fabric_step_core",)
+
+        counts = self.path("scenarios", run)
+        self.scen_launches = counts["fabric_step_core"]
+        c = pfs.checks([r for r in rows if r["family"] == "link_fault"],
+                       [r for r in rows if r["family"] == "intra_node"])
+        log(f"   pins: flap {c['flap']} (< 0.9), degrade {c['optic']} "
+            f"(< 0.95), intra-node means {c['intra']}")
+        self.check(c["ok_flap"], f"pin: flap ratios {c['flap']} not < 0.9")
+        self.check(c["ok_optic"], f"pin: degrade ratios {c['optic']} not "
+                   f"< 0.95")
+        self.check(c["ok_intra"], f"pin: intra-node means {c['intra']} not "
+                   f"monotone")
+        self.check(all(math.isfinite(r["ratio"]) for r in rows),
+                   "scenarios: a ratio is not finite")
+        self.report["scenarios"] = {"rows": rows, "families": walls,
+                                    "pins": {k: c[k] for k in (
+                                        "flap", "optic", "intra")}}
+        for name in ("link_fault", "intra_node"):
+            grid = scenarios.get(name, True).grids[0]
+            self.pad_check(f"{name} bucket", grid.cells, grid.aggressor,
+                           grid.sizes, grid.profiles, victim=grid.victim)
 
     # ---------------------------------------------------------------- 8
     def graphed(self, fn):
@@ -2654,6 +2870,7 @@ def main() -> int:
                      ("lockstep", s.lockstep), ("main_path", s.main_path),
                      ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
                      ("fig7_fig8", s.fig7_fig8),
+                     ("scenarios", s.scenarios),
                      ("timing", s.timing),
                      ("engine_graph", s.engine_graph),
                      ("flash_attention_vs_plain", s.fa_vs_plain),
@@ -2691,7 +2908,9 @@ def main() -> int:
         **KERNEL, "launches": s.main_launches, "max_abs_err": s.main_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "fig7_fig8_launches": s.fig78_launches, "wide_shapes": wide}, {
+        "fig7_fig8_launches": s.fig78_launches,
+        "scenarios_launches": s.scen_launches,
+        "fault_caps_max_abs_err": s.fault_err, "wide_shapes": wide}, {
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],

@@ -68,6 +68,15 @@ def victim_label(victim_coll: str, phased: bool) -> str:
     return victim_coll + ("+phased" if phased else "")
 
 
+def resolve_victim_label(victim_coll: str, phased: bool, jobs=None) -> str:
+    """The victim label :func:`build_case` gives a (victim, phased, jobs)
+    request: scenario cache keys use it, so a key and its row agree."""
+    if jobs:
+        return victim_label(victim_coll or jobs[0].collective,
+                            bool(jobs[0].phased))
+    return victim_label(victim_coll, phased)
+
+
 def mean_iter_time(res, lat: float) -> float:
     """Reported per-iteration time of one summarized run: mean simulated
     iteration + analytic per-step latency + mean queueing delay; NaN when
@@ -162,23 +171,33 @@ class GridCase:
             self.job_names = ["victim", "aggressor"]
 
     def cell_params(self, vector_bytes: float, profile: cong.Profile,
-                    dt: float, n_flows: Optional[int] = None) -> SimParams:
+                    dt: float, n_flows: Optional[int] = None,
+                    with_fault_table: bool = False) -> SimParams:
         """One cell's parameters (no batch axis); ``n_flows`` pads the
         flow axis to a geometry bucket's width (pad flows: 0 bytes, never
-        alive, and a host cap of 1.0 so no divide sees 0)."""
-        if profile.faults or profile.node_cap_frac > 0:
-            raise NotImplementedError(
-                "fault events and the intra-node stage are not ported yet "
-                "(ROADMAP Queue 1: fault engine and intra-node stage)")
+        alive, and a host cap of 1.0 so no divide sees 0).
+
+        The profile's fault events become its fault table;
+        ``with_fault_table`` puts the inert all-``none`` table on a cell
+        without events, so it stacks with cells that have some. The
+        intra-node capacity is ``node_cap_frac`` times the case's fastest
+        NIC (its real flows only), or inf when the profile leaves the
+        stage off."""
         bpi = np.where(self.sweep_mask, self.unit_bytes * vector_bytes,
                        self.unit_bytes)
         host_caps = self.host_caps
         if n_flows is not None and n_flows > len(bpi):
             bpi = traffic.pad_rows(bpi, n_flows, 0.0)
             host_caps = traffic.pad_rows(host_caps, n_flows, 1.0)
+        fault = profile.fault_params()
+        if fault is None and with_fault_table:
+            fault = cong.no_fault_table()
+        node_cap = np.inf if profile.node_cap_frac <= 0 else \
+            float(profile.node_cap_frac) * float(np.max(self.host_caps))
         return make_params(self.system.cc, dt=dt, bytes_per_iter=bpi,
                            host_caps=host_caps, env=profile.params(),
-                           policy=self.policy)
+                           policy=self.policy, fault=fault,
+                           node_cap=node_cap)
 
     def lat(self) -> float:
         return cong.latency_model(self.victim_coll, self.n_victims)
@@ -190,12 +209,14 @@ def build_case(system: SystemPreset, n_nodes: int, victim_coll: str,
                phased: bool = False,
                jobs: Optional[Sequence[traffic.JobSpec]] = None,
                policy_tables: bool = False,
+               intra_node: bool = False,
                seed: int = 7) -> GridCase:
     """Build the flow program + geometry once for a whole grid of cells.
 
     Default: the paper's two-job victim/aggressor split; ``phased=True``
     lowers the victim's step schedule; ``jobs`` replaces the split with
-    an explicit multi-job program."""
+    an explicit multi-job program; ``intra_node`` arms the intra-node
+    stage in the geometry (each cell's ``node_cap`` sets its capacity)."""
     if topo is None:
         topo = machine_topology(system, n_nodes)
     if nodes is None:
@@ -222,7 +243,7 @@ def build_case(system: SystemPreset, n_nodes: int, victim_coll: str,
                                    k_max=system.k_max, phased=phased,
                                    policy_tables=policy_tables)
         n_victims = len(victims)
-    geom = make_geometry(topo, flows)
+    geom = make_geometry(topo, flows, intra_node=intra_node)
     return GridCase(system=system, n_nodes=n_nodes, victim_coll=victim_coll,
                     aggr_coll=aggr_coll, topo=topo, geom=geom,
                     unit_bytes=flows.bytes_per_iter.copy(),
@@ -341,12 +362,18 @@ def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
                               jobs=jobs, device=device, core=core)
     device = resolve_device(device)
     check_iter_budget(n_iters)
+    # a cell with faults puts the inert table on the others (cells stack
+    # only with one layout); a node-capped cell arms the intra-node stage
+    # for the whole case (inert at inf)
+    with_ft = cong.needs_fault_table(profiles)
     case = build_case(system, n_nodes, victim_coll, aggr_coll,
-                      phased=phased, jobs=jobs)
+                      phased=phased, jobs=jobs,
+                      intra_node=any(p.node_cap_frac > 0 for p in profiles))
     dts = _cell_dts(case, sizes, len(profiles), dt, case.lat())
     cells = [(float(v), prof) for v in sizes
              for prof in [cong.no_congestion()] + list(profiles)]
-    params = stack_params([case.cell_params(v, prof, d)
+    params = stack_params([case.cell_params(v, prof, d,
+                                            with_fault_table=with_ft)
                            for (v, prof), d in zip(cells, dts)])
     max_chunks = -(-max_steps // chunk)
     out = run_cells(case.geom, params, n_iters, chunk=chunk,
@@ -434,8 +461,11 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
     overlap)."""
     device = resolve_device(device)
     check_iter_budget(n_iters)
+    with_ft = cong.needs_fault_table(profiles)
+    intra = any(p.node_cap_frac > 0 for p in profiles)
     cases = [build_case(get_system(s) if isinstance(s, str) else s, int(n),
-                        victim_coll, aggr_coll, phased=phased, jobs=jobs)
+                        victim_coll, aggr_coll, phased=phased, jobs=jobs,
+                        intra_node=intra)
              for s, n in cells]
     sizes, profiles = tuple(sizes), tuple(profiles)
     if not cases:
@@ -447,7 +477,8 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
     sub_cells = [(float(v), prof) for v in sizes
                  for prof in [cong.no_congestion(), *profiles]]
     params = stack_params([
-        stack_params([case.cell_params(v, prof, d, n_flows=dims.n_flows)
+        stack_params([case.cell_params(v, prof, d, n_flows=dims.n_flows,
+                                       with_fault_table=with_ft)
                       for (v, prof), d in zip(sub_cells, all_dts[k])])
         for k, case in enumerate(cases)])
     out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
@@ -491,16 +522,20 @@ def run_point(system: SystemPreset, n_nodes: int, victim_coll: str,
     batched as a 2-cell grid. ``seed`` picks the allocation draw."""
     device = resolve_device(device)
     check_iter_budget(n_iters)
+    with_ft = cong.needs_fault_table([profile])
     case = build_case(system, n_nodes, victim_coll, aggr_coll,
-                      phased=phased, jobs=jobs, seed=seed)
+                      phased=phased, jobs=jobs, seed=seed,
+                      intra_node=profile.node_cap_frac > 0)
     lat = case.lat()
     if dt is None:
         dt = choose_dt(case.topo, case.n_victims, vector_bytes, lat,
                        n_phases=case.max_phases)
     chunk, stride = 2048, 8
     params = stack_params([
-        case.cell_params(vector_bytes, cong.no_congestion(), dt),
-        case.cell_params(vector_bytes, profile, dt)])
+        case.cell_params(vector_bytes, cong.no_congestion(), dt,
+                         with_fault_table=with_ft),
+        case.cell_params(vector_bytes, profile, dt,
+                         with_fault_table=with_ft)])
     out = run_cells(case.geom, params, n_iters, chunk=chunk,
                     max_chunks=-(-max_steps // chunk), stride=stride,
                     device=device, core=core)

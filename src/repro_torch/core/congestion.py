@@ -2,8 +2,9 @@
 
 * interleaved victim/aggressor node split (§III-A);
 * aggressor patterns: AlltoAll and Incast, run in an endless loop;
-* congestion profiles (steady, bursty, ramp, random, mixes), re-exported
-  from envelopes.py.
+* congestion profiles (steady, bursty, ramp, random, mixes) and link-fault
+  events (outage, flap, degrade, jitter, switch outage), re-exported from
+  envelopes.py.
 
 Every experiment is a program of jobs (traffic.JobSpec); the paper's
 victim/aggressor setup is the two-job special case. The functions here
@@ -20,12 +21,17 @@ from repro_torch.core import traffic
 from repro_torch.core.collectives import wire_bytes_model
 from repro_torch.core.envelopes import (ENV_COMPONENTS,  # noqa: F401
                                         FAULT_EVENTS, FAULT_FIELDS,
-                                        FaultEvent, Profile, bursty,
-                                        envelope_at, envelope_np,
-                                        fault_table, multi_tenant,
-                                        needs_fault_table, no_congestion,
-                                        no_fault_table, ramp, random_onoff,
-                                        steady)
+                                        GROUP_EDGE_DOWN, GROUP_EDGE_UP,
+                                        GROUP_FABRIC, GROUP_HOT,
+                                        GROUP_SWITCH, FaultEvent, Profile,
+                                        bursty, degrade, envelope_at,
+                                        envelope_np, fault_scale_at,
+                                        fault_table, flap, jitter,
+                                        multi_tenant, needs_fault_table,
+                                        no_congestion, no_fault_table,
+                                        outage, ramp, random_onoff, steady,
+                                        switch_outage, with_faults,
+                                        with_node_cap)
 from repro_torch.core.fabric.routing import assign_paths
 from repro_torch.core.fabric.simulator import FlowSet, pack_paths
 from repro_torch.core.fabric.topology import Topology

@@ -17,9 +17,13 @@ Component weights sum the contributions and the result is clipped to
 [0, 1]. Every component is evaluated in float32, so :func:`envelope_at`
 and the numpy mirror :func:`envelope_np` agree bit for bit.
 
-The link-fault table (:func:`fault_table`) is lowered here so profiles
-can carry it, but the per-step fault scale is not ported yet: the
-simulator step refuses a fault table.
+A fault table (:func:`fault_table`) is the per-link counterpart: up to
+:data:`FAULT_EVENTS` rows ``[kind, t_start, duration, severity,
+link_group, seed]`` (outages, flapping links, dying optics, jitter) that
+:func:`fault_scale_at` lowers, per cell and step, to a capacity scale in
+[FAULT_FLOOR, 1] on the links of the targeted structural groups. The
+simulator step multiplies the link capacities by it before kernel 1's
+launch. An all-``none`` table lowers to exactly 1.0.
 """
 from __future__ import annotations
 
@@ -118,17 +122,24 @@ def envelope_np(env: np.ndarray, t: np.ndarray) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Per-link fault tables (host side; the per-step scale is not ported yet)
+# Per-link fault envelopes (flapping links, dying optics)
 # --------------------------------------------------------------------------
 
-FAULT_NONE = 0
-FAULT_OUTAGE = 1
-FAULT_FLAP = 2
-FAULT_DEGRADE = 3
-FAULT_JITTER = 4
+FAULT_NONE = 0     # inert row
+FAULT_OUTAGE = 1   # hard capacity drop inside [t_start, t_start+duration)
+FAULT_FLAP = 2     # random telegraph: slots down with prob `severity`
+FAULT_DEGRADE = 3  # dying optic: linear decay over `duration`, persists
+FAULT_JITTER = 4   # per-slot random capacity wobble inside the window
 
 FAULT_EVENTS = 8   # fixed event slots per table
 FAULT_FIELDS = 6   # [kind, t_start, duration, severity, link_group, seed]
+
+# capacity scale floor: queueing delays divide by the scaled capacity, so
+# a fault never lowers a link to exactly 0
+FAULT_FLOOR = 2.0 ** -10
+
+# telegraph slot length of flap and jitter events (seconds)
+FLAP_SLOT_S = 250e-6
 
 # structural link groups (values of FabricGeometry.link_group)
 GROUP_NONE = 0
@@ -165,6 +176,43 @@ class FaultEvent:
                 f"@{self.t_start * 1e3:g}+{self.duration * 1e3:g}ms]")
 
 
+def outage(t_start: float, duration: float, severity: float = 1.0,
+           link_group: int = GROUP_HOT, seed: int = 1) -> FaultEvent:
+    """Hard capacity loss for the window (severity 1.0 = link down)."""
+    return FaultEvent("outage", t_start, duration, severity, link_group, seed)
+
+
+def flap(t_start: float, duration: float, duty: float = 0.3,
+         link_group: int = GROUP_HOT, seed: int = 1) -> FaultEvent:
+    """Flapping link: FLAP_SLOT_S slots inside the window go down (to
+    FAULT_FLOOR) with probability ``duty`` via the counter hash."""
+    return FaultEvent("flap", t_start, duration, duty, link_group, seed)
+
+
+def degrade(t_start: float, duration: float, severity: float = 0.8,
+            link_group: int = GROUP_HOT, seed: int = 1) -> FaultEvent:
+    """Dying optic: capacity decays linearly to ``1 - severity`` over
+    ``duration`` and stays degraded afterwards."""
+    return FaultEvent("degrade", t_start, duration, severity,
+                      link_group, seed)
+
+
+def jitter(t_start: float, duration: float, severity: float = 0.5,
+           link_group: int = GROUP_FABRIC, seed: int = 1) -> FaultEvent:
+    """Per-slot uniform capacity wobble in [1-severity, 1] inside the
+    window."""
+    return FaultEvent("jitter", t_start, duration, severity,
+                      link_group, seed)
+
+
+def switch_outage(t_start: float, duration: float, severity: float = 1.0,
+                  seed: int = 1) -> FaultEvent:
+    """The busiest switch loses (a fraction of) every incident link for
+    the window: GROUP_SWITCH, matched against ``link_sw_group``."""
+    return FaultEvent("outage", t_start, duration, severity,
+                      GROUP_SWITCH, seed)
+
+
 def fault_table(events=()) -> np.ndarray:
     """Lower events to the fixed (FAULT_EVENTS, FAULT_FIELDS) table;
     unused rows are ``none``."""
@@ -180,8 +228,74 @@ def fault_table(events=()) -> np.ndarray:
 
 
 def no_fault_table() -> np.ndarray:
-    """The all-``none`` table."""
+    """The all-``none`` table: its scale is exactly 1.0 on every link, so
+    capacities multiplied by it keep their bits. Grids put it on the cells
+    without faults when another cell has some."""
     return fault_table(())
+
+
+def fault_rows(fault: torch.Tensor) -> list:
+    """The event slots that are not ``none`` in some cell of a (B,
+    FAULT_EVENTS, FAULT_FIELDS) table, in slot order (host side)."""
+    kinds = fault[..., 0].cpu().to(torch.int32)
+    return [e for e in range(kinds.shape[-1])
+            if bool((kinds[:, e] != FAULT_NONE).any())]
+
+
+def fault_scale_at(fault: torch.Tensor, link_group: torch.Tensor,
+                   t: torch.Tensor, link_sw_group: torch.Tensor = None,
+                   rows=None) -> torch.Tensor:
+    """Per-link capacity scale at sim time ``t`` per cell.
+
+    ``fault`` is (B, FAULT_EVENTS, FAULT_FIELDS) float32, ``link_group``
+    and ``link_sw_group`` (B or 1, L+1) structural group ids and ``t``
+    (B,) float32; returns (B, L+1) float32 in [FAULT_FLOOR, 1]. A row
+    matches a link through either group array. Matching rows multiply in
+    slot order (rows that match nowhere contribute an exact 1.0), so the
+    result equals the reference's product bit for bit wherever at most
+    two non-unit factors meet on a link. ``rows`` (:func:`fault_rows`)
+    names the slots to evaluate; slots that are ``none`` in every cell
+    scale nothing and may be left out."""
+    if rows is None:
+        rows = range(fault.shape[1])
+    B, L1 = t.shape[0], link_group.shape[-1]
+    out = torch.ones((B, L1), dtype=torch.float32, device=t.device)
+    if not len(rows):
+        return out
+    f = fault[:, list(rows)]
+    kind = f[..., 0].to(torch.int32)
+    t0, dur, sev = f[..., 1], f[..., 2], f[..., 3]
+    grp = f[..., 4].to(torch.int32)
+    rel = t[:, None] - t0
+    in_win = (rel >= 0.0) & (rel < dur)
+    # telegraph slot of flap and jitter rows, in float32 throughout: the
+    # slot length rounded to float32 first and a true division (a
+    # float64 quotient, or a product with the reciprocal, can floor into
+    # the next slot); rel clamped to >= 0 so the quotient stays in range
+    slot_s = torch.tensor(FLAP_SLOT_S, dtype=torch.float32, device=t.device)
+    slot = _py_mod(torch.floor(torch.clamp_min(rel, 0.0) / slot_s),
+                   2.0 ** 32).to(torch.int64)
+    h_hi, _ = splitmix64_hilo(f[..., 5].to(torch.int64), slot)
+    u = ((h_hi >> 8) & 0xFFFFFF).to(torch.float32) / float(0x1000000)
+    one = torch.ones_like(sev)
+    ramp_in = torch.clamp(rel / torch.clamp_min(dur, 1e-9), 0.0, 1.0)
+    s = torch.where(kind == FAULT_OUTAGE, torch.where(in_win, 1.0 - sev, one),
+        torch.where(kind == FAULT_FLAP,  # noqa: E128
+                    torch.where(in_win & (u < sev), 0.0, one),
+        torch.where(kind == FAULT_DEGRADE,  # noqa: E128
+                    torch.where(rel >= 0.0, 1.0 - sev * ramp_in, one),
+        torch.where(kind == FAULT_JITTER,  # noqa: E128
+                    torch.where(in_win, 1.0 - sev * u, one), one))))
+    s = torch.clamp_min(s, FAULT_FLOOR)
+    live = (kind != FAULT_NONE)[..., None]
+    lg = link_group.to(torch.int32)[:, None, :]
+    match = (grp[..., None] == lg) & live & (lg != GROUP_NONE)
+    if link_sw_group is not None:
+        sg = link_sw_group.to(torch.int32)[:, None, :]
+        match = match | ((grp[..., None] == sg) & live & (sg != GROUP_NONE))
+    for e in range(len(rows)):
+        out = out * torch.where(match[:, e], s[:, e, None], 1.0)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -290,6 +404,19 @@ def multi_tenant(*weighted: Tuple[Profile, float]) -> Profile:
     return Profile("mix", components=tuple(weighted))
 
 
+def with_faults(profile: Profile, *events: FaultEvent) -> Profile:
+    """The profile with link-fault events appended to its lane."""
+    return dataclasses.replace(profile,
+                               faults=tuple(profile.faults) + tuple(events))
+
+
+def with_node_cap(profile: Profile, frac: float) -> Profile:
+    """The profile with the intra-node stage armed at ``frac`` x the NIC
+    rate (NVLink/PCIe contention ahead of the NIC)."""
+    return dataclasses.replace(profile, node_cap_frac=float(frac))
+
+
 def needs_fault_table(profiles) -> bool:
-    """True when any lane of a grid carries fault events."""
+    """True when any lane of a grid carries fault events: then every lane
+    carries a table (the inert one if need be) so the cells stack."""
     return any(p.faults for p in profiles)

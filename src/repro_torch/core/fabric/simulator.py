@@ -4,7 +4,10 @@ Multi-job flow programs (traffic.py) traverse a :class:`Topology` under
 a congestion-control model (cc.py) and a routing policy. Each step:
 
   1. injection demand from per-flow CC rate limits, gated by phase
-     membership and the aggressor envelope,
+     membership and the aggressor envelope; with a fault table, the link
+     capacities scaled by the cell's fault events at sim time t; with the
+     intra-node stage armed, each source's flows sharing its node's
+     internal bandwidth ahead of the NIC,
   2. per-flow path choice by the cell's routing policy (fixed / ECMP /
      NSLB tables, adaptive min-queue, flowlet re-pathing),
   3. the fused step core (kernels: NIC limit, backpressure stall, staged
@@ -36,7 +39,8 @@ import torch
 
 from repro_torch.core.envelopes import (ENV_RANDOM, GROUP_EDGE_DOWN,
                                         GROUP_EDGE_UP, GROUP_FABRIC,
-                                        GROUP_HOT, GROUP_SWITCH, envelope_at)
+                                        GROUP_HOT, GROUP_SWITCH, envelope_at,
+                                        fault_rows, fault_scale_at)
 from repro_torch.core.fabric.cc import (KIND_AI_ECN, KIND_DCQCN, KIND_IB,
                                         KIND_SLINGSHOT)
 from repro_torch.core.fabric.routing import (POLICY_ADAPTIVE, POLICY_ECMP,
@@ -218,6 +222,8 @@ class FabricGeometry:
         # the adaptive score's gather index into a cell's queue row: one
         # row, or one a cell
         derived["paths_idx"] = self.paths.reshape(-1, F * K * H).to(_I64)
+        if self.intra_node:
+            derived["src_flows"] = source_table(self.src_id, self.n_src)
         for k, v in derived.items():
             object.__setattr__(self, k, v)
 
@@ -265,6 +271,43 @@ class FabricGeometry:
                       for k, dt in GEOMETRY_FIELDS.items()},
                    L=int(L), n_sw=int(n_sw), n_src=int(n_src),
                    n_jobs=int(n_jobs), intra_node=int(intra_node))
+
+
+def source_table(src_id: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Each source's flows, for sums in a fixed order: (R, n_src, W)
+    int64 flow ids, R the rows of ``src_id`` ((F,) is one row), each
+    source's flows in flow order and padded with F, an index past the
+    last flow that reads a 0 (:func:`source_sums`). W is a power of two,
+    so a source's pairwise sum keeps its bits whatever W a bucket's other
+    rows force."""
+    F = src_id.shape[-1]
+    s = src_id.reshape(-1, F).to(_I64)
+    R, dev = s.shape[0], s.device
+    order = torch.argsort(s, dim=1, stable=True)
+    grouped = s.gather(1, order)
+    counts = torch.zeros((R, n_src), dtype=_I64, device=dev).scatter_add_(
+        1, s, torch.ones_like(s))
+    width = 1 << max(0, int(counts.max()) - 1).bit_length() if F else 1
+    start = torch.cumsum(counts, 1) - counts
+    pos = torch.arange(F, device=dev) - start.gather(1, grouped)
+    table = torch.full((R, n_src, width), F, dtype=_I64, device=dev)
+    table[torch.arange(R, device=dev)[:, None], grouped, pos] = order
+    return table
+
+
+def source_sums(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B, F) per-flow values summed per source, (B, n_src): the flows of
+    :func:`source_table` gathered and folded as a pairwise tree,
+    ((x0 + x1) + (x2 + x3)) + ..., the same elementwise adds on the CPU
+    and the card and no float atomics (``index_add_`` would use them)."""
+    B, F = x.shape
+    _, n_src, width = table.shape
+    padded = torch.nn.functional.pad(x, (0, 1))  # index F reads 0
+    g = padded.gather(1, table.reshape(-1, n_src * width).expand(B, -1)) \
+        .view(B, n_src, width)
+    while g.shape[-1] > 1:
+        g = g[..., 0::2] + g[..., 1::2]
+    return g[..., 0]
 
 
 def make_geometry(topo: Topology, flows: FlowSet, prune: bool = True,
@@ -510,8 +553,11 @@ class SimParams:
     flowlet_gap_s: torch.Tensor
     flow_start: torch.Tensor  # () or (F,) seconds
     fct_mask: torch.Tensor  # () or (F,)
-    fault: Optional[torch.Tensor]  # fault table or None (not ported)
-    node_cap: torch.Tensor  # intra-node stage capacity (not ported)
+    # link-fault table (FAULT_EVENTS, FAULT_FIELDS) or None; None keeps the
+    # step free of the fault stage, the all-``none`` table scales by 1.0
+    fault: Optional[torch.Tensor]
+    # intra-node stage capacity, () or (n_src,) bytes/s; inf = inert
+    node_cap: torch.Tensor
     kind: torch.Tensor  # () or (F,) cc.KIND_*
     qmax_bytes: torch.Tensor
     kmin: torch.Tensor
@@ -655,6 +701,8 @@ def run_constants(p: SimParams) -> dict:
                                            p.hol_start, p.burst_jitter),
         "policies": policies, "kinds": kinds,
         "has_random": bool((p.env[..., 0].cpu() == ENV_RANDOM).any()),
+        # fault-table slots that are not ``none`` in some cell
+        "fault_rows": None if p.fault is None else fault_rows(p.fault),
     }
 
 
@@ -736,14 +784,6 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
                with_aux: bool, core: Optional[str] = None,
                consts: Optional[dict] = None):
     global step_count
-    if p.fault is not None:
-        raise NotImplementedError(
-            "link-fault tables are not ported yet (ROADMAP Queue 1: fault "
-            "engine and intra-node stage)")
-    if geom.intra_node:
-        raise NotImplementedError(
-            "the intra-node stage is not ported yet (ROADMAP Queue 1: "
-            "fault engine and intra-node stage)")
     step_count += 1
     if consts is None:
         consts = run_constants(p)
@@ -763,6 +803,31 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     active = (geom.is_victim | (env_t > 0)) & alive
     gate = torch.where(geom.is_victim, 1.0, env_t) * alive
     inject = state["c"] * gate
+
+    # ---- link-fault engine ----
+    # the per-link capacity scale at sim time t, applied outside the
+    # kernel launch: kernel 1 reads the scaled capacities as its per-cell
+    # caps operand. Without a table the step has none of these operations;
+    # the all-``none`` table scales by exactly 1.0.
+    caps_lk = geom.caps_finite
+    if p.fault is not None:
+        caps_lk = caps_lk * fault_scale_at(
+            p.fault, geom.link_group.view(-1, geom.L + 1), t,
+            geom.link_sw_group.view(-1, geom.L + 1),
+            rows=consts["fault_rows"])
+
+    # ---- intra-node stage (NVLink/PCIe ahead of the NIC) ----
+    # a source's flows share its node's internal bandwidth in proportion
+    # to their demand, one stage before the NIC limit; node_cap == inf
+    # scales by exactly 1.0. Each source's load is summed in a fixed
+    # order (source_sums), so a cell's bits do not depend on the batch.
+    if geom.intra_node:
+        nload = source_sums(inject, geom.src_flows)
+        ncap = p.node_cap if p.node_cap.dim() == 2 else p.node_cap[:, None]
+        nscale = torch.minimum(torch.ones_like(nload),
+                               ncap / torch.clamp_min(nload, 1.0))
+        inject = inject * nscale.gather(
+            1, geom.src_id.to(_I64).expand(B, F))
 
     # ---- routing: the cell's policy selects one candidate table ----
     # Static tables are read as they are; the dynamic policies score
@@ -802,7 +867,7 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     # ---- fused step core (kernels/) ----
     out = kernel_ops.fabric_step_core(
         plinks, inject, geom.src_id, p.host_caps, state["q"], occ,
-        geom.caps_finite, geom.src_sw, geom.dst_sw, dt, p.qmax_bytes,
+        caps_lk, geom.src_sw, geom.dst_sw, dt, p.qmax_bytes,
         p.hol_factor, p.hol_start, p.burst_jitter, n_src=geom.n_src,
         n_sw=geom.n_sw, with_aux=with_aux, core=core or "kernel",
         scalars=consts["scalars"])
@@ -866,8 +931,9 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     # the gap between iterations of the primary job partially drains queues
     q = torch.where(wrap[:, :1], q * p.iter_drain[:, None], q)
 
-    # queueing delay experienced by victim flows (seconds)
-    qdel = torch.where(valid, (q / geom.caps_finite).gather(1, pl_flat)
+    # queueing delay experienced by victim flows (seconds), against the
+    # fault-scaled capacity: a degraded link serves its queue slower
+    qdel = torch.where(valid, (q / caps_lk).gather(1, pl_flat)
                        .view(B, F, H), 0.0).amax(dim=2)
     mean_qdel, vict_goodput = victim_sums(
         [qdel * geom.is_victim, a * geom.is_victim], geom.victim_end)

@@ -7,7 +7,11 @@ baseline/congested cell batched; or, with ``cells``, one scale-batched
 script interprets. The port registers the paper's figures: Fig. 1 (ring
 AllReduce breakdown), Fig. 3 (self-congestion sawtooth), Fig. 4 (NSLB
 on/off), Fig. 5 (steady congestion at scale), Fig. 6 (bursty congestion)
-and Figs. 7-8 (bursty congestion at larger scale).
+and Figs. 7-8 (bursty congestion at larger scale); and the families
+beyond the paper: congestion shapes (``ramp_onset``, ``random_telegraph``,
+``multi_tenant``), traffic programs (``phased_collectives``,
+``multi_job_mix``), scale-batched sweeps (``scale_sweep``,
+``mixed_topology``) and faults (``link_fault``, ``intra_node``).
 """
 from __future__ import annotations
 
@@ -217,3 +221,268 @@ def run_fig4_point(mode: str, vector_bytes: float, *, device=None,
     return bench.run_point(sysp, 8, "alltoall", "alltoall",
                            float(vector_bytes), cong.steady(), n_iters=25,
                            warmup=5, device=device, core=core)
+
+
+# --------------------------------------------------------------------------
+# Beyond-paper congestion shapes
+# --------------------------------------------------------------------------
+
+
+@register
+def ramp_onset(quick: bool = False) -> Scenario:
+    """Congestion onset: aggressors ramp from idle to full blast, probing
+    how fast each fabric's CC walks victims down as pressure builds."""
+    ramps = (cong.ramp(1e-3), cong.ramp(8e-3), cong.ramp(32e-3),
+             cong.steady())
+    sysnames = ("leonardo", "lumi") if quick else FIG5_SYSTEMS
+    sizes = (2 * MiB,) if quick else (32 * KiB, 2 * MiB)
+    grids = tuple(Grid(s, 32, a, sizes, ramps)
+                  for s in sysnames for a in ("incast",))
+    return Scenario(
+        "ramp_onset",
+        "Aggressor intensity ramps 0 -> 1 over 1/8/32 ms (vs steady): "
+        "congestion-onset response per fabric.",
+        grids)
+
+
+@register
+def random_telegraph(quick: bool = False) -> Scenario:
+    """Irregular bursts with the same mean duty cycle as Fig. 6's periodic
+    ones: periodic vs random arrival of congestion."""
+    pairs = ((2.0, 0.2), (2.0, 8.0)) if quick else \
+        ((0.5, 0.2), (2.0, 0.2), (2.0, 8.0), (8.0, 8.0))
+    profiles = []
+    for b, p in pairs:
+        profiles.append(cong.bursty(b * 1e-3, p * 1e-3))
+        profiles.append(cong.random_onoff(b * 1e-3, p * 1e-3, seed=1))
+    sysnames = ("cresco8", "leonardo") if quick else FIG5_SYSTEMS
+    grids = tuple(Grid(s, 32, "incast", (2 * MiB,), tuple(profiles))
+                  for s in sysnames)
+    return Scenario(
+        "random_telegraph",
+        "Periodic vs random on/off aggressors at matched duty cycles.",
+        grids)
+
+
+@register
+def multi_tenant(quick: bool = False) -> Scenario:
+    """Several aggressor tenants with different burst periods share the
+    aggressor nodes; their envelopes blend into a fractional intensity
+    whose duty cycle matches a single mid-period tenant."""
+    tenants = cong.multi_tenant(
+        (cong.bursty(0.5e-3, 0.5e-3), 1 / 3),
+        (cong.bursty(2e-3, 2e-3), 1 / 3),
+        (cong.random_onoff(4e-3, 4e-3, seed=3), 1 / 3))
+    profiles = (tenants, cong.bursty(2e-3, 2e-3), cong.steady())
+    sysnames = ("leonardo", "lumi") if quick else FIG5_SYSTEMS
+    grids = tuple(Grid(s, 32, a, (2 * MiB,), profiles)
+                  for s in sysnames for a in ("alltoall", "incast"))
+    return Scenario(
+        "multi_tenant",
+        "Three desynchronized tenant envelopes blended at 1/3 weight each "
+        "vs a single 50%-duty tenant vs steady.",
+        grids)
+
+
+# --------------------------------------------------------------------------
+# Traffic-program families (phased schedules, multi-job mixes)
+# --------------------------------------------------------------------------
+
+
+@register
+def phased_collectives(quick: bool = False) -> Scenario:
+    """Phased vs flattened lowering of the same victim under the same
+    aggressor; the paired grids share (system, victim, aggressor, sizes),
+    so the ratio delta isolates the schedule."""
+    sysnames = ("leonardo", "cresco8") if quick else FIG5_SYSTEMS
+    victims = ("alltoall",) if quick else ("ring_allreduce", "alltoall")
+    sizes = (2 * MiB,) if quick else (32 * KiB, 2 * MiB)
+    profiles = (cong.steady(),) if quick else \
+        (cong.steady(), cong.bursty(2e-3, 2e-3))
+    grids = []
+    for s in sysnames:
+        for a in FIG5_AGGRESSORS:
+            for v in victims:
+                for ph in (False, True):
+                    grids.append(Grid(s, 32, a, sizes, profiles,
+                                      victim=v, phased=ph))
+    return Scenario(
+        "phased_collectives",
+        "Phased (barrier-gated step schedules) vs flattened victim "
+        "lowerings under steady/bursty aggressors.",
+        tuple(grids), n_iters=15, warmup=3)
+
+
+def _mix_jobs(kind: str) -> Tuple[JobSpec, ...]:
+    """Canned programs of two or more jobs. Job 0 is the measured
+    primary; background jobs are envelope-gated, so the per-size baseline
+    cell (envelope off) isolates the primary job on the same
+    allocation."""
+    if kind == "training_vs_training":
+        return (JobSpec("train_a", "ring_allreduce", phased=True),
+                JobSpec("train_b", "ring_allreduce", vector_bytes=2 * MiB,
+                        phased=True, envelope_gated=True,
+                        sweep_bytes=False))
+    if kind == "training_vs_incast":
+        return (JobSpec("train", "ring_allreduce", phased=True),
+                JobSpec("incast_job", "incast", endless=True,
+                        envelope_gated=True, sweep_bytes=False))
+    if kind == "four_tenant":
+        return (JobSpec("tenant0", "ring_allreduce", phased=True),) + tuple(
+            JobSpec(f"tenant{i}", "ring_allreduce", vector_bytes=2 * MiB,
+                    phased=True, envelope_gated=True, sweep_bytes=False)
+            for i in range(1, 4))
+    raise KeyError(kind)
+
+
+@register
+def multi_job_mix(quick: bool = False) -> Scenario:
+    """Concurrent-job interference: a phased training job measured
+    against a second training tenant, an endless incast tenant and a
+    4-tenant fair share, per-job iteration times in ``job_times``."""
+    sysnames = ("leonardo",) if quick else ("leonardo", "lumi", "cresco8")
+    mixes = ("training_vs_training", "training_vs_incast") if quick else \
+        ("training_vs_training", "training_vs_incast", "four_tenant")
+    sizes = (2 * MiB,) if quick else (32 * KiB, 2 * MiB)
+    profiles = (cong.steady(),) if quick else \
+        (cong.steady(), cong.bursty(2e-3, 2e-3))
+    grids = tuple(Grid(s, 32, mix, sizes, profiles,
+                       victim="ring_allreduce", jobs=_mix_jobs(mix))
+                  for s in sysnames for mix in mixes)
+    return Scenario(
+        "multi_job_mix",
+        "Multi-job fabric sharing: training-vs-training, training-vs-"
+        "incast, and N-tenant fair-share mixes (job 0 measured; "
+        "background tenants envelope-gated).",
+        grids, n_iters=12, warmup=3)
+
+
+# --------------------------------------------------------------------------
+# Scale-batched families (heterogeneous topologies in one batch)
+# --------------------------------------------------------------------------
+
+
+@register
+def scale_sweep(quick: bool = False) -> Scenario:
+    """How congestion impact changes with system size, one scale-batched
+    run per aggressor: an EDR/HDR/NDR/Slingshot x {16..512}-node ladder
+    of (system, n_nodes) cells padded into one bucket."""
+    if quick:
+        cells = tuple((s, n) for s in ("cresco8", "lumi")
+                      for n in (16, 64))
+        sizes: Tuple[float, ...] = (2 * MiB,)
+        profiles: Tuple[Profile, ...] = (cong.steady(),)
+        aggrs = ("alltoall",)
+    else:
+        cells = tuple((s, n)
+                      for s in ("haicgu_ib", "leonardo", "cresco8", "lumi")
+                      for n in (16, 32, 64, 128, 256, 512))
+        sizes = (32 * KiB, 2 * MiB)
+        profiles = (cong.steady(), cong.bursty(2e-3, 2e-3))
+        aggrs = FIG5_AGGRESSORS
+    grids = tuple(Grid("scale", 0, a, sizes, profiles, cells=cells)
+                  for a in aggrs)
+    return Scenario(
+        "scale_sweep",
+        "Cross-scale congestion: EDR/HDR/NDR/Slingshot x 16..512 nodes "
+        "per aggressor, scale-batched (one compile per geometry bucket).",
+        grids, n_iters=15, warmup=3)
+
+
+@register
+def mixed_topology(quick: bool = False) -> Scenario:
+    """Topology families at matched allocation size (single switch,
+    leaf-spine, blocking fat-tree, Dragonfly, Dragonfly+) in one
+    scale-batched run: the ratio spread isolates what the fabric's
+    structure contributes under the same victim/aggressor program."""
+    n = 16 if quick else 32
+    names = ("haicgu_ib", "cresco8", "lumi") if quick else \
+        ("haicgu_ib", "nanjing_nslb", "cresco8", "lumi", "leonardo")
+    cells = tuple((s, n) for s in names)
+    sizes = (2 * MiB,) if quick else (32 * KiB, 2 * MiB)
+    profiles = (cong.steady(),) if quick else \
+        (cong.steady(), cong.bursty(2e-3, 2e-3))
+    aggrs = ("incast",) if quick else FIG5_AGGRESSORS
+    grids = tuple(Grid("mixed", 0, a, sizes, profiles, cells=cells)
+                  for a in aggrs)
+    return Scenario(
+        "mixed_topology",
+        "Heterogeneous topology families (single-switch / leaf-spine / "
+        "fat-tree / dragonfly / dragonfly+) at one scale, batched into "
+        "geometry buckets.",
+        grids, n_iters=15, warmup=3)
+
+
+# --------------------------------------------------------------------------
+# Fault families (link faults, the intra-node stage)
+# --------------------------------------------------------------------------
+
+
+@register
+def link_fault(quick: bool = False) -> Scenario:
+    """Link failures and degradation as time-varying per-link capacity:
+    a flapping hot link, a dying optic (a linear decay that persists),
+    fabric-wide jitter, a hard outage and a switch outage, each on an
+    otherwise clean fabric, plus a flap under live incast congestion.
+    Scale-batched."""
+    hot_flap = cong.with_faults(
+        cong.no_congestion(), cong.flap(0.2e-3, 20e-3, duty=0.3, seed=5))
+    dying_optic = cong.with_faults(
+        cong.no_congestion(), cong.degrade(0.2e-3, 1.5e-3, severity=0.7))
+    fabric_jitter = cong.with_faults(
+        cong.no_congestion(),
+        cong.jitter(0.2e-3, 20e-3, severity=0.6,
+                    link_group=cong.GROUP_FABRIC, seed=9))
+    flap_under_incast = cong.with_faults(
+        cong.steady(), cong.flap(0.2e-3, 20e-3, duty=0.3, seed=5))
+    if quick:
+        cells = (("leonardo", 16), ("lumi", 16))
+        clean_profiles = (hot_flap, dying_optic)
+        sizes: Tuple[float, ...] = (2 * MiB,)
+    else:
+        cells = (("leonardo", 16), ("leonardo", 64), ("lumi", 16),
+                 ("lumi", 64), ("cresco8", 16))
+        clean_profiles = (hot_flap, dying_optic, fabric_jitter,
+                          cong.with_faults(
+                              cong.no_congestion(),
+                              cong.outage(0.5e-3, 2e-3, severity=1.0)),
+                          cong.with_faults(
+                              cong.no_congestion(),
+                              cong.switch_outage(0.5e-3, 2e-3,
+                                                 severity=0.9)))
+        sizes = (256 * KiB, 2 * MiB)
+    grids = (
+        # no aggressor: every flow is the victim's, so GROUP_HOT is the
+        # victim's own most-traversed link
+        Grid("fault", 0, "", sizes, clean_profiles, cells=cells),
+        # the hot link flaps while incast runs
+        Grid("fault", 0, "incast", sizes, (flap_under_incast,),
+             cells=cells[:2] if quick else cells),
+    )
+    return Scenario(
+        "link_fault",
+        "Flapping hot link, dying optic, fabric jitter and hard outage "
+        "as per-link capacity envelopes, alone and compounding incast.",
+        grids, n_iters=12, warmup=3)
+
+
+@register
+def intra_node(quick: bool = False) -> Scenario:
+    """Intra-node (NVLink/PCIe) contention: a proportional-share stage
+    ahead of the NIC, swept over the node-capacity fraction. AlltoAll
+    victims put many concurrent flows on each node, so the stage becomes
+    the bottleneck as the fraction drops."""
+    fracs = (1.0, 0.5, 0.25) if quick else (2.0, 1.0, 0.5, 0.25)
+    profiles = tuple(cong.with_node_cap(cong.no_congestion(), f)
+                     for f in fracs)
+    cells = (("leonardo", 16), ("lumi", 16)) if quick else \
+        (("leonardo", 16), ("leonardo", 32), ("lumi", 16), ("lumi", 32),
+         ("cresco8", 16))
+    sizes = (1 * MiB,) if quick else (256 * KiB, 1 * MiB)
+    grids = (Grid("intra", 0, "", sizes, profiles, victim="alltoall",
+                  cells=cells),)
+    return Scenario(
+        "intra_node",
+        "Intra-node (NVLink/PCIe) stage contention: AlltoAll victims vs "
+        "a swept per-node capacity fraction ahead of the NIC.",
+        grids, n_iters=12, warmup=3)

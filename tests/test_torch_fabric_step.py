@@ -461,6 +461,34 @@ def test_order_model_on_a_cluster_matches_plain(cluster, with_aux):
                          cluster)
 
 
+def _fault_cells(seed):
+    """leonardo/64/incast's cells with each cell's own link capacities, as
+    the engine's fault stage gives them: a tenth of the links at
+    FAULT_FLOOR, a fifth degraded, the sink at 1.0."""
+    from repro_torch.core.envelopes import FAULT_FLOOR
+    cells, scalars, n_src, n_sw = _grid_cells(*SLICES["leonardo/64/incast"],
+                                              seed=seed)
+    rng = np.random.RandomState(seed)
+    for c in cells:
+        L1 = len(c["caps_finite"])
+        scale = np.ones(L1, np.float32)
+        u = rng.rand(L1 - 1)
+        scale[:-1][u < 0.3] = rng.uniform(0.3, 1.0, (u < 0.3).sum())
+        scale[:-1][u < 0.1] = FAULT_FLOOR
+        c["caps_finite"] = (c["caps_finite"] * scale).astype(np.float32)
+    assert not np.array_equal(cells[0]["caps_finite"],
+                              cells[1]["caps_finite"])
+    return cells, scalars, n_src, n_sw
+
+
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_matches_plain_with_fault_scaled_caps(with_aux):
+    """Per-cell capacities, some links at FAULT_FLOOR (the engine's fault
+    stage): the kernel's order model within §13 of the plain version."""
+    cells, scalars, n_src, n_sw = _fault_cells(300)
+    _hold_model_to_plain(cells, scalars, n_src, n_sw, with_aux, 1)
+
+
 def test_order_model_is_not_the_plain_order():
     """The model's butterfly is a different order from the plain
     version's: with segments longer than SERIAL_MAX some bits differ (the
@@ -653,6 +681,37 @@ def test_kernel_zero_capacity_nan_pattern_on_card():
     for k in OUTS:
         g, w = got[k][0].cpu().numpy(), want[k][0].numpy()
         np.testing.assert_array_equal(g, w, err_msg=k)  # NaN where w has
+
+
+@pytest.mark.cuda
+def test_kernel_with_fault_scaled_caps_on_card():
+    """Per-cell fault-scaled capacities (some at FAULT_FLOOR) as kernel
+    1's caps operand: within §13 of the plain version, bit-equal to the
+    order model, ten launches bit-equal, each cell alone bit-equal to its
+    row of the batch, in the shared and the wide layout."""
+    _needs_card()
+    cells, scalars, n_src, n_sw = _fault_cells(300)
+    args, kw = _card_tensors(cells, scalars, n_src, n_sw)
+    assert args[6].shape == (len(cells), len(cells[0]["caps_finite"]))
+    cfg = tfs.launch_config(len(cells), *args[0].shape[1:],
+                            args[4].shape[1], n_src, n_sw, True)
+    want = _plain_cells(cells, scalars, n_src, n_sw, True)
+    for wide in (False, True):
+        runs = [tfs.fabric_step_core(*args, with_aux=True, wide=wide, **kw)
+                for _ in range(10)]
+        for run in runs[1:]:
+            for k in OUTS:
+                assert torch.equal(_bits(run[k]), _bits(runs[0][k])), k
+        for b, (c, sc) in enumerate(zip(cells, scalars)):
+            alone = tfs.fabric_step_core(*[a[b:b + 1] for a in args],
+                                         with_aux=True, wide=wide, **kw)
+            model = _order_model(c, sc, n_src, n_sw, True, cfg.cluster)
+            for k in OUTS:
+                assert torch.equal(_bits(alone[k][0]), _bits(runs[0][k][b]))
+                np.testing.assert_array_equal(runs[0][k][b].cpu().numpy(),
+                                              model[k], err_msg=k)
+                np.testing.assert_allclose(runs[0][k][b].cpu().numpy(),
+                                           want[k][b].numpy(), **FS_TOL)
 
 
 # ---- the wide layout: rows in a global-memory workspace ----

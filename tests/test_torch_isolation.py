@@ -54,6 +54,8 @@ def test_port_imports_without_jax_or_reference():
                for f in _driver_files()]
     assert "benchmarks.pt_run" in drivers
     assert "benchmarks.pt_fig1_breakdown" in drivers
+    assert "benchmarks.pt_new_scenarios" in drivers
+    assert "benchmarks.pt_fault_scenarios" in drivers
     mods = mods + drivers
     assert "benchmarks.pt_serve" in mods
     assert "benchmarks.pt_train" in mods

@@ -13,9 +13,10 @@ def test_pt_run_fig1_on_cpu_and_refuses_unported(tmp_path, capsys):
                         "--cache-dir", str(tmp_path)]) == 0
     assert (tmp_path / "fig1_breakdown.csv").exists()
     assert "fig1[1048576]" in capsys.readouterr().out
-    for name in ("scenarios", "collectives"):
+    for name in ("collectives",):
         assert pt_run.main(["--only", name]) != 0
         assert "ROADMAP" in capsys.readouterr().err
+    assert "scenarios" in pt_run.PORTED and "faults" in pt_run.PORTED
 
 
 def test_drivers_default_to_the_card():

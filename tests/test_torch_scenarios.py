@@ -1,0 +1,221 @@
+"""The port's beyond-paper scenario families against the JAX package: the
+nine registry entries field for field, the victim label of a cache key,
+grids of the multi-job, phased, random-telegraph and multi-tenant
+families (iteration counts equal, times within 2%), and the figure
+runner's ``scenarios`` and ``faults`` on a cut-down registry. Small
+sizes on the CPU, where every kernel call runs its plain version."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import bench as jbench  # noqa: E402
+from repro.core import scenarios as jscen  # noqa: E402
+from repro.core import traffic as jtraffic  # noqa: E402
+from repro_torch.core import bench as tbench  # noqa: E402
+from repro_torch.core import scenarios as tscen  # noqa: E402
+from repro_torch.core import traffic as ttraffic  # noqa: E402
+
+KiB = 2 ** 10
+# steps a chunk in the grid runs here: a cell stops within this many
+# steps of its last iteration, in both packages alike
+CHUNK = 64
+FAMILIES = ("ramp_onset", "random_telegraph", "multi_tenant",
+            "phased_collectives", "multi_job_mix", "scale_sweep",
+            "mixed_topology", "link_fault", "intra_node")
+
+
+def _profile_fields(p):
+    return (p.label(), p.kind, p.burst_s, p.pause_s, p.seed,
+            p.node_cap_frac, tuple(dataclasses.astuple(e) for e in p.faults),
+            tuple((c.label(), w) for c, w in p.components))
+
+
+@pytest.mark.parametrize("quick", [True, False])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_registry_entries_match_reference(name, quick):
+    ts, js = tscen.get(name, quick), jscen.get(name, quick)
+    assert (ts.name, ts.description, ts.n_iters, ts.warmup, ts.points) == \
+        (js.name, js.description, js.n_iters, js.warmup, js.points)
+    assert len(ts.grids) == len(js.grids) > 0
+    for tg, jg in zip(ts.grids, js.grids):
+        assert (tg.system, tg.n_nodes, tg.aggressor, tg.sizes, tg.victim,
+                tg.phased, tg.cells) == \
+            (jg.system, jg.n_nodes, jg.aggressor, jg.sizes, jg.victim,
+             jg.phased, jg.cells)
+        assert [_profile_fields(p) for p in tg.profiles] == \
+            [_profile_fields(p) for p in jg.profiles]
+        for tp, jp in zip(tg.profiles, jg.profiles):
+            np.testing.assert_array_equal(tp.params(), jp.params())
+            if jp.faults:
+                np.testing.assert_array_equal(tp.fault_params(),
+                                              jp.fault_params())
+        assert [dataclasses.asdict(j) for j in tg.jobs] == \
+            [dataclasses.asdict(j) for j in jg.jobs]
+
+
+def test_mix_jobs_match_reference():
+    for kind in ("training_vs_training", "training_vs_incast",
+                 "four_tenant"):
+        assert [dataclasses.asdict(j) for j in tscen._mix_jobs(kind)] == \
+            [dataclasses.asdict(j) for j in jscen._mix_jobs(kind)]
+    with pytest.raises(KeyError):
+        tscen._mix_jobs("nope")
+
+
+def test_resolve_victim_label_matches_reference():
+    for victim, phased in (("ring_allgather", False), ("alltoall", True),
+                           ("", False)):
+        for jobs in (None, "phased", "flat"):
+            args = [victim, phased]
+            kw = {}
+            if jobs is not None:
+                j = dict(name="a", collective="ring_allreduce",
+                         phased=jobs == "phased")
+                kw = {"jobs": [jtraffic.JobSpec(**j)]}
+                tkw = {"jobs": [ttraffic.JobSpec(**j)]}
+            else:
+                tkw = {}
+            assert tbench.resolve_victim_label(*args, **tkw) == \
+                jbench.resolve_victim_label(*args, **kw)
+
+
+def _hold(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g.system, g.n_nodes, g.victim, g.aggressor, g.profile,
+                g.vector_bytes) == (w.system, w.n_nodes, w.victim,
+                                    w.aggressor, w.profile, w.vector_bytes)
+        assert g.n_iters == w.n_iters and g.dnf == w.dnf
+        for f in ("t_uncongested_s", "t_congested_s"):
+            np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                       rtol=0.02, err_msg=f)
+        assert [(n, k) for n, _, k in g.job_times] == \
+            [(n, k) for n, _, k in w.job_times]
+        np.testing.assert_allclose([t for _, t, _ in g.job_times],
+                                   [t for _, t, _ in w.job_times],
+                                   rtol=0.02)
+
+
+def _both(name, index, n_iters=3, n_nodes=16, sizes=(32 * KiB,)):
+    """One quick grid of a family on both packages, cut to ``n_nodes``
+    nodes, ``sizes`` and ``n_iters`` iterations (warmup 1), in chunks of
+    CHUNK steps."""
+    out = []
+    for scen_mod, bench_mod, kw in ((jscen, jbench, {}),
+                                    (tscen, tbench, {"device": "cpu"})):
+        g = scen_mod.get(name, True).grids[index]
+        out.append(bench_mod.run_grid(
+            bench_mod.get_system(g.system), n_nodes, g.victim, g.aggressor,
+            sizes, g.profiles, n_iters=n_iters, warmup=1, phased=g.phased,
+            jobs=list(g.jobs) or None, chunk=CHUNK, **kw))
+    return out[1], out[0]
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_multi_job_mix_grid_matches_reference(index):
+    """The ``jobs=`` path: job_times names and counts equal, times within
+    2%, for the training-vs-training and training-vs-incast mixes."""
+    got, want = _both("multi_job_mix", index)
+    _hold(got, want)
+    assert got[0].job_times[0][0] == ["train_a", "train"][index]
+    assert got[0].aggressor == tscen.get("multi_job_mix",
+                                         True).grids[index].aggressor
+
+
+def test_phased_collectives_pair_matches_reference():
+    """The first flat/phased pair (leonardo, incast, AlltoAll victim) at
+    16 nodes and 32 KiB: both rows held to the reference, the phased row
+    labelled so."""
+    rows = []
+    for index in (0, 1):
+        got, want = _both("phased_collectives", index)
+        _hold(got, want)
+        rows += got
+    assert [r.victim for r in rows] == ["alltoall", "alltoall+phased"]
+
+
+@pytest.mark.parametrize("name", ["random_telegraph", "multi_tenant"])
+def test_envelope_family_grid_matches_reference(name):
+    got, want = _both(name, 0, sizes=(2 ** 20,))
+    _hold(got, want)
+    np.testing.assert_allclose([g.ratio for g in got],
+                               [w.ratio for w in want], rtol=0.02)
+
+
+def _cut_down(monkeypatch):
+    """Every family of ``scenarios`` and ``faults`` at one small grid (a
+    flat/phased pair at two): 8 nodes, or the first cell of a
+    scale-batched grid at 16, 32 KiB (1 MiB for the fault families, whose
+    checks need the link to carry bytes), 2 iterations (4 for
+    intra_node; 60 for link_fault, so a run reaches well into the fault
+    windows, which open at 0.2 ms), in chunks of CHUNK steps."""
+    import functools
+
+    orig = dict(tscen.SCENARIOS)
+    monkeypatch.setattr(tbench, "run_grid",
+                        functools.partial(tbench.run_grid, chunk=CHUNK))
+
+    def small(name, keep):
+        def make(quick=False):
+            sc = orig[name](True)
+            size = 2 ** 20 if name in ("link_fault", "intra_node") \
+                else 32 * KiB
+            grids = []
+            for g in sc.grids[:keep]:
+                g = dataclasses.replace(
+                    g, cells=tuple((s, 16) for s, _ in g.cells[:1]),
+                    n_nodes=8 if g.n_nodes else 0, sizes=(size,))
+                grids.append(g)
+            n_iters = {"link_fault": 60, "intra_node": 4}.get(name, 2)
+            return dataclasses.replace(sc, grids=tuple(grids),
+                                       n_iters=n_iters, warmup=1)
+        return make
+    for name in FAMILIES:
+        keep = 2 if name == "phased_collectives" else 1
+        monkeypatch.setitem(tscen.SCENARIOS, name, small(name, keep))
+
+
+def test_pt_run_accepts_scenarios_and_faults(tmp_path, capsys,
+                                             monkeypatch):
+    """``pt_run --only scenarios,faults`` runs both drivers (here on a
+    cut-down registry on the CPU): every family's rows and counts, the
+    phased-vs-flat deltas, the fault checks and the waiting parts."""
+    from benchmarks import pt_run
+
+    _cut_down(monkeypatch)
+    assert pt_run.main(["--only", "scenarios,faults", "--quick", "--device",
+                        "cpu", "--cache-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    for name in FAMILIES:
+        assert (tmp_path / f"{name}.csv").exists(), name
+        assert f"# {name}: " in out and "kernel-1 launches" in out, name
+    assert "# phased check: phased-vs-flat ratio delta" in out
+    assert "inertness: all-none table & inf-cap node stage" in out \
+        and "bit-identical" in out
+    for check in ("flap check", "dying-optic check", "intra-node check"):
+        assert f"# {check}:" in out and "MISMATCH" not in out, check
+    assert "fault_panel: not run; it waits for" in out
+    assert "monitor_demo: not run; it waits for" in out
+
+
+def test_scale_sweep_full_ladder_stops_at_256_alltoall_nodes():
+    """The full scale_sweep keeps the reference's registry entry; the
+    driver runs its alltoall ladder to 256 nodes and names the cells it
+    leaves out."""
+    from benchmarks import pt_new_scenarios
+
+    full = tscen.get("scale_sweep", False)
+    assert any(n == 512 for g in full.grids for _, n in g.cells)
+    run, note = pt_new_scenarios.runnable(full)
+    for g, orig in zip(run.grids, full.grids):
+        if g.aggressor == "alltoall":
+            assert max(n for _, n in g.cells) == 256
+            assert len(g.cells) == len(orig.cells) - 4
+        else:
+            assert g.cells == orig.cells
+    assert "Queue 2 item 6" in note and "('lumi', 512)" in note
+    quick = tscen.get("scale_sweep", True)
+    assert pt_new_scenarios.runnable(quick) == (quick, "")

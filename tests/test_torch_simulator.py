@@ -171,13 +171,20 @@ def test_run_cells_freezes_finished_cells():
 
 
 def test_unported_stages_raise():
+    """The fault stage is ported: an all-``none`` table steps bit for bit
+    as no table. What still raises: a run left to the default device
+    without a card."""
     geom, p = _jax_cell()
     tg = _geom_to_torch(geom)
     arrays = _params_np(p)
     arrays["fault"] = np.zeros((8, 6), np.float32)
     tp = convert.params_from_numpy(arrays)
-    with pytest.raises(NotImplementedError, match="fault engine"):
-        tsim.step(tg, tp, tsim.init_state(tg, tp))
+    t0 = convert.params_from_numpy(_params_np(p))
+    with_table, gp = tsim.step(tg, tp, tsim.init_state(tg, tp))
+    without, gp0 = tsim.step(tg, t0, tsim.init_state(tg, t0))
+    assert torch.equal(gp, gp0)
+    for k, v in without.items():
+        assert torch.equal(with_table[k], v), k
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs there")
     with pytest.raises(RuntimeError, match="CUDA"):
