@@ -10,8 +10,8 @@ package: time the ring AllReduce's compute phases on the device (an add
 of the d/n chunk per reduce step; a copy of it per send/recv staging
 step) and the fused receive-accumulate kernel (``ops.fused_accumulate``,
 ``csrc/fused_reduce.cu`` on the card), beside the simulated wire time of
-the same vector on the HAICGU EDR fabric (``bench.run_point`` through the
-port's engine). On the card the compute phases are device times: 20
+the same vector on the HAICGU EDR fabric (``bench.run_grid`` through the
+port's engine, every size's cells one batch). On the card the compute phases are device times: 20
 calls captured once in a CUDA graph, its replays timed with CUDA events
 (the median of 5), so the host's dispatch cost is not in them; on the
 CPU they are host-clock times.
@@ -91,47 +91,66 @@ def fused_tile(vector_bytes: float) -> tuple:
     return (max(d // N_NODES // TILE_COLS, 1), TILE_COLS)
 
 
-def run_size(vector_bytes: float, device=None) -> dict:
+def run_sizes(sizes, device=None) -> list:
+    """One row per vector size: the compute phases timed per size, and
+    the simulated network time of every size from one batched grid on
+    the HAICGU EDR fabric (``bench.run_grid``: each size's uncongested
+    cells, uncongested EDR, the paper's nodes)."""
     device = resolve_device(device)
     n = N_NODES
-    d = int(vector_bytes) // 4
-    chunk = torch.zeros((max(d // n, 1),), dtype=torch.float32,
-                        device=device)
-    recv = torch.ones_like(chunk)
-    t_add = _time_s(lambda: torch.add(chunk, recv), device) * (n - 1)
-    t_copy = _time_s(lambda: chunk.clone(), device) * 2 * (n - 1)
-    acc2 = torch.zeros(fused_tile(vector_bytes), dtype=torch.float32,
-                       device=device)
-    x2 = torch.ones_like(acc2)
-    t_fused = _time_s(lambda: ops.fused_accumulate(acc2, x2),
-                      device) * (n - 1)
-
-    # simulated network time (uncongested EDR, same nodes as the paper)
-    res = bench.run_point(systems.get_system("haicgu_ib"), n,
-                          "ring_allreduce", "", float(vector_bytes),
-                          cong.no_congestion(), n_iters=15, warmup=3,
+    sizes = [float(v) for v in sizes]
+    nets = bench.run_grid(*network_grid(sizes), n_iters=15, warmup=3,
                           device=device)
-    t_net = res.t_uncongested_s
-    total = t_add + t_copy + t_net
-    return {
-        "t_reduce_us": t_add * 1e6,
-        "t_memcpy_us": t_copy * 1e6,
-        "t_network_us": t_net * 1e6,
-        "t_fused_reduce_us": t_fused * 1e6,
-        "compute_fraction": (t_add + t_copy) / total,
-        "wire_bytes": wire_bytes_model("ring_all_reduce", n, vector_bytes)
-        ["bytes"],
-        "n_iters": res.n_iters,
-        "device": device_name(device),
-    }
+    rows = []
+    for vector_bytes, res in zip(sizes, nets):
+        d = int(vector_bytes) // 4
+        chunk = torch.zeros((max(d // n, 1),), dtype=torch.float32,
+                            device=device)
+        recv = torch.ones_like(chunk)
+        t_add = _time_s(lambda: torch.add(chunk, recv), device) * (n - 1)
+        t_copy = _time_s(lambda: chunk.clone(), device) * 2 * (n - 1)
+        acc2 = torch.zeros(fused_tile(vector_bytes), dtype=torch.float32,
+                           device=device)
+        x2 = torch.ones_like(acc2)
+        t_fused = _time_s(lambda: ops.fused_accumulate(acc2, x2),
+                          device) * (n - 1)
+        t_net = res.t_uncongested_s
+        total = t_add + t_copy + t_net
+        rows.append({
+            "t_reduce_us": t_add * 1e6,
+            "t_memcpy_us": t_copy * 1e6,
+            "t_network_us": t_net * 1e6,
+            "t_fused_reduce_us": t_fused * 1e6,
+            "compute_fraction": (t_add + t_copy) / total,
+            "wire_bytes": wire_bytes_model("ring_all_reduce", n,
+                                           vector_bytes)["bytes"],
+            "n_iters": res.n_iters,
+            "device": device_name(device),
+        })
+    return rows
+
+
+def network_grid(sizes) -> tuple:
+    """The positional arguments of the one bench.run_grid (and
+    bench.grid_inputs) that :func:`run_sizes` runs: uncongested EDR, the
+    paper's nodes, a baseline and an uncongested cell a size."""
+    return (systems.get_system("haicgu_ib"), N_NODES, "ring_allreduce", "",
+            [float(v) for v in sizes], [cong.no_congestion()])
 
 
 def main(force: bool = False, quick: bool = False, device=None,
          cache_dir=None):
     device = resolve_device(device)
-    points = scenarios.get("fig1_breakdown", quick).points
-    rows = cached_sweep("fig1_breakdown", ["vector_bytes"], list(points),
-                        lambda v: run_size(v, device),
+    points = list(scenarios.get("fig1_breakdown", quick).points)
+    sizes = [v for v, in points]
+    batch = {}
+
+    def row(v):
+        # the first size the cache lacks runs every size as one batch
+        if not batch:
+            batch.update(zip(sizes, run_sizes(sizes, device)))
+        return batch[v]
+    rows = cached_sweep("fig1_breakdown", ["vector_bytes"], points, row,
                         cache_dir=cache_dir or default_cache_dir(device),
                         force=force)
     print("\n# Fig. 1 — ring AllReduce cost breakdown "

@@ -1,8 +1,9 @@
 """Paper Fig. 3 / Obs. 1 on the port: CE8850 self-congestion sawtooth on
 large-message AllGather; EDR InfiniBand (same nodes) and CE9855 stay
-stable. Each point is one aggressor-free run (``bench.goodput_trace``)
-whose victim goodput trace is cut as ``benchmarks/fig3_sawtooth.py`` cuts
-it: the first third dropped, then the zero samples.
+stable. Each point is one aggressor-free run whose victim goodput trace
+is cut as ``benchmarks/fig3_sawtooth.py`` cuts it: the first third
+dropped, then the zero samples; all points run as one batch
+(``bench.goodput_traces``).
 
 ``PYTHONPATH=src python -m benchmarks.pt_fig3_sawtooth [--quick]
 [--force] [--device cpu]``
@@ -44,20 +45,31 @@ def steady_part(trace: np.ndarray) -> np.ndarray:
     return tr[tr > 0]
 
 
-def run_point(system: str, vector_bytes: float, device=None) -> dict:
+def run_points(points, device=None) -> list:
+    """One row per ``(system, vector_bytes)`` point, every point's trace a
+    cell of one batched run (``bench.goodput_traces``)."""
     device = resolve_device(device)
-    res = bench.goodput_trace(systems.get_system(system), N_NODES,
-                              COLLECTIVE, float(vector_bytes), n_iters=25,
-                              device=device)
-    tr = steady_part(res.victim_rate_trace)
-    return {
-        "goodput_gbps": float(tr.mean() * 8 / 1e9) if len(tr) else 0.0,
-        "cv": float(tr.std() / tr.mean()) if len(tr) else 0.0,
-        "trace_len": len(tr),
-        "n_iters": res.n_done,
-        "spark": _spark(tr),
-        "device": device_name(device),
-    }
+    results = bench.goodput_traces(trace_points(points), n_iters=25,
+                                   device=device)
+    rows = []
+    for res in results:
+        tr = steady_part(res.victim_rate_trace)
+        rows.append({
+            "goodput_gbps": float(tr.mean() * 8 / 1e9) if len(tr) else 0.0,
+            "cv": float(tr.std() / tr.mean()) if len(tr) else 0.0,
+            "trace_len": len(tr),
+            "n_iters": res.n_done,
+            "spark": _spark(tr),
+            "device": device_name(device),
+        })
+    return rows
+
+
+def trace_points(points) -> list:
+    """``(system, vector_bytes)`` points as the ``(preset, n_nodes, coll,
+    vector_bytes)`` points of bench.goodput_traces / goodput_inputs."""
+    return [(systems.get_system(s), N_NODES, COLLECTIVE, float(v))
+            for s, v in points]
 
 
 def obs1(rows) -> tuple:
@@ -72,9 +84,15 @@ def main(force: bool = False, quick: bool = False, device=None,
          cache_dir=None):
     device = resolve_device(device)
     points = list(scenarios.get("fig3_sawtooth", quick).points)
+    batch = {}
+
+    def row(s, v):
+        # the first point the cache lacks runs every point as one batch
+        if not batch:
+            batch.update(zip(points, run_points(points, device)))
+        return batch[(s, v)]
     rows = cached_sweep("fig3_sawtooth", ["system", "vector_bytes"], points,
-                        lambda s, v: run_point(s, v, device),
-                        cache_dir=cache_dir or default_cache_dir(device),
+                        row, cache_dir=cache_dir or default_cache_dir(device),
                         force=force)
     print("\n# Fig. 3 — self-congestion stability, 4-node AllGather")
     print(f"{'system':>16} {'size':>8} {'Gb/s':>7} {'CV':>6}  goodput trace")

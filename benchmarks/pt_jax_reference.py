@@ -1,7 +1,9 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|lm|train]``
+[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|lm|train]``
+
+``--only`` takes a comma list of parts.
 
 Runs what ``chip_smoke.py`` drives through ``repro_torch`` on the JAX
 package as it stands. ``fabric`` (the default part of the run) writes
@@ -37,6 +39,27 @@ Per row: the ratio, both times, the iteration counts, ``job_times`` and
 It calls the benchmarks' row functions directly and never
 ``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
 are left as they are.
+
+``fleet_replay`` (``--only fleet_replay``, which adds these keys and
+keeps the others) runs ``benchmarks/fleet_replay.py``'s quick templates
+(the registry's quick points, cresco8/16 and lumi/16):
+``fleet_replay_lowering`` holds each template's lowering of seeds 0-7
+(per-flow ``kind``, ``bytes_per_iter``, ``flow_start``, ``fct_mask``);
+``fleet_replay_quick`` the summaries of the quick replay of 8 seeds
+(chunk 512) and each cell's ``it``, ``t`` and histogram totals;
+``fleet_replay_full`` the full point (256 seeds on cresco8/32 and
+lumi/32, chunk 2048), run in a child process given ``FULL_GRID_S``
+seconds: its summaries, or that it did not finish.
+
+``mitigation`` (``--only mitigation``, likewise) runs
+``benchmarks/mitigation_lab.py``'s quick candidate space on the quick
+``mitigation_panel`` (``mitigation_quick``: each candidate's scores and
+per-cell ratios, the frontier, the winner and the two sawtooth CVs);
+``benchmarks/fault_scenarios.py``'s fault panel at its quick and full
+budgets (``fault_panel``: the panel's cells and the per-fabric winners);
+``benchmarks/whatif_bench.py``'s quick agents' race (``agents_quick``:
+the grid target and each agent's evaluations to it); and the full lab
+(``mitigation_full``) in a child process given ``FULL_GRID_S`` seconds.
 
 ``lm`` writes ``artifacts/bench_cache_torch/jax_lm_reference.json``:
 hymba-1.5b at full width, 2 layers, float32 (``benchmarks.pt_serve.
@@ -452,6 +475,172 @@ def scenario_rows() -> dict:
             "scenarios_commit": _commit()}
 
 
+FLEET_LOWERING_SEEDS = 8
+
+
+def _fleet_templates(quick: bool):
+    from benchmarks import fleet_replay
+    from repro.core import scenarios, workload as wl
+
+    points = scenarios.get("fleet_replay", quick).points
+    return [wl.build_template(s)
+            for s in fleet_replay._specs(points, quick)], points
+
+
+def _fleet_summaries(quick: bool) -> dict:
+    import jax
+
+    from repro.core import workload as wl
+
+    templates, points = _fleet_templates(quick)
+    n_seeds = int(points[0][2])
+    chunk = 512 if quick else 2048
+    t0 = time.time()
+    out, padded = wl.run_replay(templates, np.arange(n_seeds), chunk=chunk,
+                                metrics=True, with_trace=False)
+    jax.block_until_ready(out)
+    seconds = time.time() - t0
+    return {"n_seeds": n_seeds, "chunk": chunk,
+            "systems": wl.summarize_replay(out, padded),
+            "it": np.asarray(out["it"])[..., 0].tolist(),
+            "t": np.asarray(out["t"]).tolist(),
+            "h_qd_total": np.asarray(out["h_qd"]).sum(-1).tolist(),
+            "h_fct_total": np.asarray(out["h_fct"]).sum(-1).tolist(),
+            "wall_s": seconds}
+
+
+def _child(fn_name: str, path: str) -> None:
+    """A child process: ``globals()[fn_name]()`` to ``path`` as JSON."""
+    doc = globals()[fn_name]()
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def _in_child(fn_name: str, label: str) -> dict:
+    """``fn_name()`` in a child process given ``FULL_GRID_S`` seconds: its
+    result, or that it did not finish."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.json")
+        t0 = time.time()
+        proc = ctx.Process(target=_child, args=(fn_name, path))
+        proc.start()
+        proc.join(FULL_GRID_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        entry = {"limit_s": FULL_GRID_S, "wall_s": time.time() - t0}
+        if os.path.exists(path):
+            with open(path) as f:
+                entry["result"] = json.load(f)
+        else:
+            entry["result"] = None
+            entry["not_finished"] = (
+                f"the JAX CPU path did not finish in {FULL_GRID_S} s "
+                f"(exit code {proc.exitcode})")
+            print(f"{label}: {entry['not_finished']}", flush=True)
+    return entry
+
+
+def _fleet_full() -> dict:
+    return _fleet_summaries(False)
+
+
+def fleet_replay_rows() -> dict:
+    """The fleet replay's reference rows (module docstring)."""
+    from repro.core import workload as wl
+
+    templates, _ = _fleet_templates(True)
+    seeds = np.arange(FLEET_LOWERING_SEEDS)
+    lowering = []
+    for t in templates:
+        p = wl.lower_seeds(t, seeds)
+        lowering.append({
+            "system": t.spec.system, "n_nodes": t.spec.n_nodes,
+            "n_flows": t.n_flows, "short_idx": t.short_idx.tolist(),
+            **{k: np.asarray(getattr(p, k)).tolist()
+               for k in ("kind", "bytes_per_iter", "flow_start",
+                         "fct_mask")}})
+    quick = _fleet_summaries(True)
+    print(f"fleet_replay quick: {quick['wall_s']:.1f}s", flush=True)
+    return {"fleet_replay_lowering": {"seeds": seeds.tolist(),
+                                      "templates": lowering},
+            "fleet_replay_quick": quick,
+            "fleet_replay_full": _in_child("_fleet_full",
+                                           "fleet_replay full"),
+            "fleet_replay_commit": _commit()}
+
+
+def _score_rows(scores) -> dict:
+    return {"ratio_min": {s.candidate: s.ratio_min for s in scores},
+            "ratio_mean": {s.candidate: s.ratio_mean for s in scores},
+            "aggr_gbps": {s.candidate: s.aggr_gbps for s in scores},
+            "jain": {s.candidate: s.jain for s in scores},
+            "t_base_worst_rel": {s.candidate: s.t_base_worst_rel
+                                 for s in scores},
+            "cells": {s.candidate: {r.cell: r.ratio for r in s.cells}
+                      for s in scores}}
+
+
+def _lab(quick: bool) -> dict:
+    from benchmarks import mitigation_lab
+    from repro.core.mitigation import score
+
+    panel = score.panel_from_scenario(quick=quick)
+    t0 = time.time()
+    scores = score.score_table(
+        panel, mitigation_lab.candidate_space(quick),
+        n_iters=10 if quick else 15, warmup=2 if quick else 3,
+        max_steps=120_000 if quick else 200_000)
+    return {**_score_rows(scores),
+            "frontier": [s.candidate
+                         for s in score.pareto_frontier(scores)],
+            "winner": score.pick_winner(scores).candidate,
+            "wall_s": time.time() - t0}
+
+
+def _lab_full() -> dict:
+    return _lab(False)
+
+
+def mitigation_rows() -> dict:
+    """The mitigation lab's reference rows (module docstring)."""
+    from benchmarks import fault_scenarios, mitigation_lab, whatif_bench
+    from repro.core.mitigation import score, search
+
+    quick = _lab(True)
+    v = 64 << 20
+    quick["cv_default"] = search.sawtooth_cv(
+        "haicgu_ce8850", 4, "ring_allgather", v, search.default_candidate())
+    quick["cv_tuned"] = search.sawtooth_cv(
+        "haicgu_ce8850", 4, "ring_allgather", v,
+        mitigation_lab.AI_ECN_UPGRADE)
+    print(f"mitigation quick: {quick['wall_s']:.1f}s, winner "
+          f"{quick['winner']}", flush=True)
+    cells = [c.name for c in score.panel_from_scenario(
+        score.FAULT_PANEL_SCENARIO, quick=True)]
+    panel = {}
+    for label, q in (("quick", True), ("full", False)):
+        t0 = time.time()
+        res = fault_scenarios.fault_panel(q)
+        panel[label] = {"cells": cells, "winners": res["winners"],
+                        "wall_s": time.time() - t0}
+    t0 = time.time()
+    conv, failures = whatif_bench.run_convergence(True)
+    agents = {"target": conv["target"], "budget": conv["budget"],
+              "batch": conv["batch"], "knobs": conv["knobs"],
+              "evals_to_target": {k: d["evals_to_target"]
+                                  for k, d in conv["agents"].items()},
+              "failures": failures, "wall_s": time.time() - t0}
+    return {"mitigation_quick": quick, "fault_panel": panel,
+            "agents_quick": agents,
+            "mitigation_full": _in_child("_lab_full", "mitigation full"),
+            "mitigation_commit": _commit()}
+
+
 def lm_reference() -> dict:
     """The LM reference rows (module docstring), on the JAX package."""
     import jax
@@ -578,12 +767,19 @@ def main() -> None:
     ap.add_argument("--out", default=None,
                     help="output file (default: the part's file under "
                          "artifacts/bench_cache_torch/)")
-    ap.add_argument("--only", choices=("fabric", "fig7_fig8", "scenarios",
-                                       "lm", "train"), default=None)
+    ap.add_argument("--only", default=None,
+                    help="comma list of fabric, fig7_fig8, scenarios, "
+                         "fleet_replay, mitigation, lm, train")
     args = ap.parse_args()
+    parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
+             "mitigation", "lm", "train")
+    only = [p for p in (args.only or "").split(",") if p]
+    if any(p not in parts for p in only):
+        ap.error(f"--only takes a comma list of {parts}")
+    run = set(only) or {"fabric", "lm", "train"}
     import jax
 
-    if args.only in (None, "fabric"):
+    if "fabric" in run:
         doc = {"source": "benchmarks/pt_jax_reference.py",
                "jax_version": jax.__version__,
                "jax_backend": jax.default_backend(),
@@ -596,24 +792,23 @@ def main() -> None:
                "fig6_burst_pause": fig6_burst_pause_rows(),
                **fig7_fig8_rows()}
         _write(doc, args.out or OUT)
-    if args.only == "fig7_fig8":
-        path = args.out or OUT
-        with open(path) as f:
-            doc = json.load(f)
-        doc.update(fig7_fig8_rows())
-        doc["fig7_fig8_commit"] = _commit()
-        _write(doc, path)
-    if args.only == "scenarios":
-        path = args.out or OUT
-        with open(path) as f:
-            doc = json.load(f)
-        doc.update(scenario_rows())
-        _write(doc, path)
-    if args.only in (None, "lm"):
-        _write(lm_reference(), (args.only and args.out) or LM_OUT)
-    if args.only in (None, "train"):
-        _write(train_reference(), (args.only and args.out) or TRAIN_OUT)
-
+    # parts that add their keys to the file and keep the others
+    for part, rows in (("fig7_fig8", fig7_fig8_rows),
+                       ("scenarios", scenario_rows),
+                       ("fleet_replay", fleet_replay_rows),
+                       ("mitigation", mitigation_rows)):
+        if part in run:
+            path = args.out or OUT
+            with open(path) as f:
+                doc = json.load(f)
+            doc.update(rows())
+            if part == "fig7_fig8":
+                doc["fig7_fig8_commit"] = _commit()
+            _write(doc, path)
+    if "lm" in run:
+        _write(lm_reference(), (only and args.out) or LM_OUT)
+    if "train" in run:
+        _write(train_reference(), (only and args.out) or TRAIN_OUT)
 
 if __name__ == "__main__":
     main()

@@ -7,8 +7,10 @@ as ``benchmarks/run.py`` is for the JAX package.
 Runs on the CUDA device unless ``--device`` names another; without a card
 the default fails. By default it runs every ported benchmark: the paper's
 figures (fig1, fig3, fig4, fig5, fig6, fig7_fig8), the beyond-paper
-families (scenarios) and the link-fault and intra-node families with
-their engine checks (faults). A name the port does not run yet exits
+families (scenarios), the link-fault and intra-node families with their
+engine checks, mitigation panel and monitor demo (faults), the fleet
+replay (fleet_replay) and the mitigation lab with the agents' convergence
+gate (mitigation). A name the port does not run yet exits
 non-zero with the ROADMAP item that ports it. Prints each figure's table plus a final
 ``name,us_per_call,derived`` CSV summary line per point.
 """
@@ -20,7 +22,7 @@ import time
 import traceback
 
 PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6", "fig7_fig8", "scenarios",
-          "faults")
+          "faults", "fleet_replay", "mitigation")
 NOT_PORTED = {
     "collectives": "ROADMAP Queue 1, item 14 (LM stack: collectives over "
                    "torch.distributed)",
@@ -69,6 +71,7 @@ def main(argv=None) -> int:
     from benchmarks import (pt_fault_scenarios, pt_fig1_breakdown,
                             pt_fig3_sawtooth, pt_fig4_nslb, pt_fig5_steady,
                             pt_fig6_bursty, pt_fig7_fig8_scale,
+                            pt_fleet_replay, pt_mitigation_lab,
                             pt_new_scenarios)
     from repro_torch.core.fabric.simulator import resolve_device
 
@@ -76,7 +79,9 @@ def main(argv=None) -> int:
     drivers = {"fig1": pt_fig1_breakdown, "fig3": pt_fig3_sawtooth,
                "fig4": pt_fig4_nslb, "fig5": pt_fig5_steady,
                "fig6": pt_fig6_bursty, "fig7_fig8": pt_fig7_fig8_scale,
-               "scenarios": pt_new_scenarios, "faults": pt_fault_scenarios}
+               "scenarios": pt_new_scenarios, "faults": pt_fault_scenarios,
+               "fleet_replay": pt_fleet_replay,
+               "mitigation": pt_mitigation_lab}
     summary, failed = [], []
     for name in PORTED:
         if name not in only:

@@ -40,9 +40,9 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    that every engine step launched the kernel once;
 7. drives the figure runner's paths, each with the launch counts reset
    before it and read after it: Fig. 1 at its three sizes through
-   ``benchmarks/pt_fig1_breakdown.run_size`` (network time, iteration
+   ``benchmarks/pt_fig1_breakdown.run_sizes`` (network time, iteration
    counts and wire bytes against JAX; kernel 2 launched), Fig. 3's six
-   goodput traces through ``benchmarks/pt_fig3_sawtooth.run_point``
+   goodput traces through ``benchmarks/pt_fig3_sawtooth.run_points``
    (trace length, goodput and CV against JAX; the Obs. 1 pin) and Fig. 6's
    six quick grids plus the leonardo/64/incast 2 MiB burst x pause grid
    (iteration counts and times against JAX; the Obs. 3 pin); and Figs.
@@ -66,8 +66,32 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    (flap < 0.9, degrade < 0.95, intra-node monotone), one kernel-1 launch
    a step; and the link_fault and intra_node buckets' padded cells
    bit-equal to themselves run alone;
-8. times kernels 1 and 2, their plain versions, their bounds and, for the
-   fused accumulate, the library call ``torch.add``, per shape (kernel 1
+7c. ``fleet_replay``: kernel 1 against its plain version at the fleet
+   buckets' shapes (the registry's quick point, both quick templates x 8
+   seeds, and its full point, both full templates x 256 seeds; per-flow
+   CC kinds, idle short slots injecting nothing), ten launches and cells
+   alone bit-equal; the seed lowering on the card against the CPU (the
+   integer draws bit for bit) and JAX's stored lowering; the quick replay
+   held to ``jax_reference.json["fleet_replay_quick"]`` (sample counts and
+   completions equal, percentiles within a bin, slowdowns within 1e-3)
+   with ``benchmarks/fleet_replay.py``'s four sanity gates; the metrics carry on
+   and off bit-equal in the engine state, and each padded template's
+   streaming leaves bit-equal to it alone (``FLEET_CUT_HORIZON``); the
+   registry's full point once (seeds/s and simulated s a wall s, beside
+   the other fabric phases; the device's share of a step's wall from a
+   64-step sample taken alone, ``fleet_share``), with the sanity gates;
+   the StepMonitor demo's pins; one kernel-1 launch a step;
+7d. ``mitigation``: the quick lab (every candidate a cell of one batch)
+   with its three claims at their limits and each candidate's worst-cell
+   ratio within 2% of JAX's, its winner JAX's; the fault panel's
+   per-fabric winners JAX's; the agents' convergence gate (CMA-ES or BO
+   to the grid target in fewer evaluations than random search); one
+   kernel-1 launch a step; then the gradient tier, 2 Adam steps on the
+   card on the step core's plain version (kernel 1 has no gradient), its
+   history within ``GRAD_HIST_REL`` of the CPU's;
+8. times kernels 1 (also at the two fleet buckets) and 2, their plain
+   versions, their bounds and, for the fused accumulate, the library call
+   ``torch.add``, per shape (kernel 1
    beside its time before its redesign, ``EARLIER_MS``, and its time in
    the last redesign's measurement, ``REDESIGN_MS``; kernel 2 and
    ``torch.add`` also in alternating graph replays, medians and spread);
@@ -143,17 +167,25 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    beside the backward of ``scaled_dot_product_attention``, with achieved
    TFLOP/s (10 * D flops a live pair).
 
+Phases 6 to 7d run at once, in the groups of ``CONCURRENT``, each group
+in a process of its own with its launch counts its own (the main process
+runs 3 to 5 and kernel 1 at the fleet buckets meanwhile, and prints each
+group's log when it ends); phases 8 to 20 run after them, one at a time.
+
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
 without that line. Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -373,6 +405,28 @@ FAMILY_CUTS = {"ramp_onset": ("steady",),
 # inside every window of the tables fault_tables builds
 FAULT_T = 0.5e-3
 INERT_NODES = 16  # leonardo allocation of the on-card inertness gate
+# fleet replay: seeds of the quick and full registry points (their kernel-1
+# shapes), and the horizon, seeds and chunk of the metrics on/off and
+# padded/alone bit checks (the quick templates cut to 0.5 ms, for time)
+FLEET_QUICK_SEEDS, FLEET_FULL_SEEDS = 8, 256
+FLEET_CUT_HORIZON, FLEET_CUT_SEEDS, FLEET_CUT_CHUNK = 0.5e-3, 4, 256
+# the card's lowering against JAX's stored one: float draws relative
+LOWER_REL = 1e-6
+# the gradient tier on the card (plain core) against the CPU: knobs, engine
+# steps of the objective and the history's relative limit
+GRAD_KNOBS = ("md", "rai_frac", "kmin")
+GRAD_STEPS = 800
+GRAD_HIST_REL = 1e-4
+# the fabric phases that run at once, each group in a process of its own
+# (spawned, a CUDA context each, WORKER_TIMEOUT_S from their start): the
+# host's Python binds them, not the card (an engine step keeps the card busy
+# a tenth to a quarter of its wall), so together they take about as long as
+# the longest group. The main process meanwhile holds kernels 1 and 2 to
+# their plain versions; every phase that times something runs after the
+# groups have ended, alone on the card.
+CONCURRENT = (("main_path",), ("fig1", "fig3", "fig6", "scenarios"),
+              ("fleet_replay",), ("fig7_fig8", "mitigation"))
+WORKER_TIMEOUT_S = 700
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -380,6 +434,31 @@ RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
 
 def log(*a):
     print(*a, flush=True)
+
+
+def run_group(names, out, threads):
+    """Run the named phases (one group of CONCURRENT) in this process,
+    spawned by main: the log goes to ``out + ".log"``; the failures, the
+    report and what the phases set on the Smoke (launch counts, errors)
+    are pickled to ``out``."""
+    import pickle
+    sys.stdout = open(out + ".log", "w", buffering=1)
+    import torch
+    torch.set_num_threads(threads)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    s = Smoke(torch)
+    for name in names:
+        s.phase(name, getattr(s, name))
+    attrs = {}
+    for k, v in vars(s).items():
+        try:
+            if k not in ("torch", "failures", "report"):
+                attrs[k] = pickle.loads(pickle.dumps(v))
+        except Exception:
+            pass
+    with open(out, "wb") as f:
+        pickle.dump({"failures": s.failures, "report": s.report,
+                     "attrs": attrs, "ended": time.time()}, f)
 
 
 class Smoke:
@@ -404,6 +483,62 @@ class Smoke:
             log(f"FAIL: phase {name}\n{traceback.format_exc()}")
         self.report["phases"][name] = round(time.time() - t0, 3)
         log(f"   {name}: {time.time() - t0:.1f}s")
+
+    def start_groups(self, workdir):
+        """Spawn one process a group of CONCURRENT; returns
+        [(names, pickle path, process, start time)]."""
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        threads = max(1, len(os.sched_getaffinity(0)) // len(CONCURRENT))
+        procs = []
+        for i, names in enumerate(CONCURRENT):
+            out = os.path.join(workdir, f"group{i}.pkl")
+            pr = ctx.Process(target=run_group, args=(names, out, threads),
+                             daemon=True)
+            pr.start()
+            procs.append((names, out, pr, time.time()))
+        log(f"   started {len(procs)} processes ({threads} ATen threads "
+            f"each): {' | '.join(', '.join(n) for n, *_ in procs)}")
+        return procs
+
+    def join_groups(self, procs):
+        """Wait for every group (stopping one still running
+        WORKER_TIMEOUT_S after its start), print its log, and merge its
+        failures, report and attributes into this Smoke; records each
+        group's wall from its spawn to its end."""
+        import pickle
+        walls = self.report.setdefault("concurrent", {})
+        for names, out, pr, t0 in procs:
+            label = ", ".join(names)
+            pr.join(max(0.0, t0 + WORKER_TIMEOUT_S - time.time()))
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+                self.check(False, f"[{label}] still running after "
+                           f"{WORKER_TIMEOUT_S} s; stopped")
+            log(f"== [{label}] (a process of its own, exit code "
+                f"{pr.exitcode})")
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    sys.stdout.write(f.read())
+                sys.stdout.flush()
+            if not os.path.exists(out):
+                self.check(False, f"[{label}] left no result (exit code "
+                           f"{pr.exitcode})")
+                continue
+            with open(out, "rb") as f:
+                got = pickle.load(f)
+            walls[label] = round(got["ended"] - t0, 3)
+            log(f"   [{label}]: {walls[label]:.1f}s from its spawn")
+            self.failures.extend(got["failures"])
+            for k, v in got["report"].items():
+                if isinstance(v, dict) and isinstance(
+                        self.report.get(k), dict):
+                    self.report[k].update(v)
+                else:
+                    self.report[k] = v
+            for k, v in got["attrs"].items():
+                setattr(self, k, v)
 
     # ---------------------------------------------------------------- 1
     def device(self):
@@ -480,57 +615,65 @@ class Smoke:
     # ------------------------------------------------------------ inputs
     def grid_case(self, system, n, victim, aggr, sizes=None, profiles=None):
         """A grid's geometry and stacked params on the card, as run_grid
-        builds them (sizes x baseline/profiles; by default the fig5 sizes
-        and the steady profile)."""
+        builds them (bench.grid_inputs: sizes x baseline/profiles; by
+        default the fig5 sizes and the steady profile)."""
         from repro_torch.core import bench, congestion as cong
-        from repro_torch.core.fabric import simulator as sim, systems
-        case = bench.build_case(systems.get_system(system), n, victim, aggr)
+        from repro_torch.core.fabric import systems
         if sizes is None:
             sizes = (4 << 20, 16 << 20) if system.startswith("nanjing") \
                 else (32 << 10, 2 << 20)
         if profiles is None:
             profiles = (cong.steady(),)
-        dts = bench._cell_dts(case, sizes, len(profiles), None, case.lat())
-        cells = [(float(v), pr) for v in sizes
-                 for pr in [cong.no_congestion(), *profiles]]
-        params = sim.stack_params([case.cell_params(v, pr, d) for (v, pr), d
-                                   in zip(cells, dts)])
+        case, _, params = bench.grid_inputs(systems.get_system(system), n,
+                                            victim, aggr, sizes, profiles)
         return case, case.geom.to(self.dev), params.to(self.dev)
 
     def path_cases(self):
-        """(label, geometry, stacked params) on the card of every figure
-        path's kernel-1 inputs, as its driver builds them: Fig. 1's run_point
-        (baseline + uncongested, B=2), Fig. 3's goodput_trace per system
-        (B=1), Fig. 6's quick grids (B=5) and its 2 MiB burst x pause grid
-        (B=10)."""
+        """(label, geometry, stacked params, pads idle) on the card of
+        every figure path's kernel-1 inputs, built by the same functions
+        its driver runs, at the points this script drives: the main path's
+        Fig. 4 points as one scale grid (scenarios.fig4_grid through
+        bench.scale_grid_inputs: both Nanjing routings in one bucket, one
+        geometry row a cell, B=8), Fig. 1's sizes as one grid
+        (pt_fig1_breakdown.network_grid through bench.grid_inputs, B=6),
+        Fig. 3's points as one bucket (pt_fig3_sawtooth.trace_points
+        through bench.goodput_inputs, B=6, pad flows padded in), Fig. 6's
+        quick grids (B=5) and its 2 MiB burst x pause grid (B=10). Where
+        pads are idle, a flow with 0 bytes injects nothing, as in the
+        engine."""
         from benchmarks import pt_fig1_breakdown as fig1
         from benchmarks import pt_fig3_sawtooth as fig3
         from benchmarks import pt_fig6_bursty as fig6
-        from repro_torch.core import bench, congestion as cong, scenarios
-        from repro_torch.core.fabric import simulator as sim, systems
-        _, geom, p = self.grid_case("haicgu_ib", fig1.N_NODES,
-                                    "ring_allreduce", "", (16 << 20,),
-                                    (cong.no_congestion(),))
-        yield f"fig1 haicgu_ib/{fig1.N_NODES}/ring_allreduce", geom, p
-        for system in fig3.SYSTEMS:
-            geom, p = bench.goodput_case(systems.get_system(system),
-                                         fig3.N_NODES, fig3.COLLECTIVE,
-                                         16 << 20)
-            yield (f"fig3 {system}/{fig3.N_NODES}/{fig3.COLLECTIVE}",
-                   geom.to(self.dev), sim.stack_params([p]).to(self.dev))
+        from repro_torch.core import bench, scenarios
+        from repro_torch.core.fabric import simulator as sim
+        ref = self.reference()
+        _, _, grid = scenarios.fig4_grid(
+            [(w["mode"], w["vector_bytes"]) for w in ref["fig4_nslb"]])
+        _, _, stacked, p = bench.scale_grid_inputs(*grid)
+        geom, p = sim.hetero_cells(stacked, p, self.dev)
+        yield "main path fig4 bucket", geom, p, True
+        case, _, p = bench.grid_inputs(*fig1.network_grid(
+            [w["vector_bytes"] for w in ref["fig1_breakdown"]]))
+        yield (f"fig1 haicgu_ib/{fig1.N_NODES}/ring_allreduce grid",
+               case.geom.to(self.dev), p.to(self.dev), True)
+        stacked, p = bench.goodput_inputs(fig3.trace_points(
+            [(w["system"], w["vector_bytes"]) for w in ref["fig3_sawtooth"]]))
+        geom, p = sim.hetero_cells(stacked, p, self.dev)
+        yield f"fig3 bucket ({fig3.N_NODES}/{fig3.COLLECTIVE})", geom, p, True
         grids = scenarios.get("fig6_bursty", True).grids + (
             fig6.grid_at_size("leonardo", "incast", 2 << 20),)
         for g in grids:
             _, geom, p = self.grid_case(g.system, g.n_nodes, g.victim,
                                         g.aggressor, g.sizes, g.profiles)
             yield (f"fig6 {g.system}/{g.n_nodes}/{g.aggressor} "
-                   f"{g.sizes[0]:.0f}", geom, p)
+                   f"{g.sizes[0]:.0f}", geom, p, False)
 
-    def core_inputs(self, geom, p, seed, caps=None):
+    def core_inputs(self, geom, p, seed, caps=None, idle=False):
         """Step-core operands at a grid's shapes (a geometry of one row, or
         one a cell): each flow on one of its candidate paths, rates up to
         its NIC cap, queues up to qmax; ``caps`` in place of the
-        geometry's link capacities."""
+        geometry's link capacities; with ``idle`` a flow of 0 bytes (a pad
+        flow, an idle short slot) injects nothing."""
         torch = self.torch
         import numpy as np
         rng = np.random.RandomState(seed)
@@ -544,6 +687,8 @@ class Smoke:
             B, F, 1, paths.shape[-1]))[:, :, 0].contiguous()
         inject = (p.host_caps * torch.as_tensor(
             rng.rand(B, F), dtype=torch.float32, device=self.dev)).contiguous()
+        if idle:
+            inject = (inject * (p.bytes_per_iter > 0)).contiguous()
         q = torch.as_tensor(rng.rand(B, geom.L + 1), dtype=torch.float32,
                             device=self.dev) * p.qmax_bytes[:, None] * 0.9
         q[:, -1] = 0.0
@@ -643,9 +788,10 @@ class Smoke:
             f"{', '.join(parts)}; {REPEATS} launches bit-equal: {same}")
         return worst
 
-    def batch_invariance(self, label, args, kw):
-        """Each cell launched alone gives its row of the batched launch bit
-        for bit, with and without the aux observer."""
+    def batch_invariance(self, label, args, kw, cells=None):
+        """Each cell launched alone (or each of ``cells``) gives its row of
+        the batched launch bit for bit, with and without the aux
+        observer."""
         torch = self.torch
         from repro_torch.kernels import fabric_step as fs
         B = args[0].shape[0]
@@ -653,7 +799,7 @@ class Smoke:
         for aux in (False, True):
             whole = fs.fabric_step_core(*args, with_aux=aux, **kw)
             same = True
-            for b in range(B):
+            for b in range(B) if cells is None else cells:
                 alone = fs.fabric_step_core(*cell_args(args, b),
                                             with_aux=aux, **kw)
                 same &= all(bits_equal(torch, alone[k][0], whole[k][b])
@@ -661,8 +807,8 @@ class Smoke:
             self.check(same, f"{label} aux={int(aux)}: a cell alone differs "
                        f"from its row of the batch")
             held &= same
-        log(f"   {label:32s} B={B}: each cell alone bit-equal to its row "
-            f"(aux 0 and 1): {held}")
+        log(f"   {label:32s} B={B}: {'each cell' if cells is None else cells}"
+            f" alone bit-equal to its row (aux 0 and 1): {held}")
 
     def launch_config(self, label, args, kw):
         """The block, cluster and layout the wrapper picks at these
@@ -727,8 +873,8 @@ class Smoke:
                            f"differs from the shared one")
                 log(f"   {label:32s} aux={int(aux)} wide layout bit-equal "
                     f"to shared: {same}")
-        for i, (label, geom, p) in enumerate(self.path_cases()):
-            args, kw = self.core_inputs(geom, p, seed=200 + i)
+        for i, (label, geom, p, idle) in enumerate(self.path_cases()):
+            args, kw = self.core_inputs(geom, p, seed=200 + i, idle=idle)
             B, F, H = args[0].shape
             cfg = self.launch_config(label, args, kw)
             log(f"   {label}: B={B} F={F} H={H} L={geom.L} "
@@ -852,14 +998,18 @@ class Smoke:
         rows = []
         fs.launches = fr.launches = sim.step_count = 0
         t_main = time.time()
-        for want in ref["fig4_nslb"]:
-            t0, s0 = time.time(), sim.step_count
-            r = scenarios.run_fig4_point(want["mode"], want["vector_bytes"],
-                                         device=self.dev)
-            torch.cuda.synchronize()
+        t0, s0 = time.time(), sim.step_count
+        got = scenarios.run_fig4_points(
+            [(w["mode"], w["vector_bytes"]) for w in ref["fig4_nslb"]],
+            device=self.dev)
+        torch.cuda.synchronize()
+        wall, steps = time.time() - t0, sim.step_count - s0
+        log(f"   fig4 quick points (one batch): {steps} steps in "
+            f"{wall:.1f}s")
+        for want, r in zip(ref["fig4_nslb"], got):
             rows.append(self.hold(f"fig4 {want['mode']} "
                                   f"{want['vector_bytes']:.0f}", r, want,
-                                  time.time() - t0, sim.step_count - s0))
+                                  wall, steps))
         scen = scenarios.get("fig5_steady", True)
         for system, n, aggr in FIG5_GRIDS:
             grid = next(g for g in scen.grids if (g.system, g.n_nodes,
@@ -982,9 +1132,10 @@ class Smoke:
         rows = []
 
         def run():
-            for want in ref:
+            got = fig1.run_sizes([w["vector_bytes"] for w in ref],
+                                 device=self.dev)
+            for want, r in zip(ref, got):
                 v = want["vector_bytes"]
-                r = fig1.run_size(v, device=self.dev)
                 dn = r["t_network_us"] / (want["t_uncongested_s"] * 1e6) - 1
                 log(f"   fig1 {v:.0f}: network {r['t_network_us']:.1f} us "
                     f"(jax {want['t_uncongested_s'] * 1e6:.1f}, {dn:+.2e}) "
@@ -1013,9 +1164,9 @@ class Smoke:
         rows = []
 
         def run():
-            for want in ref:
-                r = fig3.run_point(want["system"], want["vector_bytes"],
-                                   device=self.dev)
+            got = fig3.run_points([(w["system"], w["vector_bytes"])
+                                   for w in ref], device=self.dev)
+            for want, r in zip(ref, got):
                 label = f"fig3 {want['system']} {want['vector_bytes']:.0f}"
                 dg = r["goodput_gbps"] / want["goodput_gbps"] - 1
                 dcv = r["cv"] - want["cv"]
@@ -1401,6 +1552,331 @@ class Smoke:
             grid = scenarios.get(name, True).grids[0]
             self.pad_check(f"{name} bucket", grid.cells, grid.aggressor,
                            grid.sizes, grid.profiles, victim=grid.victim)
+
+    # --------------------------------------------------------------- 7c
+    def fleet_case(self, quick, n_seeds):
+        """The fleet replay's bucket on the card, as workload.run_replay
+        builds it: the registry's templates (quick or full) padded into one
+        bucket, ``n_seeds`` seeds lowered on each, one geometry row a
+        (template, seed) cell. Returns (templates, padded, geometry,
+        params with one leading cell axis)."""
+        import numpy as np
+        from benchmarks import pt_fleet_replay as pfr
+        from repro_torch.core import scenarios, workload as wl
+        from repro_torch.core.fabric import simulator as sim
+        points = scenarios.get("fleet_replay", quick).points
+        templates = [wl.build_template(s) for s in pfr.specs(points, quick)]
+        padded, stacked, p = wl.replay_inputs(templates, np.arange(n_seeds),
+                                              self.dev)
+        geom, flat = sim.hetero_cells(stacked, p, self.dev)
+        return templates, padded, geom, flat
+
+    def fleet_kernel_checks(self):
+        """Kernel 1 against its plain version at the fleet buckets' shapes
+        (the quick registry point: both quick templates x 8 seeds; the full
+        point: both full templates x 256 seeds): per-flow CC kinds in the
+        params, idle short slots and pad flows injecting nothing; ten
+        launches bit-equal, each cell alone bit-equal to its row. Both
+        shapes join the timing phase."""
+        for label, quick, n_seeds, seed in (
+                ("fleet quick bucket", True, FLEET_QUICK_SEEDS, 500),
+                ("fleet full bucket", False, FLEET_FULL_SEEDS, 501)):
+            _, _, geom, p = self.fleet_case(quick, n_seeds)
+            args, kw = self.core_inputs(geom, p, seed, idle=True)
+            kinds = sorted(set(p.kind.reshape(-1).tolist()))
+            idle = int((p.bytes_per_iter == 0).sum())
+            B, F, H = args[0].shape
+            cfg = self.launch_config(label, args, kw)
+            log(f"   {label}: B={B} F={F} H={H} L={geom.L} n_src="
+                f"{geom.n_src}; per-flow CC kinds {kinds}, {idle} idle "
+                f"(flow, cell) slots; {cfg.threads} threads, cluster "
+                f"{cfg.cluster}, {'wide' if cfg.workspace else 'shared'} "
+                f"layout")
+            for aux in (False, True):
+                err = self.compare(label, args, kw, aux)
+                self.fleet_err = max(getattr(self, "fleet_err", 0.0), err)
+            # the full bucket's 512 cells: the first, one inside, the last
+            self.batch_invariance(label, args, kw, cells=None if B <= 64
+                                  else (0, B // 2 + 1, B - 1))
+            self.shapes[label] = (args, kw)
+            if not quick:
+                self.fleet_full = (geom, p, B)
+
+    def fleet_lowering(self):
+        """lower_seeds on the card against the CPU (integer draws bit for
+        bit, floats reported) and against JAX's stored lowering of seeds
+        0-7 (integers equal, floats within LOWER_REL)."""
+        import numpy as np
+        from repro_torch.core import workload as wl
+        ref = self.reference()["fleet_replay_lowering"]
+        templates, *_ = self.fleet_case(True, 1)
+        seeds = ref["seeds"]
+        for t, want in zip(templates, ref["templates"]):
+            tag = f"{t.spec.system}/{t.spec.n_nodes}"
+            self.check((want["system"], want["n_nodes"], want["n_flows"],
+                        want["short_idx"]) == (t.spec.system, t.spec.n_nodes,
+                                               t.n_flows,
+                                               t.short_idx.tolist()),
+                       f"fleet lowering {tag}: template differs from JAX's")
+            gpu = wl.lower_seeds(t, seeds, self.dev)
+            cpu = wl.lower_seeds(t, seeds, "cpu")
+            g = {k: getattr(gpu, k).cpu().numpy() for k in (
+                "kind", "bytes_per_iter", "flow_start", "fct_mask")}
+            c = {k: getattr(cpu, k).numpy() for k in g}
+            j = {k: np.asarray(want[k]) for k in g}
+            short = t.short_idx
+            ints = {"kind": g["kind"], "fct_mask": g["fct_mask"],
+                    "active": g["bytes_per_iter"][:, short] > 0}
+            for k, v in ints.items():
+                cv = c[k] if k != "active" else \
+                    c["bytes_per_iter"][:, short] > 0
+                jv = j[k] if k != "active" else \
+                    j["bytes_per_iter"][:, short] > 0
+                self.check(np.array_equal(v, cv), f"fleet lowering {tag}: "
+                           f"{k} differs between the card and the CPU")
+                self.check(np.array_equal(v, jv), f"fleet lowering {tag}: "
+                           f"{k} differs from JAX's")
+            worst = {}
+            for k in ("bytes_per_iter", "flow_start"):
+                rel = np.abs(g[k] - j[k]) / np.maximum(np.abs(j[k]), 1e-30)
+                worst[k] = float(rel.max())
+                self.check(worst[k] <= LOWER_REL, f"fleet lowering {tag}: "
+                           f"{k} {worst[k]:.3g} from JAX's")
+            same_cpu = {k: bool(np.array_equal(g[k].view(np.int32),
+                                               c[k].view(np.int32)))
+                        for k in ("bytes_per_iter", "flow_start")}
+            log(f"   lowering {tag}, seeds {seeds[0]}-{seeds[-1]}: kinds, "
+                f"active slots and fct_mask equal on card, CPU and JAX; "
+                f"floats vs JAX max rel {worst}; floats bit-equal to the "
+                f"CPU {same_cpu}")
+
+    def device_share(self, geom, p, n_steps=64):
+        """(wall ms a step, device busy ms a step) of ``n_steps`` metrics-on
+        engine steps of a batch, busy time from torch.profiler."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.fabric import simulator as sim
+        state = sim.init_state(geom, p, metrics=True)
+        consts = sim.run_constants(p, geom, True)
+
+        def run(n):
+            nonlocal state
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, _ = sim._step_impl(geom, p, state, False,
+                                          consts=consts)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        run(8)
+        wall = run(n_steps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(n_steps)
+        cuda = torch.autograd.DeviceType.CUDA
+        dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                getattr(e, "self_cuda_time_total", 0))
+        busy_us = sum(dev(e) for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == cuda)
+        return 1e3 * wall / n_steps, busy_us / 1e3 / n_steps
+
+    def fleet_replay(self):
+        """Fleet replay on the card: kernel 1 at the fleet buckets'
+        shapes, the lowering against the CPU and JAX, the quick replay held
+        to JAX's summaries with the four sanity gates, metrics on and off
+        bit-equal in the engine state, a padded template's streaming
+        leaves bit-equal to it alone, the registry's full point once, and
+        the StepMonitor demo's pins; kernel 1 launched once a step. Kernel
+        1 at the fleet buckets' shapes is ``fleet_kernel``'s, and the
+        device's share of the full point's step ``fleet_share``'s: those
+        run in the main process."""
+        import numpy as np
+        from benchmarks import pt_fault_scenarios as pfs
+        from benchmarks import pt_fleet_replay as pfr
+        from repro_torch.core import workload as wl
+        from repro_torch.core.fabric import simulator as sim
+        self.fleet_lowering()
+        want = self.reference()["fleet_replay_quick"]
+        rep = self.report.setdefault("fleet_replay", {})
+
+        def replay(templates, n_seeds, chunk, metrics=True):
+            t0, s0 = time.time(), sim.step_count
+            out, padded = wl.run_replay(templates, np.arange(n_seeds),
+                                        chunk=chunk, metrics=metrics,
+                                        device=self.dev)
+            return out, padded, time.time() - t0, sim.step_count - s0
+
+        def run():
+            # the quick registry point, held to JAX
+            templates = [wl.build_template(s) for s in pfr.specs(
+                [p for p in self.fleet_points(True)], True)]
+            out, padded, wall, steps = replay(templates, want["n_seeds"],
+                                              want["chunk"])
+            summ = wl.summarize_replay(out, padded)
+            bad = pfr.compare_summaries(summ, want["systems"])
+            fails = pfr.sanity(out, padded, np.arange(want["n_seeds"]),
+                               summ, self.dev)
+            for s in summ:
+                log(f"   quick {s['system']}/{s['n_nodes']}: qdelay p50 "
+                    f"{s['qdelay_s']['0.5']:.3g} p99 "
+                    f"{s['qdelay_s']['0.99']:.3g}, fct p99 "
+                    f"{s['fct_s']['0.99']:.3g} ({s['fct_samples']:.0f} "
+                    f"completions, {s['qdelay_samples']:.0f} qdelay samples)")
+            log(f"   quick replay ({want['n_seeds']} seeds x "
+                f"{len(templates)} templates, {steps} steps, {wall:.1f}s): "
+                f"vs JAX {bad or 'equal counts, percentiles within a bin, '
+                'slowdowns within 1e-3'}; sanity {fails or 'ok'}")
+            self.check(not bad, f"fleet quick replay vs JAX: {bad}")
+            self.check(not fails, f"fleet quick replay sanity: {fails}")
+            rep["quick"] = {"systems": summ, "wall_s": wall, "steps": steps,
+                            "jax_disagreements": bad, "sanity": fails}
+            # metrics on vs off, and padded vs alone, at a cut horizon
+            cut = [wl.build_template(dataclasses.replace(
+                t.spec, horizon_s=FLEET_CUT_HORIZON)) for t in templates]
+            on, _, _, _ = replay(cut, FLEET_CUT_SEEDS, FLEET_CUT_CHUNK)
+            off, _, _, _ = replay(cut, FLEET_CUT_SEEDS, FLEET_CUT_CHUNK,
+                                  metrics=False)
+            same = [k for k in ("fbytes", "t", "it", "t_done", "qd_acc",
+                                "chunks")
+                    if not np.array_equal(np.ascontiguousarray(on[k]).view(
+                        np.uint8), np.ascontiguousarray(off[k]).view(
+                        np.uint8))]
+            self.check(not same, f"fleet metrics on vs off differ in {same}")
+            padded_bad = []
+            for k, t in enumerate(cut):
+                alone, _, _, _ = replay([t], FLEET_CUT_SEEDS,
+                                        FLEET_CUT_CHUNK)
+                F, J = t.n_flows, t.n_jobs
+                for name in ("h_qd", "h_fct", "t", "it", "fbytes", "wn",
+                             "wmean", "wm2"):
+                    a, b = alone[name][0], on[name][k]
+                    if name == "fbytes":
+                        b = b[:, :F]
+                    elif name in ("wn", "wmean", "wm2", "it"):
+                        b = b[:, :J]
+                    if not np.array_equal(np.ascontiguousarray(a).view(
+                            np.uint8), np.ascontiguousarray(b).view(np.uint8)):
+                        padded_bad.append(f"{t.spec.system}:{name}")
+            self.check(not padded_bad, f"fleet padded template differs from "
+                       f"itself alone in {padded_bad}")
+            self.check(float(on["h_fct"].sum()) > 0,
+                       "fleet cut replay: no FCT samples to compare")
+            log(f"   horizon {FLEET_CUT_HORIZON * 1e3:g} ms, "
+                f"{FLEET_CUT_SEEDS} seeds: metrics on vs off bit-equal in "
+                f"the engine state: {not same}; each padded template's "
+                f"streaming leaves bit-equal to it alone: {not padded_bad}")
+            # the registry's full point, once
+            full = [wl.build_template(s) for s in pfr.specs(
+                self.fleet_points(False), False)]
+            n_full = int(self.fleet_points(False)[0][2])
+            out, padded, wall, steps = replay(full, n_full, 2048)
+            summ = wl.summarize_replay(out, padded)
+            fails = pfr.sanity(out, padded, np.arange(n_full), summ,
+                               self.dev)
+            self.check(not fails, f"fleet full point sanity: {fails}")
+            cells = n_full * len(full)
+            sim_s = float(np.asarray(out["t"]).sum())
+            row = {"n_seeds": n_full, "cells": cells, "steps": steps,
+                   "wall_s": wall, "seeds_per_sec": cells / wall,
+                   "sim_s_per_wall_s": sim_s / wall,
+                   "beside": list(CONCURRENT),
+                   "systems": summ, "sanity": fails}
+            rep["full"] = row
+            log(f"   full point ({n_full} seeds x {len(full)} templates, "
+                f"{cells} cells of {padded[0].n_flows} flows): {steps} steps "
+                f"in {wall:.1f}s, {row['seeds_per_sec']:.2f} seeds/s, "
+                f"{row['sim_s_per_wall_s']:.4g} sim-s/wall-s (run beside "
+                f"the other phases of CONCURRENT); sanity {fails or 'ok'}")
+            for s in summ:
+                log(f"   full {s['system']}/{s['n_nodes']}: qdelay p50 "
+                    f"{s['qdelay_s']['0.5']:.3g} p99 "
+                    f"{s['qdelay_s']['0.99']:.3g}, fct p99 "
+                    f"{s['fct_s']['0.99']:.3g}")
+            mon = pfs.monitor_demo(self.dev)
+            self.check(mon["ok"], f"monitor demo pins: {mon}")
+            rep["monitor"] = mon
+            return ("fabric_step_core",)
+
+        counts = self.path("fleet_replay", run)
+        self.fleet_launches = counts["fabric_step_core"]
+
+    def fleet_share(self):
+        """The device's share of a step's wall at the fleet full point's
+        bucket: a 64-step metrics-on sample, taken while no other phase
+        runs."""
+        geom, p, B = self.fleet_full
+        wall_ms, busy_ms = self.device_share(geom, p)
+        row = self.report.setdefault("fleet_replay", {}).setdefault(
+            "full", {})
+        row.update(sample_wall_ms_per_step=wall_ms,
+                   sample_device_busy_ms_per_step=busy_ms,
+                   device_share=busy_ms / wall_ms)
+        log(f"   fleet full bucket ({B} cells), a "
+            f"64-step sample: {wall_ms:.3f} ms wall, {busy_ms:.4f} ms device "
+            f"busy a step, device share {busy_ms / wall_ms:.3f}")
+
+    def fleet_points(self, quick):
+        from repro_torch.core import scenarios
+        return scenarios.get("fleet_replay", quick).points
+
+    # --------------------------------------------------------------- 7d
+    def mitigation(self):
+        """The mitigation lab on the card: the quick lab's three claims at
+        their limits and its candidates' worst-cell ratios within 2% of
+        JAX's, the fault panel's per-fabric winners equal to JAX's, the
+        agents' convergence gate, kernel 1 launched once a step; then the
+        gradient tier for 2 Adam steps on the card with the step core's
+        plain version, its history held to the CPU's."""
+        import numpy as np
+        from benchmarks import pt_fault_scenarios as pfs
+        from benchmarks import pt_mitigation_lab as pml
+        from repro_torch.core.mitigation import search
+        rep = self.report.setdefault("mitigation", {})
+
+        def run():
+            lab = pml.lab(True, self.dev)
+            c = lab["claims"]
+            for k in ("ok_fig4", "ok_cc", "ok_saw"):
+                self.check(c[k], f"mitigation claim {k}: {c}")
+            agree = pml.jax_agreement(lab["scores"], lab["winner"],
+                                      lab["front"])
+            log(f"   quick lab vs JAX: {agree}")
+            self.check(agree["ok"], f"mitigation quick lab vs JAX: {agree}")
+            rep["lab"] = {"claims": c, "jax": agree, "winner": lab["winner"],
+                          "frontier": lab["front"], "wall_s": lab["wall_s"],
+                          "steps": lab["steps"],
+                          "ratio_min": {s.candidate: s.ratio_min
+                                        for s in lab["scores"]}}
+            panel = pfs.fault_panel(True, self.dev)
+            self.check(panel["ok"], f"fault panel: {panel}")
+            rep["fault_panel"] = panel
+            conv = pml.run_convergence(self.dev)
+            self.check(conv["ok"], f"agents' convergence gate: {conv}")
+            rep["agents"] = conv
+            return ("fabric_step_core",)
+
+        counts = self.path("mitigation", run)
+        self.mitigation_launches = counts["fabric_step_core"]
+        # the gradient tier: plain step core on the card (kernel 1 has no
+        # gradient), against the same descent on the CPU
+        t0 = time.time()
+        geom, params = pml.grad_case()
+        card = search.gradient_refine(geom, params, GRAD_KNOBS, steps=2,
+                                      n_steps=GRAD_STEPS, device=self.dev)
+        wall = time.time() - t0
+        cpu = search.gradient_refine(geom, params, GRAD_KNOBS, steps=2,
+                                     n_steps=GRAD_STEPS, device="cpu")
+        rel = float(np.max(np.abs(np.subtract(card["history"],
+                                              cpu["history"]))
+                           / np.abs(cpu["history"])))
+        log(f"   gradient tier, a plain-core run (core='plain', kernel 1 has "
+            f"no gradient) on the card: history {card['history']}, CPU "
+            f"{cpu['history']}, max rel {rel:.3g} (limit {GRAD_HIST_REL}); "
+            f"knobs {card['knobs']} ({wall:.1f}s)")
+        self.check(rel <= GRAD_HIST_REL, f"gradient tier: card history "
+                   f"{rel:.3g} from the CPU's")
+        self.check(card["history"][1] < card["history"][0],
+                   "gradient tier: no descent")
+        rep["gradient"] = {"core": "plain", "card": card, "cpu": cpu,
+                           "max_rel": rel, "wall_s": wall}
 
     # ---------------------------------------------------------------- 8
     def graphed(self, fn):
@@ -2865,12 +3341,23 @@ def main() -> int:
     if s.failures:
         log("\n".join(s.failures))
         return 1
-    for name, fn in (("kernel_vs_plain", s.kernel_vs_plain),
-                     ("fused_accumulate_vs_plain", s.fr_vs_plain),
-                     ("lockstep", s.lockstep), ("main_path", s.main_path),
-                     ("fig1", s.fig1), ("fig3", s.fig3), ("fig6", s.fig6),
-                     ("fig7_fig8", s.fig7_fig8),
-                     ("scenarios", s.scenarios),
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    procs = []
+    try:
+        procs = s.start_groups(workdir)
+        for name, fn in (("kernel_vs_plain", s.kernel_vs_plain),
+                         ("fused_accumulate_vs_plain", s.fr_vs_plain),
+                         ("lockstep", s.lockstep),
+                         ("fleet_kernel", s.fleet_kernel_checks)):
+            s.phase(name, fn)
+        s.join_groups(procs)
+    finally:
+        for _, _, pr, _ in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+    for name, fn in (("fleet_share", s.fleet_share),
                      ("timing", s.timing),
                      ("engine_graph", s.engine_graph),
                      ("flash_attention_vs_plain", s.fa_vs_plain),
@@ -2910,6 +3397,12 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "fig7_fig8_launches": s.fig78_launches,
         "scenarios_launches": s.scen_launches,
+        "fleet_launches": s.fleet_launches,
+        "mitigation_launches": s.mitigation_launches,
+        "fleet_shapes": {label: {k: s.timings[label][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+            for label in ("fleet quick bucket", "fleet full bucket")},
+        "fleet_max_abs_err": s.fleet_err,
         "fault_caps_max_abs_err": s.fault_err, "wide_shapes": wide}, {
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],

@@ -11,8 +11,8 @@ report mean iteration time and the uncongested/congested ratio.
 * :func:`run_scale_grid` — heterogeneous ``(system, n_nodes)`` cells,
   their geometries padded to one bucket and run as one batch
   (simulator.run_cells_hetero; paper Figs. 7-8).
-* :func:`goodput_trace` — one aggressor-free run and its victim goodput
-  trace (paper Fig. 3 self-congestion).
+* :func:`goodput_traces` — aggressor-free runs as one batch and their
+  victim goodput traces (paper Fig. 3 self-congestion).
 
 All run on the CUDA device unless ``device`` says otherwise.
 """
@@ -22,6 +22,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import congestion as cong
 from repro_torch.core import traffic
@@ -32,8 +33,7 @@ from repro_torch.core.fabric.simulator import (TDONE_SLOTS, FabricGeometry,
                                                check_iter_budget,
                                                make_geometry, make_params,
                                                pad_geometry, resolve_device,
-                                               run_cell, run_cells,
-                                               run_cells_hetero,
+                                               run_cells, run_cells_hetero,
                                                stack_geometries,
                                                stack_params, summarize)
 from repro_torch.core.fabric.systems import (SystemPreset, default_policy,
@@ -89,12 +89,39 @@ def mean_iter_time(res, lat: float) -> float:
 _TOPO_CACHE: dict = {}
 
 
+def _fn_fingerprint(fn) -> tuple:
+    """What identifies a topology builder: its bytecode, constants (a
+    nested code object by its repr), closure values and defaults, so a
+    preset given another builder under the same name misses the cache."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return (repr(fn),)
+    consts = tuple(
+        c if isinstance(c, (int, float, str, bytes, bool, type(None)))
+        else repr(c) for c in code.co_consts)
+    closure = tuple(repr(c.cell_contents)
+                    for c in (getattr(fn, "__closure__", None) or ()))
+    return (code.co_code, consts, closure, repr(fn.__defaults__))
+
+
+def _topo_cache_key(system: SystemPreset, n: int) -> tuple:
+    return (system.name, system.fabric, system.machine_nodes,
+            system.k_max, system.static_routing,
+            _fn_fingerprint(system.make_topology), n)
+
+
+def clear_topology_cache() -> None:
+    """Drop every cached machine topology."""
+    _TOPO_CACHE.clear()
+
+
 def machine_topology(system: SystemPreset, n_nodes: int = 0):
-    """Full-machine topology, cached per (preset, size). Testbed systems
+    """Full-machine topology, cached per preset and size; the key holds
+    the preset's fields and a fingerprint of its builder, so two presets
+    that share a name but not a builder get their own. Testbed systems
     (``machine_nodes == 0``) are built at the allocation size."""
     n = system.machine_nodes or (n_nodes or 8)
-    key = (system.name, system.fabric, system.machine_nodes, system.k_max,
-           system.static_routing, n)
+    key = _topo_cache_key(system, n)
     if key not in _TOPO_CACHE:
         _TOPO_CACHE[key] = system.make_topology(n)
     return _TOPO_CACHE[key]
@@ -362,6 +389,25 @@ def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
                               jobs=jobs, device=device, core=core)
     device = resolve_device(device)
     check_iter_budget(n_iters)
+    case, dts, params = grid_inputs(system, n_nodes, victim_coll, aggr_coll,
+                                    sizes, profiles, dt=dt, phased=phased,
+                                    jobs=jobs)
+    max_chunks = -(-max_steps // chunk)
+    out = run_cells(case.geom, params, n_iters, chunk=chunk,
+                    max_chunks=max_chunks, stride=trace_stride,
+                    device=device, core=core)
+    return _grid_results(case, out, sizes, profiles, dts, n_iters=n_iters,
+                         warmup=warmup, chunk=chunk, stride=trace_stride)
+
+
+def grid_inputs(system: SystemPreset, n_nodes: int, victim_coll: str,
+                aggr_coll: str, sizes: Sequence[float],
+                profiles: Sequence[cong.Profile], *,
+                dt: Optional[float] = None, phased: bool = False,
+                jobs: Optional[Sequence[traffic.JobSpec]] = None):
+    """What :func:`run_grid` runs on one system: its case, each cell's
+    dt, and the stacked params of every (size x baseline/profile) cell.
+    Returns ``(case, dts, params)``."""
     # a cell with faults puts the inert table on the others (cells stack
     # only with one layout); a node-capped cell arms the intra-node stage
     # for the whole case (inert at inf)
@@ -375,12 +421,7 @@ def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
     params = stack_params([case.cell_params(v, prof, d,
                                             with_fault_table=with_ft)
                            for (v, prof), d in zip(cells, dts)])
-    max_chunks = -(-max_steps // chunk)
-    out = run_cells(case.geom, params, n_iters, chunk=chunk,
-                    max_chunks=max_chunks, stride=trace_stride,
-                    device=device, core=core)
-    return _grid_results(case, out, sizes, profiles, dts, n_iters=n_iters,
-                         warmup=warmup, chunk=chunk, stride=trace_stride)
+    return case, dts, params
 
 
 # --------------------------------------------------------------------------
@@ -461,16 +502,36 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
     overlap)."""
     device = resolve_device(device)
     check_iter_budget(n_iters)
+    sizes, profiles = tuple(sizes), tuple(profiles)
+    if not cells:
+        return PendingGrid([], {}, sizes, profiles, [], n_iters, warmup,
+                           chunk, trace_stride)
+    cases, all_dts, stacked, params = scale_grid_inputs(
+        cells, victim_coll, aggr_coll, sizes, profiles, dt=dt, phased=phased,
+        jobs=jobs)
+    out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
+                           max_chunks=-(-max_steps // chunk),
+                           stride=trace_stride, device=device, core=core)
+    return PendingGrid(cases, out, sizes, profiles, all_dts, n_iters,
+                       warmup, chunk, trace_stride)
+
+
+def scale_grid_inputs(cells: Sequence[ScaleCell], victim_coll: str,
+                      aggr_coll: str, sizes: Sequence[float],
+                      profiles: Sequence[cong.Profile], *,
+                      dt: Optional[float] = None, phased: bool = False,
+                      jobs: Optional[Sequence[traffic.JobSpec]] = None):
+    """What :func:`launch_scale_grid` runs: each cell's case and dts, the
+    bucket's stacked geometries (:func:`bucket_stack`) and params with
+    (cell, sub-cell) leading axes, for
+    simulator.run_cells_hetero. Returns ``(cases, all_dts, stacked,
+    params)``."""
     with_ft = cong.needs_fault_table(profiles)
     intra = any(p.node_cap_frac > 0 for p in profiles)
     cases = [build_case(get_system(s) if isinstance(s, str) else s, int(n),
                         victim_coll, aggr_coll, phased=phased, jobs=jobs,
                         intra_node=intra)
              for s, n in cells]
-    sizes, profiles = tuple(sizes), tuple(profiles)
-    if not cases:
-        return PendingGrid([], {}, sizes, profiles, [], n_iters, warmup,
-                           chunk, trace_stride)
     dims, stacked = bucket_stack([case.geom for case in cases])
     all_dts = [_cell_dts(case, sizes, len(profiles), dt, case.lat())
                for case in cases]
@@ -481,11 +542,7 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
                                        with_fault_table=with_ft)
                       for (v, prof), d in zip(sub_cells, all_dts[k])])
         for k, case in enumerate(cases)])
-    out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
-                           max_chunks=-(-max_steps // chunk),
-                           stride=trace_stride, device=device, core=core)
-    return PendingGrid(cases, out, sizes, profiles, all_dts, n_iters,
-                       warmup, chunk, trace_stride)
+    return cases, all_dts, stacked, params
 
 
 def run_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
@@ -574,16 +631,41 @@ def goodput_case(system: SystemPreset, n_nodes: int, coll: str,
     return make_geometry(topo, flows), params
 
 
-def goodput_trace(system: SystemPreset, n_nodes: int, coll: str,
-                  vector_bytes: float, *, n_iters: int = 40,
-                  dt: float = 20e-6, max_steps: int = 200_000, device=None):
-    """Self-congestion run (no aggressors) — Fig. 3 sawtooth experiments."""
+def goodput_inputs(points: Sequence[Tuple[SystemPreset, int, str, float]],
+                   *, dt: float = 20e-6):
+    """What :func:`goodput_traces` runs: the points' geometries padded
+    into one bucket (:func:`bucket_stack`) and their params, one cell
+    each, with (point, 1) leading axes; the per-flow fields of a point
+    with fewer flows than the bucket padded with 0 bytes and a cap of 1.
+    Returns ``(stacked, params)``."""
+    cases = [goodput_case(s, n, c, v, dt=dt) for s, n, c, v in points]
+    dims, stacked = bucket_stack([geom for geom, _ in cases])
+
+    def pad(p: SimParams) -> SimParams:
+        extra = dims.n_flows - p.bytes_per_iter.shape[-1]
+        return dataclasses.replace(
+            p, bytes_per_iter=torch.nn.functional.pad(p.bytes_per_iter,
+                                                      (0, extra)),
+            host_caps=torch.nn.functional.pad(p.host_caps, (0, extra),
+                                              value=1.0))
+    return stacked, stack_params([stack_params([pad(p)]) for _, p in cases])
+
+
+def goodput_traces(points: Sequence[Tuple[SystemPreset, int, str, float]],
+                   *, n_iters: int = 40, dt: float = 20e-6,
+                   max_steps: int = 200_000, device=None) -> List:
+    """Self-congestion runs (no aggressors; the Fig. 3 sawtooth
+    experiments) of ``(system, n_nodes, coll, vector_bytes)`` points as
+    one batch (:func:`goodput_inputs`), every step one launch of each
+    kernel for all of them. A padded cell runs bit for bit as it runs
+    alone (:func:`goodput_case` through simulator.run_cell). One
+    SimResult a point, in input order."""
     device = resolve_device(device)
     check_iter_budget(n_iters)
-    geom, params = goodput_case(system, n_nodes, coll, vector_bytes, dt=dt)
+    stacked, params = goodput_inputs(points, dt=dt)
     chunk, stride = 2048, 8
-    out = run_cell(geom, params, n_iters, chunk=chunk,
-                   max_chunks=-(-max_steps // chunk), stride=stride,
-                   device=device)
-    return summarize(out, n_iters=n_iters, warmup=5, dt=dt, chunk=chunk,
-                     stride=stride)
+    out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
+                           max_chunks=-(-max_steps // chunk), stride=stride,
+                           device=device)
+    return [summarize(out, n_iters=n_iters, warmup=5, dt=dt, chunk=chunk,
+                      stride=stride, cell=(k, 0)) for k in range(len(points))]

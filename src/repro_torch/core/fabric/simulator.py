@@ -296,18 +296,22 @@ def source_table(src_id: torch.Tensor, n_src: int) -> torch.Tensor:
 
 
 def source_sums(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """(B, F) per-flow values summed per source, (B, n_src): the flows of
+    """(B, F) per-flow values summed per source, (B, n_src), or (B, C, F)
+    values of C channels, (B, C, n_src): the flows of
     :func:`source_table` gathered and folded as a pairwise tree,
     ((x0 + x1) + (x2 + x3)) + ..., the same elementwise adds on the CPU
     and the card and no float atomics (``index_add_`` would use them)."""
-    B, F = x.shape
-    _, n_src, width = table.shape
+    one = x.dim() == 2
+    if one:
+        x = x[:, None]
+    B, C, F = x.shape
+    R, n_src, width = table.shape
     padded = torch.nn.functional.pad(x, (0, 1))  # index F reads 0
-    g = padded.gather(1, table.reshape(-1, n_src * width).expand(B, -1)) \
-        .view(B, n_src, width)
+    g = padded.gather(2, table.reshape(R, 1, n_src * width)
+                      .expand(B, C, -1)).view(B, C, n_src, width)
     while g.shape[-1] > 1:
         g = g[..., 0::2] + g[..., 1::2]
-    return g[..., 0]
+    return g[:, 0, :, 0] if one else g[..., 0]
 
 
 def make_geometry(topo: Topology, flows: FlowSet, prune: bool = True,
@@ -633,9 +637,30 @@ def _per_flow(x: torch.Tensor) -> torch.Tensor:
     return x if x.dim() == 2 else x[:, None]
 
 
-def init_state(geom: FabricGeometry, p: SimParams) -> dict:
-    """Initial state of a stacked batch of cells (leading cell axis)."""
-    return _base_state(geom, p)
+def init_state(geom: FabricGeometry, p: SimParams,
+               metrics: bool = False) -> dict:
+    """Initial state of a stacked batch of cells (leading cell axis).
+    ``metrics=True`` adds the streaming-statistics leaves (core/metrics.py),
+    O(bins + F + J) a cell whatever the step count, which the step updates
+    when they are present: ``armed_t``, ``hist`` (the queue-delay and FCT
+    histograms, (B, 2, NBINS), returned by a run as ``h_qd`` and
+    ``h_fct``), ``wn``, ``wmean`` and ``wm2``."""
+    state = _base_state(geom, p)
+    if metrics:
+        from repro_torch.core.metrics import NBINS
+        B, F, J = p.dt.shape[0], geom.n_flows, geom.n_jobs
+        dev = p.dt.device
+        zeros = lambda *shape: torch.zeros(shape, dtype=_F32,  # noqa: E731
+                                           device=dev)
+        state.update({
+            # when each flow armed its current byte budget: a short flow at
+            # its arrival, a tenant flow at every phase entry; a completion
+            # at t samples FCT = t - armed_t
+            "armed_t": zeros(B, F) + _per_flow(p.flow_start),
+            "hist": zeros(B, 2, NBINS),
+            "wn": zeros(B, J), "wmean": zeros(B, J), "wm2": zeros(B, J),
+        })
+    return state
 
 
 def _base_state(geom: FabricGeometry, p: SimParams) -> dict:
@@ -670,7 +695,8 @@ def _base_state(geom: FabricGeometry, p: SimParams) -> dict:
     }
 
 
-def run_constants(p: SimParams) -> dict:
+def run_constants(p: SimParams, geom: Optional[FabricGeometry] = None,
+                  metrics: bool = False) -> dict:
     """What the step derives from the parameters alone, computed once per
     run instead of once per step:
 
@@ -680,7 +706,11 @@ def run_constants(p: SimParams) -> dict:
       step core's packed scalar block;
     * which routing policies, CC kinds and envelope kinds occur in the
       batch. The step evaluates only those branches; a branch no cell
-      selects cannot change any result.
+      selects cannot change any result;
+    * with ``geom`` and ``metrics``, each job's flows
+      (:func:`source_table` over ``flow_job``), the order the streaming
+      metrics sum a job's samples in, and each flow's uncontended drain
+      time, the denominator of its slowdown.
     """
     dev = p.dt.device
     dt, tau = p.dt.cpu(), p.follow_tau_s.cpu()
@@ -703,6 +733,12 @@ def run_constants(p: SimParams) -> dict:
         "has_random": bool((p.env[..., 0].cpu() == ENV_RANDOM).any()),
         # fault-table slots that are not ``none`` in some cell
         "fault_rows": None if p.fault is None else fault_rows(p.fault),
+        "job_flows": source_table(geom.flow_job, geom.n_jobs)
+        if metrics else None,
+        # ideal (line-rate) drain time, floored as the slowdown divides
+        "ideal": torch.clamp_min(
+            p.bytes_per_iter / torch.clamp_min(p.host_caps, 1.0), 1e-9)
+        if metrics else None,
     }
 
 
@@ -785,8 +821,9 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
                consts: Optional[dict] = None):
     global step_count
     step_count += 1
-    if consts is None:
-        consts = run_constants(p)
+    metrics = "hist" in state
+    if consts is None or (metrics and consts["job_flows"] is None):
+        consts = run_constants(p, geom, metrics)
     B = p.dt.shape[0]
     F, K, H = geom.paths.shape[-3:]
     dt = p.dt
@@ -945,6 +982,9 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
                  "fbytes": state["fbytes"] + a * dtc,
                  "ph": ph_next, "gap": gap, "it": it, "t_done": t_done,
                  "qd_acc": state["qd_acc"] + mean_qdel * dt, "t": t_new}
+    if metrics:
+        new_state.update(_metrics_update(
+            geom, p, state, qdel, active, done_now, enter, t_new, consts))
     if with_aux:
         aux = {"inject": out["inject"], "achieved": a,
                "arrival": out["arrival"],
@@ -956,6 +996,26 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
     return new_state, vict_goodput
 
 
+def _metrics_update(geom: FabricGeometry, p: SimParams, state: dict, qdel,
+                    active, done_now, enter, t_new, consts) -> dict:
+    """One step of the streaming metrics: every transmitting flow adds a
+    queue-delay sample; every flow whose budget crossed zero this step
+    (``done_now``, taken before the re-arm) adds an FCT sample where
+    ``fct_mask`` is set, and its slowdown (FCT over the uncontended
+    line-rate drain time) to its job's Welford accumulators."""
+    from repro_torch.core import metrics as met
+
+    fct = t_new[:, None] - state["armed_t"]
+    hist = met.hist_add(
+        state["hist"], torch.stack([qdel, fct], 1),
+        torch.stack([active, done_now & (_per_flow(p.fct_mask) != 0)], 1))
+    wn, wmean, wm2 = met.welford_update(
+        state["wn"], state["wmean"], state["wm2"], fct / consts["ideal"],
+        done_now, geom.flow_job.view(-1, geom.n_flows), consts["job_flows"])
+    return {"armed_t": torch.where(enter, t_new[:, None], state["armed_t"]),
+            "hist": hist, "wn": wn, "wmean": wmean, "wm2": wm2}
+
+
 # --------------------------------------------------------------------------
 # Runners
 # --------------------------------------------------------------------------
@@ -963,19 +1023,26 @@ def _step_impl(geom: FabricGeometry, p: SimParams, state: dict,
 
 def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
               chunk: int, max_chunks: int, stride: int,
-              core: Optional[str] = None, with_trace: bool = True) -> dict:
+              core: Optional[str] = None, with_trace: bool = True,
+              metrics: bool = False) -> dict:
     """Run a stacked batch of cells to ``n_iters`` iterations of each
     cell's primary job (or the step budget), in chunks of ``chunk`` steps.
 
     Before every chunk one device sync reads which cells still run
     (``it[:, 0] < n_iters``); finished cells are frozen, so their state
-    and chunk count stop where they were, and only the running cells (and,
-    for a geometry with one row a cell, their rows) are stepped."""
+    (the streaming-metrics leaves too) and chunk count stop where they
+    were, and only the running cells (and, for a geometry with one row a
+    cell, their rows) are stepped.
+
+    ``metrics=True`` carries the streaming metrics and returns them
+    (``h_qd``, ``h_fct``, ``wn``, ``wmean``, ``wm2``); ``with_trace=False``
+    drops the strided goodput buffer, so a replay's memory does not grow
+    with its step budget."""
     assert chunk % stride == 0, (chunk, stride)
     trace_chunk = chunk // stride
     B = p.dt.shape[0]
     dev = p.dt.device
-    state = init_state(geom, p)
+    state = init_state(geom, p, metrics=metrics)
     buf = torch.zeros((B, max_chunks * trace_chunk if with_trace else 1),
                       dtype=_F32, device=dev)
     chunks = np.zeros((B,), np.int64)
@@ -989,7 +1056,7 @@ def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
         sub = state if whole else {n: v[idx] for n, v in state.items()}
         sp = p if whole else p.take(idx)
         sg = geom if whole or not geom.per_cell else geom.take(idx)
-        consts = run_constants(sp)
+        consts = run_constants(sp, sg, metrics)
         gps = []
         for s in range(chunk):
             sub, gp = _step_impl(sg, sp, sub, with_aux=False, core=core,
@@ -1008,6 +1075,9 @@ def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
     out = {"t_done": state["t_done"], "it": state["it"],
            "qd_acc": state["qd_acc"], "t": state["t"],
            "fbytes": state["fbytes"], "trace": buf}
+    if metrics:
+        out.update({"h_qd": state["hist"][:, 0], "h_fct": state["hist"][:, 1],
+                    **{k: state[k] for k in ("wn", "wmean", "wm2")}})
     out = {k: v.cpu().numpy() for k, v in out.items()}
     out["chunks"] = chunks
     return out
@@ -1016,20 +1086,20 @@ def _run_cell(geom: FabricGeometry, p: SimParams, n_iters: int,
 def run_cells(geom: FabricGeometry, params: SimParams, n_iters: int,
               *, chunk: int = 2048, max_chunks: int = 98, stride: int = 8,
               device=None, core: Optional[str] = None,
-              with_trace: bool = True) -> dict:
+              with_trace: bool = True, metrics: bool = False) -> dict:
     """Batched engine: ``params`` has a leading cell axis on every field;
     all cells share ``geom``. Runs on ``device`` (default: the CUDA
     device) and returns numpy arrays with a leading cell axis."""
     device = resolve_device(device)
     return _run_cell(geom.to(device), params.to(device), int(n_iters),
-                     chunk, max_chunks, stride, core, with_trace)
+                     chunk, max_chunks, stride, core, with_trace, metrics)
 
 
 def run_cells_hetero(geoms: FabricGeometry, params: SimParams,
                      n_iters: int, *, chunk: int = 2048,
                      max_chunks: int = 98, stride: int = 8, device=None,
                      core: Optional[str] = None,
-                     with_trace: bool = True) -> dict:
+                     with_trace: bool = True, metrics: bool = False) -> dict:
     """Scale-batched engine: ``geoms`` is a stack of bucket-padded
     geometries (leading axis G, :func:`stack_geometries`) and ``params``
     carries two leading axes, (G, S): S sub-cells on each geometry. All
@@ -1037,16 +1107,25 @@ def run_cells_hetero(geoms: FabricGeometry, params: SimParams,
     cell on its own geometry row. Returns numpy arrays with both leading
     axes."""
     G, S = params.dt.shape[:2]
+    geom, flat = hetero_cells(geoms, params, device)
+    out = _run_cell(geom, flat, int(n_iters), chunk, max_chunks, stride,
+                    core, with_trace, metrics)
+    return {k: v.reshape(G, S, *v.shape[1:]) for k, v in out.items()}
+
+
+def hetero_cells(geoms: FabricGeometry, params: SimParams, device=None):
+    """The G x S cells of :func:`run_cells_hetero` as the one batch it
+    runs, on ``device``: each cell's geometry row
+    (:meth:`FabricGeometry.take`) and its params, cells in (geometry,
+    sub-cell) order. Returns ``(geometry, params)``."""
+    G, S = params.dt.shape[:2]
     if not geoms.per_cell or geoms.paths.shape[0] != G:
         raise ValueError(f"params of {G} geometries x {S} sub-cells need "
                          f"a stack of {G} geometries")
     device = resolve_device(device)
     flat = params._map(lambda x: x.reshape(G * S, *x.shape[2:]))
     rows = torch.arange(G, device=device).repeat_interleave(S)
-    out = _run_cell(geoms.to(device).take(rows), flat.to(device),
-                    int(n_iters), chunk, max_chunks, stride, core,
-                    with_trace)
-    return {k: v.reshape(G, S, *v.shape[1:]) for k, v in out.items()}
+    return geoms.to(device).take(rows), flat.to(device)
 
 
 def run_cell(geom: FabricGeometry, p: SimParams, n_iters: int, **kw) -> dict:

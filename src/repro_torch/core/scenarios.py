@@ -11,7 +11,9 @@ and Figs. 7-8 (bursty congestion at larger scale); and the families
 beyond the paper: congestion shapes (``ramp_onset``, ``random_telegraph``,
 ``multi_tenant``), traffic programs (``phased_collectives``,
 ``multi_job_mix``), scale-batched sweeps (``scale_sweep``,
-``mixed_topology``) and faults (``link_fault``, ``intra_node``).
+``mixed_topology``), faults (``link_fault``, ``intra_node``), the fleet
+replay's points (``fleet_replay``) and the mitigation lab's panels
+(``mitigation_panel``, ``mitigation_routing``).
 """
 from __future__ import annotations
 
@@ -200,6 +202,22 @@ def fig3_sawtooth(quick: bool = False) -> Scenario:
 
 
 @register
+def fleet_replay(quick: bool = False) -> Scenario:
+    """Stochastic fleet replay (benchmarks/pt_fleet_replay.py): each point
+    is a (system, n_nodes, n_seeds) batched seed sweep through
+    core/workload.py with streaming percentile metrics in the state."""
+    n_seeds = 8 if quick else 256
+    cells = (("cresco8", 16), ("lumi", 16)) if quick \
+        else (("cresco8", 32), ("lumi", 32))
+    return Scenario(
+        "fleet_replay",
+        "Fleet-scale stochastic workload replay: Poisson short flows + "
+        "training tenants with per-tenant CC mixes, p50/p99/p99.9 queue "
+        "delay and FCT from streaming in-scan histograms.",
+        grids=(), points=tuple((s, n, n_seeds) for s, n in cells))
+
+
+@register
 def fig4_nslb(quick: bool = False) -> Scenario:
     sizes = (4 * MiB, 16 * MiB) if quick else \
         (MiB, 4 * MiB, 16 * MiB, 64 * MiB)
@@ -211,16 +229,33 @@ def fig4_nslb(quick: bool = False) -> Scenario:
                                for s in sizes))
 
 
-def run_fig4_point(mode: str, vector_bytes: float, *, device=None,
-                   core=None) -> bench.BenchResult:
-    """One Fig. 4 point as the reference's benchmarks/fig4_nslb.py runs it: 4 victim +
-    4 aggressor nodes on the Nanjing leaf-spine, steady AlltoAll on
-    AlltoAll, NSLB or ECMP static routing."""
-    sysp = systems.get_system("nanjing_nslb" if mode == "nslb"
-                              else "nanjing_ecmp")
-    return bench.run_point(sysp, 8, "alltoall", "alltoall",
-                           float(vector_bytes), cong.steady(), n_iters=25,
-                           warmup=5, device=device, core=core)
+def run_fig4_points(points, *, device=None,
+                    core=None) -> List[bench.BenchResult]:
+    """Fig. 4's ``(mode, vector_bytes)`` points as the reference's
+    benchmarks/fig4_nslb.py runs each: 4 victim + 4 aggressor nodes on the
+    Nanjing leaf-spine, steady AlltoAll on AlltoAll, NSLB or ECMP static
+    routing. All of them run as one scale-batched run (the two routings'
+    geometries in one bucket, each point's baseline and congested cell);
+    a padded cell runs as it runs alone. Results in input order."""
+    modes, sizes, grid = fig4_grid(points)
+    results = bench.run_scale_grid(*grid, n_iters=25, warmup=5,
+                                   device=device, core=core)
+    by = {(m, v): r for m in modes for v, r in zip(
+        sizes, results[modes.index(m) * len(sizes):])}
+    return [by[(m, float(v))] for m, v in points]
+
+
+def fig4_grid(points) -> tuple:
+    """The scale grid :func:`run_fig4_points` runs for ``points``:
+    ``(modes, sizes, grid)``, ``grid`` the positional arguments of
+    bench.run_scale_grid / bench.scale_grid_inputs (one Nanjing cell a
+    routing, cells in the order of ``modes``)."""
+    modes = sorted({m for m, _ in points}, key=["nslb", "ecmp"].index)
+    sizes = sorted({float(v) for _, v in points})
+    cells = [("nanjing_nslb" if m == "nslb" else "nanjing_ecmp", 8)
+             for m in modes]
+    return modes, sizes, (cells, "alltoall", "alltoall", sizes,
+                          (cong.steady(),))
 
 
 # --------------------------------------------------------------------------
@@ -411,6 +446,67 @@ def mixed_topology(quick: bool = False) -> Scenario:
         "fat-tree / dragonfly / dragonfly+) at one scale, batched into "
         "geometry buckets.",
         grids, n_iters=15, warmup=3)
+
+
+# --------------------------------------------------------------------------
+# Mitigation-lab families (mitigation/search + score;
+# benchmarks/pt_mitigation_lab.py scores candidates across these)
+# --------------------------------------------------------------------------
+
+
+@register
+def mitigation_panel(quick: bool = False) -> Scenario:
+    """The mitigation lab's scoring panel: every candidate (CC config x
+    routing policy) is measured on each of these cells (score.py turns
+    grids into PanelCells). Quick: the Fig. 4 leaf-spine cell (the
+    load-balancing axis) and the bursty Leonardo incast collapse (the CC
+    axis); full adds the steady incast collapse, a multi-job mix and a
+    flapping hot link under live incast."""
+    grids = [
+        Grid("nanjing_nslb", 8, "alltoall", (4 * MiB,), (cong.steady(),),
+             victim="alltoall"),
+        Grid("leonardo", 64, "incast", (2 * MiB,),
+             (cong.bursty(2e-3, 2e-3),)),
+    ]
+    if not quick:
+        grids += [
+            Grid("leonardo", 32, "incast", (2 * MiB,), (cong.steady(),)),
+            Grid("leonardo", 32, "training_vs_incast", (2 * MiB,),
+                 (cong.steady(),), victim="ring_allreduce",
+                 jobs=_mix_jobs("training_vs_incast")),
+            Grid("leonardo", 32, "incast", (2 * MiB,),
+                 (cong.with_faults(cong.steady(),
+                                   cong.flap(0.2e-3, 20e-3, duty=0.3,
+                                             seed=5)),)),
+        ]
+    return Scenario(
+        "mitigation_panel",
+        "Mitigation-lab scoring panel: steady Fig.4 leaf-spine, bursty "
+        "and steady Leonardo incast collapse, multi-job mix.",
+        tuple(grids), n_iters=12, warmup=3)
+
+
+@register
+def mitigation_routing(quick: bool = False) -> Scenario:
+    """Routing-policy shootout on path-diverse fabrics (fixed / ECMP /
+    NSLB / adaptive / flowlet are per-cell data); as a plain scenario it
+    runs the mixed-routing scale-batched path end to end."""
+    cells = (("nanjing_ecmp", 8), ("cresco8", 16)) if quick else \
+        (("nanjing_ecmp", 8), ("nanjing_nslb", 8), ("cresco8", 16),
+         ("leonardo", 32))
+    sizes = (4 * MiB,) if quick else (512 * KiB, 4 * MiB)
+    profiles = (cong.steady(),) if quick else \
+        (cong.steady(), cong.bursty(2e-3, 2e-3))
+    grids = tuple(Grid("mitigation", 0, a, sizes, profiles,
+                       victim="alltoall", cells=cells)
+                  for a in (("alltoall",) if quick
+                            else ("alltoall", "incast")))
+    return Scenario(
+        "mitigation_routing",
+        "Mixed-routing shootout (leaf-spine ECMP/NSLB, fat-tree and "
+        "Dragonfly+ AR) — one scale-batched compile across routing "
+        "modes.",
+        grids, n_iters=12, warmup=3)
 
 
 # --------------------------------------------------------------------------

@@ -41,7 +41,18 @@ def fabric_step_core(*args, core: str = "kernel", scalars=None, **kw):
     """Fused fabric-simulator step core; same signature and return dict
     as :func:`repro_torch.kernels.ref.fabric_step_core`. ``scalars`` is
     the kernel's packed (B, 5) block of the five scalar arguments
-    (:func:`pack_scalars`); the plain version reads the arguments."""
+    (:func:`pack_scalars`); the plain version reads the arguments.
+
+    Kernel 1 has no gradient: its outputs carry no ``grad_fn``, so on a
+    CUDA input that requires a gradient under ``core="kernel"`` it raises
+    instead of letting autograd return a partial gradient without a word.
+    A caller that differentiates the step passes ``core="plain"``."""
+    if core == "kernel" and args[1].device.type != "cpu" and _wants_grad(
+            *(a for a in (*args, *kw.values())
+              if isinstance(a, torch.Tensor))):
+        raise RuntimeError(
+            "fabric_step_core: kernel 1 has no gradient and an input "
+            "requires one; pass core='plain' to differentiate the step")
     if _use_plain(args[1].device, core, "fabric_step_core"):  # inject
         return ref.fabric_step_core(*args, **kw)
     return _fs.fabric_step_core(*args, scalars=scalars, **kw)

@@ -81,3 +81,33 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         tbench.run_scale_grid([("nanjing_ecmp", 8)], "alltoall", "alltoall",
                               (1.0,), (tcong.steady(),), n_iters=2)
+
+
+def test_topology_cache_keys_on_builder_identity():
+    """A preset given another builder under the same name gets that
+    builder's topology, as in the reference (tests/test_grid.py)."""
+    import dataclasses
+
+    tbench.clear_topology_cache()
+    jbench.clear_topology_cache()
+    sysp = tsystems.get_system("cresco8")
+    base = tbench.machine_topology(sysp)
+    assert tbench.machine_topology(sysp) is base
+    lumi_builder = tsystems.get_system("lumi").make_topology
+    modified = dataclasses.replace(sysp, make_topology=lumi_builder)
+    alt = tbench.machine_topology(modified)
+    want = jbench.machine_topology(dataclasses.replace(
+        jsystems.get_system("cresco8"),
+        make_topology=jsystems.get_system("lumi").make_topology))
+    assert alt is not base
+    assert len(alt.caps) == len(want.caps) == 5072
+    assert alt.name == want.name
+    # tpu_pod's builder is a closure over (nx, ny) that ignores n
+    links = [len(tbench.machine_topology(tsystems.tpu_pod(nx, ny), 16).caps)
+             for nx, ny in ((4, 4), (8, 2))]
+    want_links = [len(jbench.machine_topology(jsystems.tpu_pod(nx, ny),
+                                              16).caps)
+                  for nx, ny in ((4, 4), (8, 2))]
+    assert links == want_links == [64, 48]
+    tbench.clear_topology_cache()
+    assert tbench.machine_topology(sysp) is not base

@@ -49,7 +49,7 @@ def test_registry_matches_for_fig1_fig3_fig6():
 
 
 def test_fig1_run_size_matches_jax_network_time():
-    got = pt_fig1_breakdown.run_size(MiB, device="cpu")
+    got, = pt_fig1_breakdown.run_sizes([MiB], device="cpu")
     want = jbench.run_point(jsystems.get_system("haicgu_ib"), 8,
                             "ring_allreduce", "", MiB,
                             jcong.no_congestion(), n_iters=15, warmup=3)
@@ -68,9 +68,9 @@ def test_fig1_run_size_matches_jax_network_time():
 
 def test_fig3_goodput_trace_matches_jax():
     v = 16 * MiB
-    got = tbench.goodput_trace(tsystems.get_system("haicgu_ce8850"), 4,
-                               "ring_allgather", v, n_iters=25,
-                               device="cpu")
+    got, = tbench.goodput_traces([(tsystems.get_system("haicgu_ce8850"), 4,
+                                   "ring_allgather", v)], n_iters=25,
+                                 device="cpu")
     want = jbench.goodput_trace(jsystems.get_system("haicgu_ce8850"), 4,
                                 "ring_allgather", v, n_iters=25)
     assert got.n_done == want.n_done == 25
@@ -80,7 +80,7 @@ def test_fig3_goodput_trace_matches_jax():
     np.testing.assert_allclose(g.mean(), w.mean(), rtol=RTOL)
     cv_g, cv_w = g.std() / g.mean(), w.std() / w.mean()
     assert abs(cv_g - cv_w) <= max(RTOL * cv_w, CV_ATOL), (cv_g, cv_w)
-    row = pt_fig3_sawtooth.run_point("haicgu_ce8850", v, device="cpu")
+    row, = pt_fig3_sawtooth.run_points([("haicgu_ce8850", v)], device="cpu")
     assert row["trace_len"] == len(w) and row["n_iters"] == 25
     np.testing.assert_allclose(row["cv"], cv_w, rtol=RTOL)
 

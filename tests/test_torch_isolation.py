@@ -48,7 +48,12 @@ def test_port_imports_without_jax_or_reference():
               "repro_torch.checkpoint.checkpoint",
               "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
               "repro_torch.launch.steps", "repro_torch.launch.train",
-              "repro_torch.configs.opt_variants"):
+              "repro_torch.configs.opt_variants", "repro_torch.core.metrics",
+              "repro_torch.core.prng", "repro_torch.core.workload",
+              "repro_torch.core.autotune", "repro_torch.core.mitigation",
+              "repro_torch.core.mitigation.search",
+              "repro_torch.core.mitigation.score",
+              "repro_torch.core.mitigation.agents"):
         assert m in mods, m
     drivers = ["benchmarks." + os.path.basename(f)[:-3]
                for f in _driver_files()]
@@ -56,6 +61,8 @@ def test_port_imports_without_jax_or_reference():
     assert "benchmarks.pt_fig1_breakdown" in drivers
     assert "benchmarks.pt_new_scenarios" in drivers
     assert "benchmarks.pt_fault_scenarios" in drivers
+    assert "benchmarks.pt_fleet_replay" in drivers
+    assert "benchmarks.pt_mitigation_lab" in drivers
     mods = mods + drivers
     assert "benchmarks.pt_serve" in mods
     assert "benchmarks.pt_train" in mods

@@ -37,6 +37,7 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.layers import init_params, numpy_params  # noqa: E402
 from repro_torch.runtime.serve import BatchedServer  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401  (fixture)
 
 REL = 2e-6
 REF_ATOL = 6e-6
@@ -261,6 +262,7 @@ def test_serve_temperature_sampling_is_seeded():
 # ----------------------------------------------------- committed reference
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_plain_path_matches_committed_reference():
     """The port's plain path on the CPU at the reference's exact config
     (full width, 2 layers, float32): prefill and 8 teacher-forced decode

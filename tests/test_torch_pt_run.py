@@ -29,6 +29,6 @@ def test_drivers_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         pt_run.main(["--only", "fig1", "--quick"])
     with pytest.raises(RuntimeError, match="CUDA"):
-        pt_fig1_breakdown.run_size(2 ** 20)
+        pt_fig1_breakdown.run_sizes([2 ** 20])
     with pytest.raises(RuntimeError, match="CUDA"):
-        pt_fig3_sawtooth.run_point("haicgu_ib", 2 ** 20)
+        pt_fig3_sawtooth.run_points([("haicgu_ib", 2 ** 20)])

@@ -265,3 +265,23 @@ def test_pt_run_accepts_fig7_fig8(tmp_path, capsys, monkeypatch):
     assert "# Fig. 7/8 — cresco8 32 nodes, incast" in out
     assert "kernel-1 launches" in out
     assert "fig7_fig8[cresco8:incast:16:" in out
+
+
+def test_goodput_traces_as_one_batch_equal_each_alone():
+    """Fig. 3's points as one padded batch (bench.goodput_traces): each
+    trace, iteration count and delay bit for bit as the point run alone
+    (its goodput_case through simulator.run_cell)."""
+    pts = [(tsystems.get_system(s), 4, "ring_allgather", float(MiB))
+           for s in ("haicgu_ce8850", "nanjing_nslb")]
+    batch = tbench.goodput_traces(pts, n_iters=25, device="cpu")
+    for p, b in zip(pts, batch):
+        geom, params = tbench.goodput_case(*p)
+        out = tsim.run_cell(geom, params, 25, chunk=2048, max_chunks=98,
+                            stride=8, device="cpu")
+        a = tsim.summarize(out, n_iters=25, warmup=5, dt=20e-6, chunk=2048,
+                           stride=8)
+        assert len(a.victim_rate_trace) > 0 and a.n_done == b.n_done == 25
+        np.testing.assert_array_equal(a.victim_rate_trace.view(np.int32),
+                                      b.victim_rate_trace.view(np.int32))
+        np.testing.assert_array_equal(a.iter_times, b.iter_times)
+        assert a.mean_qdelay_s == b.mean_qdelay_s

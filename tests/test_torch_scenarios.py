@@ -56,6 +56,41 @@ def test_registry_entries_match_reference(name, quick):
             [dataclasses.asdict(j) for j in jg.jobs]
 
 
+@pytest.mark.parametrize("quick", [True, False])
+@pytest.mark.parametrize("name", ["fleet_replay", "mitigation_panel",
+                                  "mitigation_routing"])
+def test_replay_and_mitigation_entries_match_reference(name, quick):
+    """The fleet replay's points and the mitigation lab's panels, field
+    for field (fleet_replay has points and no grids)."""
+    ts, js = tscen.get(name, quick), jscen.get(name, quick)
+    assert (ts.name, ts.description, ts.n_iters, ts.warmup, ts.points) == \
+        (js.name, js.description, js.n_iters, js.warmup, js.points)
+    assert len(ts.grids) == len(js.grids)
+    assert bool(ts.grids) != (name == "fleet_replay")
+    for tg, jg in zip(ts.grids, js.grids):
+        assert (tg.system, tg.n_nodes, tg.aggressor, tg.sizes, tg.victim,
+                tg.phased, tg.cells) == \
+            (jg.system, jg.n_nodes, jg.aggressor, jg.sizes, jg.victim,
+             jg.phased, jg.cells)
+        assert [_profile_fields(p) for p in tg.profiles] == \
+            [_profile_fields(p) for p in jg.profiles]
+        for tp, jp in zip(tg.profiles, jg.profiles):
+            np.testing.assert_array_equal(tp.params(), jp.params())
+            if jp.faults:
+                np.testing.assert_array_equal(tp.fault_params(),
+                                              jp.fault_params())
+        assert [dataclasses.asdict(j) for j in tg.jobs] == \
+            [dataclasses.asdict(j) for j in jg.jobs]
+
+
+def test_registry_names_match_reference_but_one():
+    """18 of the reference's 19 entries; collective_microbench waits for
+    the collectives (ROADMAP Queue 1 item 14)."""
+    assert set(jscen.SCENARIOS) - set(tscen.SCENARIOS) == \
+        {"collective_microbench"}
+    assert set(tscen.SCENARIOS) <= set(jscen.SCENARIOS)
+
+
 def test_mix_jobs_match_reference():
     for kind in ("training_vs_training", "training_vs_incast",
                  "four_tenant"):
@@ -160,32 +195,61 @@ def _cut_down(monkeypatch):
 
     def small(name, keep):
         def make(quick=False):
-            sc = orig[name](True)
-            size = 2 ** 20 if name in ("link_fault", "intra_node") \
-                else 32 * KiB
-            grids = []
-            for g in sc.grids[:keep]:
-                g = dataclasses.replace(
-                    g, cells=tuple((s, 16) for s, _ in g.cells[:1]),
-                    n_nodes=8 if g.n_nodes else 0, sizes=(size,))
-                grids.append(g)
-            n_iters = {"link_fault": 60, "intra_node": 4}.get(name, 2)
-            return dataclasses.replace(sc, grids=tuple(grids),
-                                       n_iters=n_iters, warmup=1)
+            return _small(orig[name](True), name, keep)
         return make
     for name in FAMILIES:
         keep = 2 if name == "phased_collectives" else 1
         monkeypatch.setitem(tscen.SCENARIOS, name, small(name, keep))
 
 
+def _small(sc, name, keep):
+    """``sc`` (either package's quick entry) cut as ``_cut_down`` says."""
+    size = 2 ** 20 if name in ("link_fault", "intra_node") else 32 * KiB
+    grids = []
+    for g in sc.grids[:keep]:
+        g = dataclasses.replace(
+            g, cells=tuple((s, 16) for s, _ in g.cells[:1]),
+            n_nodes=8 if g.n_nodes else 0, sizes=(size,))
+        grids.append(g)
+    n_iters = {"link_fault": 60, "intra_node": 4}.get(name, 2)
+    return dataclasses.replace(sc, grids=tuple(grids), n_iters=n_iters,
+                               warmup=1)
+
+
+def _jax_fault_panel(monkeypatch, tmp_path):
+    """A reference file whose ``fault_panel`` row is JAX's own on the
+    cut-down panel: benchmarks/fault_scenarios.py's quick fault panel on
+    the reference registry cut as the port's is."""
+    import json
+
+    from benchmarks import fault_scenarios
+    from repro.core.mitigation import score as jscore
+
+    name = jscore.FAULT_PANEL_SCENARIO
+    orig = jscen.SCENARIOS[name]
+    monkeypatch.setitem(jscen.SCENARIOS, name,
+                        lambda quick=False: _small(orig(True), name, 1))
+    cells = [c.name for c in jscore.panel_from_scenario(name, quick=True)]
+    winners = fault_scenarios.fault_panel(True)["winners"]
+    path = tmp_path / "jax_reference.json"
+    path.write_text(json.dumps({"fault_panel": {"quick": {
+        "cells": cells, "winners": winners}}}))
+    return str(path), winners
+
+
 def test_pt_run_accepts_scenarios_and_faults(tmp_path, capsys,
                                              monkeypatch):
     """``pt_run --only scenarios,faults`` runs both drivers (here on a
     cut-down registry on the CPU): every family's rows and counts, the
-    phased-vs-flat deltas, the fault checks and the waiting parts."""
-    from benchmarks import pt_run
+    phased-vs-flat deltas, the fault checks, the fault panel's winners
+    (held to JAX's on the same cut-down panel) and the monitor demo's
+    pins."""
+    from benchmarks import pt_fault_scenarios, pt_run
 
     _cut_down(monkeypatch)
+    ref, winners = _jax_fault_panel(monkeypatch, tmp_path)
+    monkeypatch.setattr(pt_fault_scenarios, "REFERENCE", ref)
+    capsys.readouterr()
     assert pt_run.main(["--only", "scenarios,faults", "--quick", "--device",
                         "cpu", "--cache-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
@@ -197,8 +261,10 @@ def test_pt_run_accepts_scenarios_and_faults(tmp_path, capsys,
         and "bit-identical" in out
     for check in ("flap check", "dying-optic check", "intra-node check"):
         assert f"# {check}:" in out and "MISMATCH" not in out, check
-    assert "fault_panel: not run; it waits for" in out
-    assert "monitor_demo: not run; it waits for" in out
+    for check in ("fault-panel check", "monitor demo"):
+        line = next(x for x in out.splitlines() if x.startswith(f"# {check}"))
+        assert line.endswith("REPRODUCED"), line
+    assert f"winners equal JAX's {winners}" in out
 
 
 def test_scale_sweep_full_ladder_stops_at_256_alltoall_nodes():

@@ -56,6 +56,7 @@ from repro_torch.optim import adamw as topt  # noqa: E402
 from repro_torch.runtime import fault  # noqa: E402
 from repro_torch.runtime.train_loop import (  # noqa: E402
     TrainConfig, Trainer, make_microbatched_train_step)
+from torch_threads import one_thread  # noqa: E402,F401  (fixture)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
@@ -249,12 +250,14 @@ def _tc(**kw):
     return TrainConfig(**base)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_train_loss_decreases():
     out = Trainer(_arch(), _tc(total_steps=30), device="cpu").run()
     assert out["steps_run"] == 30
     assert out["final_loss"] < out["first_loss"] - 0.3, out
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_checkpoint_restart_resumes(tmp_path):
     root = str(tmp_path / "ckpt")
     out1 = Trainer(_arch(), _tc(total_steps=10, ckpt_dir=root),
@@ -266,6 +269,7 @@ def test_checkpoint_restart_resumes(tmp_path):
     assert abs(out2["first_loss"] - out1["final_loss"]) < 0.5
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_failure_recovery_replays_bit_equal(tmp_path):
     root = str(tmp_path / "ckpt")
     inj = fault.FailureInjector(fail_at=(7, 13))
@@ -436,6 +440,7 @@ def test_resumes_a_jax_written_checkpoint(tmp_path):
 
 # ------------------------------------------------- full-width reference
 
+@pytest.mark.usefixtures("one_thread")
 def test_full_width_step0_matches_committed_reference():
     """hymba-1.5b at full width, 2 layers, float32, one step of the
     committed reference rows (``pt_jax_reference.py --only train``): the
