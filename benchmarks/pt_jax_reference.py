@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|lm|train]``
+[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|lm|train]``
 
 ``--only`` takes a comma list of parts.
 
@@ -60,6 +60,19 @@ budgets (``fault_panel``: the panel's cells and the per-fabric winners);
 ``benchmarks/whatif_bench.py``'s quick agents' race (``agents_quick``:
 the grid target and each agent's evaluations to it); and the full lab
 (``mitigation_full``) in a child process given ``FULL_GRID_S`` seconds.
+
+``whatif`` (``--only whatif``, likewise) runs
+``benchmarks/whatif_bench.py``'s coalescing demo (three mixed-bucket
+queries, coalesced in one server and then one server each) at its quick
+and full settings (``whatif_quick``, ``whatif_full``): each query's score
+table, winner, frontier, finish reason and evaluations, the coalesced
+server's stats and the serial servers' calls. No server gets a
+``cache_dir``.
+
+``sweep`` (``--only sweep``, likewise) runs the sweep launcher's measured
+workload (``repro.launch.sweep._workload``) once, unsharded, in this
+process: ``sweep_tiny`` and ``sweep_quick`` hold the scale grid's and the
+panel's rows. It sets no ``XLA_FLAGS`` and no compile cache.
 
 ``lm`` writes ``artifacts/bench_cache_torch/jax_lm_reference.json``:
 hymba-1.5b at full width, 2 layers, float32 (``benchmarks.pt_serve.
@@ -641,6 +654,81 @@ def mitigation_rows() -> dict:
             "mitigation_commit": _commit()}
 
 
+def _whatif_table(res) -> dict:
+    return {s.candidate: [s.ratio_min, s.ratio_mean, s.aggr_gbps, s.jain,
+                          s.t_base_worst_rel] for s in res.scores}
+
+
+def _whatif(quick: bool) -> dict:
+    """The coalescing demo of benchmarks/whatif_bench.py on the JAX
+    package, with every query's table (module docstring)."""
+    from benchmarks import whatif_bench
+    from repro.runtime import whatif
+
+    kw = dict(n_iters=5, warmup=2, max_steps=50_000) if quick \
+        else dict(n_iters=10, warmup=3)
+    queries = whatif_bench._coalescing_queries(quick)
+    srv = whatif.WhatIfServer(max_batch=len(queries), **kw)
+    uids = [srv.submit(q) for q in queries]
+    t0 = time.time()
+    stats = srv.run_until_drained()
+    wall_coal = time.time() - t0
+    coalesced = [srv.result(u) for u in uids]
+    serial, serial_calls, serial_lanes = [], 0, 0
+    t0 = time.time()
+    for q in queries:
+        one = whatif.WhatIfServer(max_batch=1, **kw)
+        u = one.submit(q)
+        one.run_until_drained()
+        serial.append(one.result(u))
+        serial_calls += one.stats.coalesced_calls
+        serial_lanes += one.stats.lanes
+    wall_serial = time.time() - t0
+    return {
+        "engine": kw,
+        "queries": [{"system": q.system, "n_nodes": q.n_nodes,
+                     "vector_bytes": q.vector_bytes,
+                     "candidates": [c.label() for c in q.candidates],
+                     "table": _whatif_table(r),
+                     "winner": r.winner.candidate,
+                     "frontier": [s.candidate for s in r.frontier],
+                     "finish_reason": r.finish_reason, "evals": r.evals}
+                    for q, r in zip(queries, coalesced)],
+        "bit_identical": all(_whatif_table(a) == _whatif_table(b)
+                             for a, b in zip(coalesced, serial)),
+        "stats": {k: v for k, v in dataclasses.asdict(stats).items()
+                  if k != "wall_s"},
+        "serial_calls": serial_calls, "serial_lanes": serial_lanes,
+        "wall_coalesced_s": wall_coal, "wall_serial_s": wall_serial}
+
+
+def whatif_rows() -> dict:
+    """The what-if service's reference rows (module docstring)."""
+    out = {}
+    for label, quick in (("whatif_quick", True), ("whatif_full", False)):
+        out[label] = _whatif(quick)
+        print(f"{label}: {out[label]['wall_coalesced_s']:.1f}s coalesced, "
+              f"{out[label]['wall_serial_s']:.1f}s serial", flush=True)
+    out["whatif_commit"] = _commit()
+    return out
+
+
+def sweep_rows() -> dict:
+    """The sweep workload's reference rows (module docstring), unsharded
+    and in this process."""
+    from repro.launch import sweep
+
+    out = {}
+    for label, tiny in (("sweep_tiny", True), ("sweep_quick", False)):
+        rep = sweep.run_workload(None, tiny=tiny)
+        out[label] = {k: rep[k] for k in ("results_scale", "runs_panel",
+                                          "digest_scale", "digest_panel",
+                                          "wall_s")}
+        print(f"{label}: {rep['wall_s']:.1f}s", flush=True)
+    out["sweep_commit"] = _commit()
+    return out
+
+
 def lm_reference() -> dict:
     """The LM reference rows (module docstring), on the JAX package."""
     import jax
@@ -769,10 +857,11 @@ def main() -> None:
                          "artifacts/bench_cache_torch/)")
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
-                         "fleet_replay, mitigation, lm, train")
+                         "fleet_replay, mitigation, whatif, sweep, lm, "
+                         "train")
     args = ap.parse_args()
     parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
-             "mitigation", "lm", "train")
+             "mitigation", "whatif", "sweep", "lm", "train")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -796,7 +885,8 @@ def main() -> None:
     for part, rows in (("fig7_fig8", fig7_fig8_rows),
                        ("scenarios", scenario_rows),
                        ("fleet_replay", fleet_replay_rows),
-                       ("mitigation", mitigation_rows)):
+                       ("mitigation", mitigation_rows),
+                       ("whatif", whatif_rows), ("sweep", sweep_rows)):
         if part in run:
             path = args.out or OUT
             with open(path) as f:

@@ -89,6 +89,22 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    kernel-1 launch a step; then the gradient tier, 2 Adam steps on the
    card on the step core's plain version (kernel 1 has no gradient), its
    history within ``GRAD_HIST_REL`` of the CPU's;
+7e. ``whatif``: kernel 1 against its plain version at the first coalesced
+   what-if wave's inputs (three mixed-bucket queries, built by
+   ``search.candidate_rows_inputs`` as the server builds them), ten
+   launches and each cell alone bit-equal; ``benchmarks/pt_whatif.py``'s
+   full demo coalesced and then serial: the tables bit-identical, fewer
+   coalesced calls, and each query's winner, frontier (up to candidates
+   that tie in JAX's table), finish reason, evaluations and the stats'
+   calls and lanes JAX's, table entries within 2%
+   (``jax_reference.json["whatif_full"]``); one kernel-1 launch a step;
+7f. ``sweep``: the sharded sweep launcher's measured workload (the quick
+   scale grid and mitigation panel) on one device and twice in two shards
+   on ``cuda:0``, digest-equal all three, rows held to
+   ``jax_reference.json["sweep_quick"]``; one kernel-1 launch a step;
+   meanwhile ``launch.sweep``'s tiny smoke in fresh processes, the cold
+   one building kernel 1 into an empty build directory and the warm one
+   only loading it (its build-cache checks present and true);
 8. times kernels 1 (also at the two fleet buckets) and 2, their plain
    versions, their bounds and, for the fused accumulate, the library call
    ``torch.add``, per shape (kernel 1
@@ -167,7 +183,7 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    beside the backward of ``scaled_dot_product_attention``, with achieved
    TFLOP/s (10 * D flops a live pair).
 
-Phases 6 to 7d run at once, in the groups of ``CONCURRENT``, each group
+Phases 6 to 7f run at once, in the groups of ``CONCURRENT``, each group
 in a process of its own with its launch counts its own (the main process
 runs 3 to 5 and kernel 1 at the fleet buckets meanwhile, and prints each
 group's log when it ends); phases 8 to 20 run after them, one at a time.
@@ -425,7 +441,8 @@ GRAD_HIST_REL = 1e-4
 # their plain versions; every phase that times something runs after the
 # groups have ended, alone on the card.
 CONCURRENT = (("main_path",), ("fig1", "fig3", "fig6", "scenarios"),
-              ("fleet_replay",), ("fig7_fig8", "mitigation"))
+              ("fleet_replay", "sweep"), ("fig7_fig8", "mitigation",
+                                          "whatif"))
 WORKER_TIMEOUT_S = 700
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
@@ -1877,6 +1894,127 @@ class Smoke:
                    "gradient tier: no descent")
         rep["gradient"] = {"core": "plain", "card": card, "cpu": cpu,
                            "max_rel": rel, "wall_s": wall}
+
+    # --------------------------------------------------------------- 7e
+    def whatif(self):
+        """The what-if service on the card: kernel 1 at the first coalesced
+        wave's inputs (built as the server builds them,
+        search.candidate_rows_inputs) against its plain version, ten
+        launches and each cell alone bit-equal; then ``pt_whatif.py``'s
+        full demo, coalesced and then serial, the tables bit-identical,
+        coalescing cheaper, and every query held to JAX's full rows; one
+        kernel-1 launch a step."""
+        from benchmarks import pt_whatif as pw
+        from repro_torch.core.fabric import simulator as sim
+        rep = self.report.setdefault("whatif", {})
+        label = "whatif first wave"
+        stacked, p = pw.first_wave_inputs(False)
+        geom, p = sim.hetero_cells(stacked, p, self.dev)
+        args, kw = self.core_inputs(geom, p, 700, idle=True)
+        B, F, H = args[0].shape
+        cfg = self.launch_config(label, args, kw)
+        log(f"   {label}: B={B} F={F} H={H} L={geom.L} n_src={geom.n_src}; "
+            f"{cfg.threads} threads, cluster {cfg.cluster}, "
+            f"{'wide' if cfg.workspace else 'shared'} layout")
+        for aux in (False, True):
+            err = self.compare(label, args, kw, aux)
+            self.whatif_err = max(getattr(self, "whatif_err", 0.0), err)
+        self.batch_invariance(label, args, kw)
+
+        def run():
+            out = pw.run(False, self.dev)
+            pw.report(out)
+            agree = pw.jax_agreement(out, False)
+            log(f"   full demo vs JAX: {agree}")
+            for what in pw.failures(out, agree):
+                self.check(False, f"whatif: {what}")
+            rep.update({k: v for k, v in out.items() if k != "queries"})
+            rep["queries"] = [{k: v for k, v in q.items() if k != "table"}
+                              for q in out["queries"]]
+            rep["jax"] = agree
+            return ("fabric_step_core",)
+
+        counts = self.path("whatif", run)
+        self.whatif_launches = counts["fabric_step_core"]
+
+    # --------------------------------------------------------------- 7f
+    def sweep(self):
+        """The sharded sweep launcher on the card: the measured workload
+        (``sweep._workload``, not tiny) once on one device and twice in two
+        shards on ``cuda:0`` (the scale grid split on its cells, the panel
+        on its lanes), digest-equal all three, the single run's rows held
+        to JAX's (``sweep_quick``); one kernel-1 launch a step. Meanwhile
+        the launcher's own tiny smoke (fresh processes, the cold one on an
+        empty build directory) with its build-cache checks present and
+        true."""
+        from repro_torch.launch import sweep as sw
+        from repro_torch.launch.mesh import make_sweep_mesh
+        rep = self.report.setdefault("sweep", {})
+        want = self.reference()["sweep_quick"]
+
+        def run():
+            single = sw.run_workload(None, tiny=False, device=self.dev)
+            mesh = make_sweep_mesh(2, device="cuda:0")
+            sharded = sw.run_workload(mesh, tiny=False)
+            rerun = sw.run_workload(mesh, tiny=False)
+            for k in ("digest_scale", "digest_panel"):
+                same = single[k] == sharded[k] == rerun[k]
+                self.check(same, f"sweep: {k} single {single[k][:12]} "
+                           f"sharded {sharded[k][:12]} rerun "
+                           f"{rerun[k][:12]}")
+            worst = 0.0
+            for g, w in zip(single["results_scale"], want["results_scale"]):
+                self.check(list(g["n_iters"]) == list(w["n_iters"]),
+                           f"sweep: {g['system']}/{g['n_nodes']} n_iters "
+                           f"{g['n_iters']} != {w['n_iters']}")
+                for f in ("t_uncongested_s", "t_congested_s"):
+                    worst = max(worst, abs(g[f] / w[f] - 1))
+            for g, w in zip(single["runs_panel"], want["runs_panel"]):
+                for f in ("t_uncongested_s", "t_congested_s"):
+                    worst = max(worst, abs(g[f] / w[f] - 1))
+            self.check(len(single["results_scale"])
+                       == len(want["results_scale"]) and len(
+                           single["runs_panel"]) == len(want["runs_panel"])
+                       and worst <= TIME_RTOL,
+                       f"sweep: rows vs JAX's, worst time {worst:.3g}")
+            for name, r in (("single", single), ("two shards", sharded),
+                            ("rerun", rerun)):
+                log(f"   sweep {name}: {r['steps']} steps, "
+                    f"{r['kernel1_launches']} kernel-1 launches, "
+                    f"{r['wall_s']:.1f}s; digests {r['digest_scale'][:12]} "
+                    f"{r['digest_panel'][:12]}")
+            log(f"   sweep rows vs JAX: worst time rel {worst:.3g}")
+            rep["workload"] = {
+                name: {k: r[k] for k in r
+                       if k not in ("results_scale", "runs_panel")}
+                for name, r in (("single", single), ("sharded", sharded),
+                                ("rerun", rerun))}
+            rep["jax_worst_time_rel"] = worst
+            return ("fabric_step_core",)
+
+        # the smoke's children are processes of their own (their launches
+        # are theirs): they run while this process drives the workload
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.time()
+        with ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(sw.run_smoke, 2, tiny=True, device="cuda")
+            counts = self.path("sweep", run)
+            smoke = pending.result()
+        self.sweep_launches = counts["fabric_step_core"]
+        rep["smoke"] = smoke
+        rep["smoke_wall_s"] = time.time() - t0
+        log(f"   sweep smoke --tiny ({time.time() - t0:.1f}s from the phase's "
+            f"start, beside the workload): checks "
+            f"{smoke['checks']}; builds cold {smoke['sharded_cold']['builds']}"
+            f" in {smoke['sharded_cold']['build_s']}s, warm "
+            f"{smoke['sharded_warm']['builds']} (found "
+            f"{smoke['sharded_warm']['build_hits']}) in "
+            f"{smoke['sharded_warm']['build_s']}s")
+        for k in ("cache_populated", "cache_hit_on_relaunch",
+                  "cache_cuts_compile"):
+            self.check(smoke["checks"].get(k) is True,
+                       f"sweep smoke: {k} {smoke['checks'].get(k)}")
+        self.check(smoke["ok"], f"sweep smoke: {smoke['checks']}")
 
     # ---------------------------------------------------------------- 8
     def graphed(self, fn):
@@ -3399,10 +3537,13 @@ def main() -> int:
         "scenarios_launches": s.scen_launches,
         "fleet_launches": s.fleet_launches,
         "mitigation_launches": s.mitigation_launches,
+        "whatif_launches": s.whatif_launches,
+        "sweep_launches": s.sweep_launches,
         "fleet_shapes": {label: {k: s.timings[label][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by")}
             for label in ("fleet quick bucket", "fleet full bucket")},
         "fleet_max_abs_err": s.fleet_err,
+        "whatif_max_abs_err": s.whatif_err,
         "fault_caps_max_abs_err": s.fault_err, "wide_shapes": wide}, {
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],

@@ -365,6 +365,17 @@ def _grid_results(case: GridCase, out: dict, sizes: Sequence[float],
     return results
 
 
+def _resolve_launcher(mesh, launcher, shard_axis: str = "cell"):
+    """Launcher resolution shared by the grid runners and the mitigation
+    search: an explicit ``launcher`` wins; a ``mesh`` alone gets
+    launch.sweep's per-device dispatcher over ``shard_axis`` (imported
+    here, so that core does not import the launch layer)."""
+    if launcher is not None or mesh is None:
+        return launcher
+    from repro_torch.launch.sweep import device_launcher
+    return device_launcher(mesh, shard_axis=shard_axis)
+
+
 def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
              n_nodes: int, victim_coll: str, aggr_coll: str,
              sizes: Sequence[float],
@@ -373,20 +384,28 @@ def run_grid(system: Union[SystemPreset, Sequence["ScaleCell"]],
              max_steps: int = 200_000, chunk: int = 2048,
              trace_stride: int = 8, phased: bool = False,
              jobs: Optional[Sequence[traffic.JobSpec]] = None,
-             device=None, core: Optional[str] = None) -> List[BenchResult]:
+             device=None, core: Optional[str] = None, mesh=None,
+             launcher=None) -> List[BenchResult]:
     """All (vector size x profile) cells of one experiment in a single
     batched run: a per-size baseline (aggressors/background jobs off)
     plus one congested cell per profile, sharing one geometry.
 
     ``system`` may also be a list of ``(system, n_nodes)`` cells:
     heterogeneous topologies and scales, run through
-    :func:`run_scale_grid` (``n_nodes`` is then ignored)."""
-    if not isinstance(system, SystemPreset):
-        return run_scale_grid(system, victim_coll, aggr_coll, sizes,
+    :func:`run_scale_grid` (``n_nodes`` is then ignored). A ``mesh`` or
+    ``launcher`` (launch/sweep.py) also takes that route, for one system
+    too: a cell runs bit for bit as it does alone, so the rows are the
+    same."""
+    if not isinstance(system, SystemPreset) or mesh is not None \
+            or launcher is not None:
+        cells = system if not isinstance(system, SystemPreset) \
+            else [(system, n_nodes)]
+        return run_scale_grid(cells, victim_coll, aggr_coll, sizes,
                               profiles, n_iters=n_iters, warmup=warmup,
                               dt=dt, max_steps=max_steps, chunk=chunk,
                               trace_stride=trace_stride, phased=phased,
-                              jobs=jobs, device=device, core=core)
+                              jobs=jobs, device=device, core=core,
+                              mesh=mesh, launcher=launcher)
     device = resolve_device(device)
     check_iter_budget(n_iters)
     case, dts, params = grid_inputs(system, n_nodes, victim_coll, aggr_coll,
@@ -493,14 +512,17 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
                       max_steps: int = 200_000, chunk: int = 2048,
                       trace_stride: int = 8, phased: bool = False,
                       jobs: Optional[Sequence[traffic.JobSpec]] = None,
-                      device=None,
-                      core: Optional[str] = None) -> PendingGrid:
+                      device=None, core: Optional[str] = None, mesh=None,
+                      launcher=None) -> PendingGrid:
     """Build a cross-scale grid, pad its geometries into one bucket
     (:func:`bucket_stack`) and run every (cell x size x baseline/profile)
     sub-cell as one batch; returns the :class:`PendingGrid`. The port's
-    engine runs to the end before it returns (one card, no dispatcher to
-    overlap)."""
-    device = resolve_device(device)
+    engine runs to the end before it returns (it syncs once a chunk).
+    ``mesh``/``launcher`` split the batch's cells across devices
+    (launch/sweep.py) in place of ``device``."""
+    launcher = _resolve_launcher(mesh, launcher)
+    if launcher is None:
+        device = resolve_device(device)
     check_iter_budget(n_iters)
     sizes, profiles = tuple(sizes), tuple(profiles)
     if not cells:
@@ -509,9 +531,13 @@ def launch_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
     cases, all_dts, stacked, params = scale_grid_inputs(
         cells, victim_coll, aggr_coll, sizes, profiles, dt=dt, phased=phased,
         jobs=jobs)
-    out = run_cells_hetero(stacked, params, n_iters, chunk=chunk,
-                           max_chunks=-(-max_steps // chunk),
-                           stride=trace_stride, device=device, core=core)
+    kw = dict(chunk=chunk, max_chunks=-(-max_steps // chunk),
+              stride=trace_stride, core=core)
+    if launcher is not None:
+        out = launcher(stacked, params, n_iters, **kw)
+    else:
+        out = run_cells_hetero(stacked, params, n_iters, device=device,
+                               **kw)
     return PendingGrid(cases, out, sizes, profiles, all_dts, n_iters,
                        warmup, chunk, trace_stride)
 
@@ -552,20 +578,22 @@ def run_scale_grid(cells: Sequence[ScaleCell], victim_coll: str,
                    max_steps: int = 200_000, chunk: int = 2048,
                    trace_stride: int = 8, phased: bool = False,
                    jobs: Optional[Sequence[traffic.JobSpec]] = None,
-                   device=None,
-                   core: Optional[str] = None) -> List[BenchResult]:
+                   device=None, core: Optional[str] = None, mesh=None,
+                   launcher=None) -> List[BenchResult]:
     """A whole cross-scale experiment, heterogeneous ``(system,
     n_nodes)`` cells x (vector size x profile), in one batched run over
     one geometry bucket. Padding is inert (simulator.pad_geometry): a
     padded cell runs bit for bit as it runs alone. Results come back in
     input order: cells major, then sizes, then baseline/profiles (a
-    per-cell :func:`run_grid` concatenation)."""
+    per-cell :func:`run_grid` concatenation). ``mesh``/``launcher`` shard
+    the run across devices (launch/sweep.py), bit-identical to the
+    single-device run."""
     return launch_scale_grid(cells, victim_coll, aggr_coll, sizes, profiles,
                              n_iters=n_iters, warmup=warmup, dt=dt,
                              max_steps=max_steps, chunk=chunk,
                              trace_stride=trace_stride, phased=phased,
-                             jobs=jobs, device=device,
-                             core=core).results()
+                             jobs=jobs, device=device, core=core,
+                             mesh=mesh, launcher=launcher).results()
 
 
 def run_point(system: SystemPreset, n_nodes: int, victim_coll: str,

@@ -13,7 +13,7 @@ are host-side numpy and bind a program to a topology as a
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +42,16 @@ def interleaved_split(n_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
     """Paper §III-A: alternate nodes between victims and aggressors."""
     ids = np.arange(n_nodes)
     return ids[ids % 2 == 0], ids[ids % 2 == 1]
+
+
+def collective_flows(nodes: Sequence[int], kind: str,
+                     vector_bytes: float) -> List[Tuple[int, int, float]]:
+    """(src, dst, bytes_per_iteration) triples for one flattened
+    collective (the traffic IR's single-phase lowering): ring AllGather
+    ((n-1)/n of the vector along the ring), linear AlltoAll (all pairs,
+    V/n each), ring AllReduce (twice the ring traffic), Incast (every node
+    to one)."""
+    return traffic._flat_flows(nodes, kind, vector_bytes)
 
 
 def build_program_flowset(topo: Topology, jobs: Sequence[traffic.JobSpec],

@@ -1099,18 +1099,117 @@ def run_cells_hetero(geoms: FabricGeometry, params: SimParams,
                      n_iters: int, *, chunk: int = 2048,
                      max_chunks: int = 98, stride: int = 8, device=None,
                      core: Optional[str] = None,
-                     with_trace: bool = True, metrics: bool = False) -> dict:
+                     with_trace: bool = True, metrics: bool = False,
+                     mesh=None, shard_axis: str = "cell",
+                     donate: bool = False) -> dict:
     """Scale-batched engine: ``geoms`` is a stack of bucket-padded
     geometries (leading axis G, :func:`stack_geometries`) and ``params``
     carries two leading axes, (G, S): S sub-cells on each geometry. All
     G x S cells run as one batch, one launch of each kernel a step, each
     cell on its own geometry row. Returns numpy arrays with both leading
-    axes."""
+    axes.
+
+    ``mesh`` (a sequence of devices, launch.mesh.make_sweep_mesh) splits
+    the batch across its devices instead of running it on ``device``:
+    ``shard_axis='cell'`` splits the geometries with their sub-cells,
+    ``'lane'`` splits the sub-cells and gives every device all the
+    geometries (the mitigation search's candidate axis). The batch is
+    padded to a multiple of the device count by repeating index 0
+    (:func:`pad_batch`), each contiguous shard runs on its device, one
+    after another, and the padding is sliced off. A cell runs bit for bit
+    as it does in any other batch, so the result equals the unsharded
+    run's. PyTorch has no partitioned compile: this is also what the
+    sweep launcher's ``dispatch='shard_map'`` runs. ``donate`` is
+    accepted for the reference's signature; every shard is a slice the
+    engine only reads, so nothing is donated."""
+    if mesh is not None:
+        return _run_sharded(geoms, params, n_iters, mesh, shard_axis,
+                            chunk=chunk, max_chunks=max_chunks,
+                            stride=stride, core=core,
+                            with_trace=with_trace, metrics=metrics)
     G, S = params.dt.shape[:2]
     geom, flat = hetero_cells(geoms, params, device)
     out = _run_cell(geom, flat, int(n_iters), chunk, max_chunks, stride,
                     core, with_trace, metrics)
     return {k: v.reshape(G, S, *v.shape[1:]) for k, v in out.items()}
+
+
+def mesh_devices(mesh) -> List[torch.device]:
+    """The devices of a mesh (a sequence of devices or their names)."""
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    return devices
+
+
+def _run_sharded(geoms: FabricGeometry, params: SimParams, n_iters: int,
+                 mesh, shard_axis: str, **kw) -> dict:
+    """run_cells_hetero's ``mesh=`` entry: pad, run each shard on its
+    device, concatenate and slice the padding off."""
+    if shard_axis not in ("cell", "lane"):
+        raise ValueError(f"shard_axis must be 'cell' or 'lane', "
+                         f"got {shard_axis!r}")
+    devices = mesh_devices(mesh)
+    axis = 0 if shard_axis == "cell" else 1
+    n_real = params.dt.shape[axis]
+    if axis == 0:
+        geoms = pad_batch(geoms, len(devices))
+    params = pad_batch(params, len(devices), axis=axis)
+    width = params.dt.shape[axis] // len(devices)
+    outs = []
+    for i, dev in enumerate(devices):
+        lo, hi = i * width, (i + 1) * width
+        g = geoms if axis == 1 else slice_batch(geoms, lo, hi)
+        outs.append(run_cells_hetero(g, slice_batch(params, lo, hi, axis),
+                                     n_iters, device=dev, **kw))
+    return {k: np.concatenate([o[k] for o in outs], axis)
+            .take(np.arange(n_real), axis) for k in outs[0]}
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every array of a FabricGeometry, a SimParams or a dict of
+    arrays (numpy or torch)."""
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return tree._map(fn)
+
+
+def _leading_dim(tree, axis: int = 0) -> int:
+    if isinstance(tree, dict):
+        return next(iter(tree.values())).shape[axis]
+    return (tree.caps_pad if isinstance(tree, FabricGeometry)
+            else tree.dt).shape[axis]
+
+
+def pad_batch(tree, multiple: int, axis: int = 0):
+    """Pad every array's ``axis`` up to a multiple of ``multiple`` by
+    repeating index 0 (a real cell: a padded cell runs redundant work and
+    is sliced off, and it cannot change the real cells). A tree already
+    at a multiple comes back as it is."""
+    n = _leading_dim(tree, axis)
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return tree
+
+    def pad(x):
+        if isinstance(x, torch.Tensor):
+            fill = x.narrow(axis, 0, 1).repeat_interleave(target - n, axis)
+            return torch.cat([x, fill], axis)
+        fill = np.repeat(np.take(np.asarray(x), [0], axis=axis),
+                         target - n, axis=axis)
+        return np.concatenate([np.asarray(x), fill], axis=axis)
+
+    return _tree_map(pad, tree)
+
+
+def slice_batch(tree, lo: int, hi: int, axis: int = 0):
+    """Indices [lo, hi) of every array's ``axis``."""
+    def cut(x):
+        idx = [slice(None)] * x.ndim
+        idx[axis] = slice(lo, hi)
+        return x[tuple(idx)]
+
+    return _tree_map(cut, tree)
 
 
 def hetero_cells(geoms: FabricGeometry, params: SimParams, device=None):

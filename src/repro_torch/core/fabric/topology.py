@@ -345,3 +345,23 @@ def torus2d(nx: int, ny: int, link_gbit: float = 400.0,
         return [walk(src, dst)]
 
     return b.finish(name, n, path_fn, {"nx": nx, "ny": ny})
+
+
+# Named families, for the property tests and for callers that pick a
+# topology by name.
+FAMILIES: Dict[str, Callable[..., Topology]] = {
+    "single_switch": single_switch,
+    "leaf_spine": leaf_spine,
+    "fat_tree": fat_tree,
+    "dragonfly": dragonfly,
+    "dragonfly_plus": dragonfly_plus,
+}
+
+
+def make_family(family: str, n_nodes: int, **kwargs) -> Topology:
+    """Build one named topology family at ``n_nodes`` (kwargs go to the
+    family's builder)."""
+    if family not in FAMILIES:
+        raise KeyError(f"unknown topology family {family!r}; "
+                       f"known: {sorted(FAMILIES)}")
+    return FAMILIES[family](n_nodes, **kwargs)

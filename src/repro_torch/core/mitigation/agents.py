@@ -93,14 +93,18 @@ class PanelEvaluator:
     needs its uncongested times as the baseline reference).
     ``evals`` counts candidate evaluations actually sent to the
     simulator (the default baseline is shared overhead, not charged);
-    ``table_hits`` counts re-proposals served from the memo."""
+    ``table_hits`` counts re-proposals served from the memo.
+    ``mesh``/``launcher`` split each batch's candidate lanes across
+    devices (launch/sweep.py)."""
 
     def __init__(self, panel: Sequence[PanelCell], *, n_iters: int = 12,
                  warmup: int = 3, max_steps: int = 200_000,
-                 chunk: int = 2048, stride: int = 8, device=None):
+                 chunk: int = 2048, stride: int = 8, device=None,
+                 mesh=None, launcher=None):
         self.panel = list(panel)
         self.kw = dict(n_iters=n_iters, warmup=warmup, max_steps=max_steps,
-                       chunk=chunk, stride=stride, device=device)
+                       chunk=chunk, stride=stride, device=device, mesh=mesh,
+                       launcher=launcher)
         self.table: Dict[str, CandidateScore] = {}
         self._default_runs: Optional[list] = None
         self.evals = 0

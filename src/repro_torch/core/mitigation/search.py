@@ -206,26 +206,12 @@ def _jain(x: np.ndarray) -> float:
     return float((x.sum() ** 2) / (len(x) * np.sum(x * x)))
 
 
-def run_candidate_rows(panel: Sequence[PanelCell],
-                       cand_rows: Sequence[Sequence[Candidate]], *,
-                       n_iters: int = 12, warmup: int = 3,
-                       max_steps: int = 200_000, chunk: int = 2048,
-                       stride: int = 8, device=None) -> List[CellRun]:
-    """Per-cell candidate rows in one batched run: ``cand_rows[i]`` is the
-    candidate list measured on ``panel[i]``; rows share one length (the
-    sub-cell axis is rectangular). Panel geometries carry the ECMP and
-    NSLB tables (a candidate may select either as data) and pad into one
-    bucket; a faulted cell anywhere puts the inert fault table on every
-    cell, and a node-capped cell arms its case's intra-node stage."""
-    if len(cand_rows) != len(panel):
-        raise ValueError(f"{len(cand_rows)} candidate rows for "
-                         f"{len(panel)} panel cells")
-    widths = {len(r) for r in cand_rows}
-    if len(widths) != 1:
-        raise ValueError(f"candidate rows must share one length, got "
-                         f"{sorted(widths)}")
-    device = sim.resolve_device(device)
-    bench.check_iter_budget(n_iters)
+def candidate_rows_inputs(panel: Sequence[PanelCell],
+                          cand_rows: Sequence[Sequence[Candidate]]):
+    """What :func:`run_candidate_rows` runs: each cell's case and dt, the
+    panel's stacked bucket geometries, and params with (cell, candidate x
+    {baseline, congested}) leading axes, on the CPU. Returns ``(cases,
+    dts, stacked, params)``."""
     with_ft = cong.needs_fault_table([c.profile for c in panel])
     cases = [bench.build_case(c.system, c.n_nodes, c.victim, c.aggressor,
                               jobs=list(c.jobs) or None,
@@ -246,9 +232,43 @@ def run_candidate_rows(panel: Sequence[PanelCell],
                                      with_fault_table=with_ft)
                 lane.append(cand.apply(p, case.policy))
         rows.append(sim.stack_params(lane))
-    out = sim.run_cells_hetero(stacked, sim.stack_params(rows), n_iters,
-                               chunk=chunk, max_chunks=-(-max_steps // chunk),
-                               stride=stride, device=device)
+    return cases, dts, stacked, sim.stack_params(rows)
+
+
+def run_candidate_rows(panel: Sequence[PanelCell],
+                       cand_rows: Sequence[Sequence[Candidate]], *,
+                       n_iters: int = 12, warmup: int = 3,
+                       max_steps: int = 200_000, chunk: int = 2048,
+                       stride: int = 8, device=None, mesh=None,
+                       launcher=None) -> List[CellRun]:
+    """Per-cell candidate rows in one batched run: ``cand_rows[i]`` is the
+    candidate list measured on ``panel[i]``; rows share one length (the
+    sub-cell axis is rectangular), which is what lets the what-if server
+    (runtime/whatif.py) coalesce different queries' rows into one run.
+    Panel geometries carry the ECMP and NSLB tables (a candidate may
+    select either as data) and pad into one bucket; a faulted cell
+    anywhere puts the inert fault table on every cell, and a node-capped
+    cell arms its case's intra-node stage. ``mesh``/``launcher`` split
+    the candidate lanes across devices (launch/sweep.py) in place of
+    ``device``."""
+    if len(cand_rows) != len(panel):
+        raise ValueError(f"{len(cand_rows)} candidate rows for "
+                         f"{len(panel)} panel cells")
+    widths = {len(r) for r in cand_rows}
+    if len(widths) != 1:
+        raise ValueError(f"candidate rows must share one length, got "
+                         f"{sorted(widths)}")
+    launcher = bench._resolve_launcher(mesh, launcher, shard_axis="lane")
+    if launcher is None:
+        device = sim.resolve_device(device)
+    bench.check_iter_budget(n_iters)
+    cases, dts, stacked, params = candidate_rows_inputs(panel, cand_rows)
+    kw = dict(chunk=chunk, max_chunks=-(-max_steps // chunk), stride=stride)
+    if launcher is not None:
+        out = launcher(stacked, params, n_iters, **kw)
+    else:
+        out = sim.run_cells_hetero(stacked, params, n_iters, device=device,
+                                   **kw)
     runs: List[CellRun] = []
     fbytes = np.asarray(out["fbytes"])
     t_all = np.asarray(out["t"])
@@ -286,15 +306,19 @@ def run_candidates(panel: Sequence[PanelCell],
                    candidates: Sequence[Candidate], *,
                    n_iters: int = 12, warmup: int = 3,
                    max_steps: int = 200_000, chunk: int = 2048,
-                   stride: int = 8, device=None) -> List[CellRun]:
+                   stride: int = 8, device=None, mesh=None,
+                   launcher=None) -> List[CellRun]:
     """Score every candidate on every panel cell in one batched run (the
     uniform-row case of :func:`run_candidate_rows`): geometries pad into
     one bucket, params carry (cell, candidate x {baseline, congested})
-    sub-cells. On ``device`` (default: the CUDA device)."""
+    sub-cells. On ``device`` (default: the CUDA device), or with the
+    candidate lanes split across a ``mesh``'s devices (or by a
+    ``launcher``, launch/sweep.py), bit-identical to one device."""
     return run_candidate_rows(panel, [list(candidates)] * len(panel),
                               n_iters=n_iters, warmup=warmup,
                               max_steps=max_steps, chunk=chunk,
-                              stride=stride, device=device)
+                              stride=stride, device=device, mesh=mesh,
+                              launcher=launcher)
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,7 @@ replay's points (``fleet_replay``) and the mitigation lab's panels
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 from repro_torch.core import bench
 from repro_torch.core import congestion as cong
@@ -83,6 +83,13 @@ def run_grid_spec(scenario: Scenario, grid: Grid, *, device=None,
         n_iters=scenario.n_iters, warmup=scenario.warmup,
         phased=grid.phased, jobs=list(grid.jobs) or None, device=device,
         core=core)
+
+
+def run_scenario(scenario: Scenario, *, device=None,
+                 core=None) -> Iterator[bench.BenchResult]:
+    """Run every grid of a scenario, one batched run a grid."""
+    for grid in scenario.grids:
+        yield from run_grid_spec(scenario, grid, device=device, core=core)
 
 
 def result_row(grid: Grid, r: bench.BenchResult) -> dict:

@@ -340,20 +340,28 @@ def replay_inputs(templates: Sequence[ReplayTemplate], seeds, device=None):
 
 def run_replay(templates: Sequence[ReplayTemplate], seeds, *,
                chunk: int = 2048, metrics: bool = True,
-               with_trace: bool = False, device=None):
+               with_trace: bool = False, device=None, launcher=None,
+               mesh=None):
     """Replay ``seeds`` over one or more templates in ONE batched run:
     geometries pad into one bucket and stack (bench.bucket_stack), params
     get a (template, seed) leading pair, the streaming metrics ride the
     state; each engine step is one launch of kernel 1 for every (template,
-    seed) cell. On ``device`` (default: the CUDA device). Returns ``(out,
-    padded_templates)``."""
+    seed) cell. On ``device`` (default: the CUDA device), or split across
+    devices by a ``launcher`` or a ``mesh`` (launch/sweep.py); the seeds
+    are lowered on ``device``, by default the mesh's first. Returns
+    ``(out, padded_templates)``."""
+    if device is None and mesh is not None:
+        device = sim.mesh_devices(mesh)[0]
     device = sim.resolve_device(device)
     padded, geoms, params = replay_inputs(templates, seeds, device)
     max_chunks = max(replay_budget(t, chunk) for t in padded)
-    out = sim.run_cells_hetero(geoms, params, sim.TDONE_SLOTS, chunk=chunk,
-                               max_chunks=max_chunks, stride=8,
-                               device=device, metrics=metrics,
-                               with_trace=with_trace)
+    kw = dict(chunk=chunk, max_chunks=max_chunks, stride=8, metrics=metrics,
+              with_trace=with_trace)
+    if launcher is not None:
+        out = launcher(geoms, params, sim.TDONE_SLOTS, **kw)
+    else:
+        out = sim.run_cells_hetero(geoms, params, sim.TDONE_SLOTS,
+                                   device=device, mesh=mesh, **kw)
     return out, padded
 
 

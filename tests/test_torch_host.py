@@ -66,3 +66,37 @@ def test_cell_params_match():
             np.testing.assert_array_equal(getattr(got, k).numpy(),
                                           np.asarray(getattr(want, k)),
                                           err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["ring_allgather", "alltoall",
+                                  "ring_allreduce", "incast"])
+def test_collective_flows_match_reference(kind):
+    from repro.core import congestion as jcong
+    from repro_torch.core import congestion as tcong
+
+    for nodes in ([0, 2, 4, 6], [3, 1, 7, 5, 9, 11, 13, 15], [4, 9]):
+        got = tcong.collective_flows(nodes, kind, 3.0 * (1 << 20))
+        assert got == jcong.collective_flows(nodes, kind, 3.0 * (1 << 20))
+        assert got
+
+
+@pytest.mark.parametrize("family", ["single_switch", "leaf_spine",
+                                    "fat_tree", "dragonfly",
+                                    "dragonfly_plus"])
+def test_make_family_matches_reference(family):
+    from repro.core.fabric import topology as jtopo
+    from repro_torch.core.fabric import topology as ttopo
+
+    assert sorted(ttopo.FAMILIES) == sorted(jtopo.FAMILIES)
+    for n in (8, 32):
+        got, want = ttopo.make_family(family, n), \
+            jtopo.make_family(family, n)
+        assert (got.name, got.n_nodes, got.link_names, got.meta) \
+            == (want.name, want.n_nodes, want.link_names, want.meta)
+        np.testing.assert_array_equal(got.caps, want.caps)
+        np.testing.assert_array_equal(got.link_src_switch,
+                                      want.link_src_switch)
+        for src, dst in ((0, n - 1), (1, n // 2), (n - 1, 0), (3, 3)):
+            assert got.paths(src, dst) == want.paths(src, dst)
+    with pytest.raises(KeyError):
+        ttopo.make_family("hypercube", 8)

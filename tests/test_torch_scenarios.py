@@ -285,3 +285,27 @@ def test_scale_sweep_full_ladder_stops_at_256_alltoall_nodes():
     assert "Queue 2 item 6" in note and "('lumi', 512)" in note
     quick = tscen.get("scale_sweep", True)
     assert pt_new_scenarios.runnable(quick) == (quick, "")
+
+
+def _small_scenario(scen_mod, cong_mod):
+    steady = (cong_mod.steady(),)
+    return scen_mod.Scenario(
+        name="small", description="two small grids", n_iters=4, warmup=1,
+        grids=(scen_mod.Grid("cresco8", 8, "incast", (64 * KiB,), steady),
+               scen_mod.Grid("cresco8+lumi", 0, "alltoall", (64 * KiB,),
+                             steady, cells=(("cresco8", 8), ("lumi", 8)))))
+
+
+def test_run_scenario_matches_reference():
+    """run_scenario runs every grid of a scenario in order (a
+    single-system grid and a scale-batched one), rows held to the
+    reference's: iteration counts equal, times within 2%."""
+    from repro.core import congestion as jcong
+    from repro_torch.core import congestion as tcong
+
+    got = list(tscen.run_scenario(_small_scenario(tscen, tcong),
+                                  device="cpu"))
+    want = list(jscen.run_scenario(_small_scenario(jscen, jcong)))
+    assert [(r.system, r.n_nodes) for r in got] == \
+        [("cresco8", 8), ("cresco8", 8), ("lumi", 8)]
+    _hold(got, want)
