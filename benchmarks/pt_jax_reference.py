@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|lm|train]``
+[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|lm|train|moe]``
 
 ``--only`` takes a comma list of parts.
 
@@ -91,7 +91,15 @@ batches of 2 x 1280 tokens. Per step it keeps the loss and the global
 gradient norm; for step 0 each leaf's gradient norm and the gradient at a
 few probed elements per leaf; after the last step the parameters at the
 same elements. Leaves carry the port's names (``layers.<i>.*``). Without
-``--only`` all three parts run.
+``--only`` these three parts run.
+
+``moe`` (only with ``--only moe``) writes
+``artifacts/bench_cache_torch/jax_moe_reference.json``: grok-1 at full
+width, 1 layer, float32 (``benchmarks.pt_serve.MOE_REFERENCE``: 6.53 B
+parameters, 26.1 GB), its parameters built leaf by leaf from
+``numpy_param_leaves``; a prefill of two 64-token prompts and 4 decode
+steps fed JAX's greedy tokens (the prefill's cache padded for them), kept
+as ``lm`` keeps them. It needs about 30 GB of host memory.
 """
 from __future__ import annotations
 
@@ -130,6 +138,7 @@ SCENARIO_FAMILIES = ("ramp_onset", "random_telegraph", "multi_tenant",
 CHILD_RSS_GIB = 8
 SCENARIO_WORKERS = 2
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
+MOE_OUT = os.path.join(os.path.dirname(OUT), "jax_moe_reference.json")
 TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
 
 
@@ -729,6 +738,57 @@ def sweep_rows() -> dict:
     return out
 
 
+def _lm_steps(model, params, prompts, probe, r, mesh=None,
+              pad_cache=False) -> list:
+    """A prefill of ``prompts``, then ``r["decode_steps"]`` decode steps
+    fed JAX's own greedy tokens: per step the rows' logit summaries.
+    ``pad_cache`` gives a full-attention cache (k, v: (L, B, S, KH, D))
+    room for the decode steps' keys, as the server pads it."""
+    import contextlib
+
+    import jax
+    import jax.numpy as jnp
+
+    from benchmarks import pt_serve
+
+    t0 = time.time()
+    with jax.set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        logits, cache = jax.jit(model.prefill)(
+            params, {"tokens": jnp.asarray(prompts)})
+        steps = [pt_serve.logit_summary(np.asarray(logits), probe)]
+        if pad_cache:
+            room = [(0, 0), (0, 0), (0, r["decode_steps"]), (0, 0), (0, 0)]
+            cache = {k: jnp.pad(v, room) for k, v in cache.items()}
+        print(f"{r['arch']} prefill {prompts.shape}: "
+              f"{time.time() - t0:.1f}s", flush=True)
+        decode = jax.jit(model.decode)
+        S = prompts.shape[1]
+        for t in range(r["decode_steps"]):
+            tokens = np.array([[row["token"]] for row in steps[-1]],
+                              np.int32)
+            logits, cache = decode(params, cache, jnp.asarray(tokens),
+                                   jnp.int32(S + t))
+            steps.append(pt_serve.logit_summary(np.asarray(logits), probe))
+    print(f"{r['arch']} {r['decode_steps']} decode steps: "
+          f"{time.time() - t0:.1f}s; greedy "
+          f"{[[row['token'] for row in st] for st in steps]}", flush=True)
+    return steps
+
+
+def _lm_doc(part, cfg, r, probe, prompts, steps, t0) -> dict:
+    import jax
+
+    return {"source": f"benchmarks/pt_jax_reference.py --only {part}",
+            "jax_version": jax.__version__,
+            "jax_backend": jax.default_backend(), "commit": _commit(),
+            "config": {**r, "name": cfg.name, "d_model": cfg.d_model,
+                       "vocab_padded": cfg.vocab_padded,
+                       "sliding_window": cfg.sliding_window},
+            "probe_ids": [int(i) for i in probe],
+            "prompts": prompts.tolist(),
+            "steps": steps, "wall_s": time.time() - t0}
+
+
 def lm_reference() -> dict:
     """The LM reference rows (module docstring), on the JAX package."""
     import jax
@@ -750,29 +810,43 @@ def lm_reference() -> dict:
     prompts = pt_serve.reference_prompts(tcfg)
     probe = pt_serve.probe_ids(tcfg)
     t0 = time.time()
-    logits, cache = jax.jit(model.prefill)(params,
-                                           {"tokens": jnp.asarray(prompts)})
-    steps = [pt_serve.logit_summary(np.asarray(logits), probe)]
-    print(f"lm prefill {prompts.shape}: {time.time() - t0:.1f}s", flush=True)
-    decode = jax.jit(model.decode)
-    S = prompts.shape[1]
-    for t in range(r["decode_steps"]):
-        tokens = np.array([[row["token"]] for row in steps[-1]], np.int32)
-        logits, cache = decode(params, cache, jnp.asarray(tokens),
-                               jnp.int32(S + t))
-        steps.append(pt_serve.logit_summary(np.asarray(logits), probe))
-    print(f"lm {r['decode_steps']} decode steps: {time.time() - t0:.1f}s; "
-          f"greedy {[[row['token'] for row in st] for st in steps]}",
-          flush=True)
-    return {"source": "benchmarks/pt_jax_reference.py --only lm",
-            "jax_version": jax.__version__,
-            "jax_backend": jax.default_backend(), "commit": _commit(),
-            "config": {**r, "name": cfg.name, "d_model": cfg.d_model,
-                       "vocab_padded": cfg.vocab_padded,
-                       "sliding_window": cfg.sliding_window},
-            "probe_ids": [int(i) for i in probe],
-            "prompts": prompts.tolist(),
-            "steps": steps, "wall_s": time.time() - t0}
+    steps = _lm_steps(model, params, prompts, probe, r)
+    return _lm_doc("lm", cfg, r, probe, prompts, steps, t0)
+
+
+def moe_reference() -> dict:
+    """The MoE reference rows (module docstring), on the JAX package: the
+    parameters are built leaf by leaf, each numpy leaf dropped once JAX
+    holds it, so the host never holds the model twice."""
+    import jax.numpy as jnp
+
+    from benchmarks import pt_serve
+    from repro.configs import get_config
+    from repro.launch.mesh import compat_make_mesh, rules_for
+    from repro.models.api import build_model
+    from repro_torch.models.layers import numpy_param_leaves
+
+    r = pt_serve.MOE_REFERENCE
+    cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
+                              param_dtype=r["dtype"],
+                              compute_dtype=r["dtype"], remat="none")
+    tcfg = pt_serve.reference_config(r)
+    mesh = compat_make_mesh((1, 1), ("data", "model"))
+    model = build_model(cfg, rules_for(cfg, mesh), mesh)
+    t0 = time.time()
+    params = {}
+    for path, x in numpy_param_leaves(tcfg, r["param_seed"]):
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = jnp.array(x)
+        del x
+    print(f"{r['arch']} parameters: {time.time() - t0:.1f}s", flush=True)
+    prompts = pt_serve.reference_prompts(tcfg, r)
+    probe = pt_serve.probe_ids(tcfg, r)
+    steps = _lm_steps(model, params, prompts, probe, r, mesh,
+                      pad_cache=True)
+    return _lm_doc("moe", cfg, r, probe, prompts, steps, t0)
 
 
 def train_reference() -> dict:
@@ -858,10 +932,10 @@ def main() -> None:
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
                          "fleet_replay, mitigation, whatif, sweep, lm, "
-                         "train")
+                         "train, moe")
     args = ap.parse_args()
     parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
-             "mitigation", "whatif", "sweep", "lm", "train")
+             "mitigation", "whatif", "sweep", "lm", "train", "moe")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -899,6 +973,8 @@ def main() -> None:
         _write(lm_reference(), (only and args.out) or LM_OUT)
     if "train" in run:
         _write(train_reference(), (only and args.out) or TRAIN_OUT)
+    if "moe" in run:
+        _write(moe_reference(), (only and args.out) or MOE_OUT)
 
 if __name__ == "__main__":
     main()

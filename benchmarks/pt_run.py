@@ -9,10 +9,10 @@ the default fails. By default it runs every ported benchmark: the paper's
 figures (fig1, fig3, fig4, fig5, fig6, fig7_fig8), the beyond-paper
 families (scenarios), the link-fault and intra-node families with their
 engine checks, mitigation panel and monitor demo (faults), the fleet
-replay (fleet_replay) and the mitigation lab with the agents' convergence
-gate (mitigation). A name the port does not run yet exits
-non-zero with the ROADMAP item that ports it. Prints each figure's table plus a final
-``name,us_per_call,derived`` CSV summary line per point.
+replay (fleet_replay), the mitigation lab with the agents' convergence
+gate (mitigation) and §III-B's collective schedules on 8 ranks of one
+process group over gloo (collectives). Prints each figure's table plus a
+final ``name,us_per_call,derived`` CSV summary line per point.
 """
 from __future__ import annotations
 
@@ -22,11 +22,7 @@ import time
 import traceback
 
 PORTED = ("fig1", "fig3", "fig4", "fig5", "fig6", "fig7_fig8", "scenarios",
-          "faults", "fleet_replay", "mitigation")
-NOT_PORTED = {
-    "collectives": "ROADMAP Queue 1, item 14 (LM stack: collectives over "
-                   "torch.distributed)",
-}
+          "faults", "fleet_replay", "mitigation", "collectives")
 
 
 def _summary(name: str, rows) -> list:
@@ -38,7 +34,8 @@ def _summary(name: str, rows) -> list:
                    or r.get("gbps_congested") or "")
         key = ":".join(str(r.get(k, "")) for k in
                        ("system", "mode", "aggressor", "n_nodes",
-                        "vector_bytes", "burst_ms", "pause_ms") if r.get(k))
+                        "vector_bytes", "size", "burst_ms", "pause_ms")
+                       if r.get(k))
         lines.append(f"{name}[{key}],{us},{derived}")
     return lines
 
@@ -58,21 +55,15 @@ def main(argv=None) -> int:
                         "artifacts/bench_cache_torch/<device type>)")
     args = p.parse_args(argv)
     only = [s for s in args.only.split(",") if s]
-    unknown = [s for s in only if s not in PORTED and s not in NOT_PORTED]
+    unknown = [s for s in only if s not in PORTED]
     if unknown:
         p.error(f"unknown benchmark(s) {unknown}; ported: {PORTED}")
-    missing = [s for s in only if s in NOT_PORTED]
-    if missing:
-        for s in missing:
-            print(f"[pt_run] {s} is not ported yet: {NOT_PORTED[s]}",
-                  file=sys.stderr)
-        return 2
 
-    from benchmarks import (pt_fault_scenarios, pt_fig1_breakdown,
-                            pt_fig3_sawtooth, pt_fig4_nslb, pt_fig5_steady,
-                            pt_fig6_bursty, pt_fig7_fig8_scale,
-                            pt_fleet_replay, pt_mitigation_lab,
-                            pt_new_scenarios)
+    from benchmarks import (pt_collective_bench, pt_fault_scenarios,
+                            pt_fig1_breakdown, pt_fig3_sawtooth,
+                            pt_fig4_nslb, pt_fig5_steady, pt_fig6_bursty,
+                            pt_fig7_fig8_scale, pt_fleet_replay,
+                            pt_mitigation_lab, pt_new_scenarios)
     from repro_torch.core.fabric.simulator import resolve_device
 
     device = resolve_device(args.device)
@@ -81,7 +72,8 @@ def main(argv=None) -> int:
                "fig6": pt_fig6_bursty, "fig7_fig8": pt_fig7_fig8_scale,
                "scenarios": pt_new_scenarios, "faults": pt_fault_scenarios,
                "fleet_replay": pt_fleet_replay,
-               "mitigation": pt_mitigation_lab}
+               "mitigation": pt_mitigation_lab,
+               "collectives": pt_collective_bench}
     summary, failed = [], []
     for name in PORTED:
         if name not in only:

@@ -15,7 +15,8 @@ without a card the default fails.
 
 It also holds what the LM reference rows share between the JAX package
 (``benchmarks/pt_jax_reference.py``) and the smoke run: the reference
-configuration and the per-step logit summary.
+configurations (hymba-1.5b, ``LM_REFERENCE``; grok-1, ``MOE_REFERENCE``)
+and the per-step logit summary.
 """
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ MAX_BATCH, MAX_SEQ = 8, 2048
 LM_REFERENCE = dict(arch="hymba-1.5b", n_layers=2, dtype="float32",
                     batch=2, prompt_len=1280, decode_steps=8,
                     param_seed=0, prompt_seed=1, top_k=16, n_probe=64)
+# the MoE reference rows: grok-1 at full width, 1 layer (6.53 B
+# parameters, 26.1 GB in float32), 2 x 64 prompt tokens, 4 steps
+MOE_REFERENCE = dict(LM_REFERENCE, arch="grok-1-314b", n_layers=1,
+                     prompt_len=64, decode_steps=4)
 
 
 def request_mix(vocab_size: int, seed: int = 0):
@@ -65,23 +70,20 @@ def request_mix(vocab_size: int, seed: int = 0):
     return reqs
 
 
-def reference_config():
-    """The ArchConfig of the LM reference rows (port-side copy)."""
-    r = LM_REFERENCE
+def reference_config(r=LM_REFERENCE):
+    """The ArchConfig of the LM reference rows ``r`` (port-side copy)."""
     return dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
                                param_dtype=r["dtype"],
                                compute_dtype=r["dtype"], remat="none")
 
 
-def reference_prompts(cfg) -> np.ndarray:
-    r = LM_REFERENCE
+def reference_prompts(cfg, r=LM_REFERENCE) -> np.ndarray:
     return np.random.default_rng(r["prompt_seed"]).integers(
         0, cfg.vocab_size, (r["batch"], r["prompt_len"]), dtype=np.int32)
 
 
-def probe_ids(cfg) -> np.ndarray:
+def probe_ids(cfg, r=LM_REFERENCE) -> np.ndarray:
     """The fixed vocabulary indices whose logits the reference keeps."""
-    r = LM_REFERENCE
     return np.sort(np.random.default_rng(r["prompt_seed"] + 1).choice(
         cfg.vocab_size, r["n_probe"], replace=False))
 

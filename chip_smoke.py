@@ -444,6 +444,16 @@ CONCURRENT = (("main_path",), ("fig1", "fig3", "fig6", "scenarios"),
               ("fleet_replay", "sweep"), ("fig7_fig8", "mitigation",
                                           "whatif"))
 WORKER_TIMEOUT_S = 700
+# the collectives phase: ranks of its gloo group (all on cuda:0) and the
+# vector whose shards its checks move (the bench's 2 MiB)
+COLLECTIVE_RANKS = 8
+COLLECTIVE_VECTOR = 2 << 20
+# serve_moe: grok-1 at full width, cut to this many layers (4.92 B
+# parameters a layer, ~42.6 GB with embedding and head in bfloat16; the
+# 64 layers, 630 GB, fit no card)
+GROK_LAYERS = 4
+MOE_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
+                             "jax_moe_reference.json")
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -2356,7 +2366,6 @@ class Smoke:
     # --------------------------------------------------------------- 11
     def lm_vs_jax(self):
         torch = self.torch
-        import numpy as np
         from benchmarks import pt_serve
         from repro_torch import convert
         from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
@@ -2373,36 +2382,11 @@ class Smoke:
         model = build_model(cfg, device=self.dev).load_params(
             convert.lm_params_from_jax(
                 numpy_params(cfg, ref["config"]["param_seed"]), cfg))
-        prompts = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
-        probe = np.array(ref["probe_ids"])
         fa.launches = ss.launches = fa.sm90_launches = 0
-        logits, cache = model.prefill({"tokens": prompts})
-        self.check(fa.launches == ss.launches == cfg.n_layers
-                   and fa.sm90_launches == 0,
-                   f"lm_vs_jax prefill launches {fa.launches} / "
-                   f"{ss.launches} != {cfg.n_layers}, or float32 on the "
-                   f"wgmma source ({fa.sm90_launches})")
-        S, rows = prompts.shape[1], []
-        for t, want in enumerate(ref["steps"]):
-            res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
-                                            LM_TOL)
-            rows.append(res)
-            log(f"   step {t}: max abs err {res['max_abs_err']:.3g}, greedy "
-                f"{[w['token'] for w in want]} margins "
-                f"{[round(w['margin'], 4) for w in want]}, mismatched rows "
-                f"{res['greedy_mismatch']}")
-            self.check(res["max_abs_err"] <= LM_TOL,
-                       f"lm_vs_jax step {t}: max abs err "
-                       f"{res['max_abs_err']} > {LM_TOL}")
-            self.check(not res["greedy_mismatch"],
-                       f"lm_vs_jax step {t}: greedy tokens differ in rows "
-                       f"{res['greedy_mismatch']}")
-            if t + 1 < len(ref["steps"]):
-                tok = torch.as_tensor([[w["token"]] for w in want],
-                                      device=self.dev)
-                logits, cache = model.decode(cache, tok, S + t)
+        rows = self.hold_lm("lm_vs_jax", model, ref, pt_serve.LM_REFERENCE,
+                            launches=(fa, ss))
         self.report["lm_vs_jax"] = rows
-        del model, cache
+        del model
         torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 12
@@ -3192,6 +3176,378 @@ class Smoke:
         self.report["timing_train"] = out
 
     # ------------------------------------------------------- diagnostic
+    # --------------------------------------------------------------- 21
+    def collectives(self):
+        """The §III-B schedules on 8 ranks of one gloo group, all on
+        cuda:0 (one card: nccl needs one a rank),
+        every buffer on the card, point-to-point sends staged through the
+        host (``collectives.stage``, its bytes counted); each schedule held to
+        a numpy model of its order, kernel 2 as the ring's add and kernels
+        3/4 in ``compressed_psum_mean`` against their plain versions; then
+        ``pt_collective_bench``'s table in the same spawn."""
+        import numpy as np
+        from benchmarks import pt_collective_bench as cb
+        from repro_torch.core import scenarios
+        from repro_torch.launch import mesh
+        n = COLLECTIVE_RANKS
+        inp = collective_inputs()
+        sizes = list(scenarios.get("collective_microbench").microbench_sizes)
+        t0 = time.time()
+        ranks = mesh.spawn_group(collective_rank, n, backend="gloo",
+                                 device=self.dev, args=(sizes,))
+        dev = mesh.rank_devices(n, "gloo", self.dev)[0]
+        log(f"   {n} ranks on {dev} over gloo: {time.time() - t0:.1f}s "
+            "with the spawn")
+        out = {k: np.stack([r[0][k] for r in ranks]) for k in ranks[0][0]}
+        counts = [r[1] for r in ranks]
+        starts, checked, ended = zip(*(c["times"] for c in counts))
+        log(f"   spawn to the last rank's start {max(starts) - t0:.1f}s, "
+            f"checks {max(checked) - min(starts):.1f}s, bench "
+            f"{max(ended) - min(checked):.1f}s, teardown "
+            f"{time.time() - max(ended):.1f}s")
+        # numpy models of each schedule's result and order of additions
+        want_rs = np.stack([_ring_order_sum(inp["y"], r) for r in range(n)])
+        checks = {
+            "ring_ag": np.broadcast_to(inp["x"], (n,) + inp["x"].shape),
+            "bidir_ring_ag": np.broadcast_to(inp["x"],
+                                             (n,) + inp["x"].shape),
+            "ring_rs": want_rs, "ring_rs_kernel2": want_rs,
+            "ring_ar": np.broadcast_to(want_rs, (n,) + want_rs.shape),
+            "a2a_linear": inp["z"].transpose(1, 0, 2),
+            "a2a_pairwise": inp["z"].transpose(1, 0, 2),
+            "incast": np.stack([inp["w"]] + [np.zeros_like(inp["w"])]
+                               * (n - 1))}
+        for key, want in checks.items():
+            same = np.array_equal(out[key], want)
+            log(f"   {key:16s} bit-equal to its numpy model: {same}")
+            self.check(same, f"collectives: {key} differs from its numpy "
+                       "model")
+        got, plain = out["compressed"], out["compressed_plain"]
+        true = inp["c"].astype(np.float64).mean(axis=0)
+        err = float(np.abs(got[0] - true).max())
+        bound = float(np.abs(inp["c"]).max()) / 127
+        ok = np.array_equal(got, plain) and all(
+            np.array_equal(got[r], got[0]) for r in range(n))
+        log(f"   compressed_psum_mean: kernels 3/4 bit-equal to plain and "
+            f"every rank the same: {ok}; {err:.3g} from the float64 mean "
+            f"(bound {bound:.3g})")
+        self.check(ok and err <= bound and not got[0][:256].any(),
+                   f"collectives: compressed_psum_mean (equal {ok}, err "
+                   f"{err} > {bound}?)")
+        k2 = [c["kernel2"] for c in counts]
+        quant = [c["quant"] for c in counts]
+        self.check(all(c == n - 1 for c in k2),
+                   f"collectives: kernel 2 launches a rank a call {k2}, "
+                   f"not {n - 1}")
+        self.check(all(q == (1, 1) for q in quant),
+                   f"collectives: kernels 3/4 launches a rank {quant}")
+        staged = [c["staged_bytes"] for c in counts]
+        log(f"   kernel 2 launches a rank in one ring reduce-scatter {k2}; "
+            f"kernels 3/4 a rank in one compressed mean {quant}; staged "
+            f"through the host (collectives.stage) by the checks, bytes a "
+            f"rank {staged}")
+        table = {s: {name: max(r[1]["bench"][s][name] for r in ranks)
+                     for name, *_ in cb.CASES} for s in sizes}
+        log(f"   {'us a call':24s} " + " ".join(f"{s:>10d}" for s in sizes))
+        for name, *_ in cb.CASES:
+            log(f"   {name:24s} " + " ".join(
+                f"{table[s][name]:10.1f}" for s in sizes))
+        try:
+            mesh.rank_devices(n, "nccl", "cuda")
+            nccl = "available"
+        except RuntimeError as e:  # the expected answer on one card
+            nccl = str(e)
+        log(f"   nccl: {nccl}")
+        self.collective_launches = {
+            "fused_accumulate": sum(k2),
+            "quantize_int8": sum(q[0] for q in quant),
+            "dequantize_int8": sum(q[1] for q in quant)}
+        self.report["collectives"] = {
+            "ranks": n, "backend": "gloo", "device": str(dev),
+            "kernel2_launches_per_rank_call": k2, "quant_launches": quant,
+            "staged_bytes_per_rank": staged, "compressed_err": err,
+            "bench_us_per_call": table, "nccl": nccl,
+            "wall_s": time.time() - t0}
+
+    # --------------------------------------------------------------- 22
+    def hold_lm(self, label, model, ref, r, pad_cache=False, launches=None):
+        """A prefill of the reference's prompts, then its teacher-forced
+        decode steps, each step's logits held to its rows (LM_TOL, greedy
+        tokens where JAX's margin is wide). ``pad_cache`` gives a
+        full-attention cache room for the decode steps. ``launches``: the
+        kernel modules (flash attention first) whose counts were set to 0;
+        the prefill must launch each once a layer, float32 attention on
+        the float32 source."""
+        torch = self.torch
+        import numpy as np
+        from benchmarks import pt_serve
+        prompts = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
+        probe = np.array(ref["probe_ids"])
+        logits, cache = model.prefill({"tokens": prompts})
+        if launches:
+            L = model.cfg.n_layers
+            counts = [m.launches for m in launches]
+            self.check(all(c == L for c in counts)
+                       and launches[0].sm90_launches == 0,
+                       f"{label} prefill launches {counts} != {L}, or "
+                       f"float32 on the wgmma source "
+                       f"({launches[0].sm90_launches})")
+        if pad_cache:
+            cache = {k: torch.nn.functional.pad(
+                v, (0, 0, 0, 0, 0, r["decode_steps"]))
+                for k, v in cache.items()}
+        S, rows = prompts.shape[1], []
+        for t, want in enumerate(ref["steps"]):
+            res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
+                                            LM_TOL)
+            rows.append(res)
+            log(f"   step {t}: max abs err {res['max_abs_err']:.3g}, greedy "
+                f"{[w['token'] for w in want]} margins "
+                f"{[round(w['margin'], 4) for w in want]}, mismatched rows "
+                f"{res['greedy_mismatch']}")
+            self.check(res["max_abs_err"] <= LM_TOL,
+                       f"{label} step {t}: max abs err "
+                       f"{res['max_abs_err']} > {LM_TOL}")
+            self.check(not res["greedy_mismatch"],
+                       f"{label} step {t}: greedy tokens differ in rows "
+                       f"{res['greedy_mismatch']}")
+            if t + 1 < len(ref["steps"]):
+                tok = torch.as_tensor([[w["token"]] for w in want],
+                                      device=self.dev)
+                logits, cache = model.decode(cache, tok, S + t)
+        return rows
+
+    def moe_vs_jax(self):
+        """grok-1 at full width, 1 layer, float32 (TF32 off) through the
+        kernels, held to ``jax_moe_reference.json`` as ``lm_vs_jax`` holds
+        hymba; its 6.53 B parameters drawn by ``numpy_param_leaves`` and
+        moved to the card leaf by leaf. Without the file (the JAX rows
+        need ~30 GB of host memory: ``pt_jax_reference.py --only moe``)
+        it says so and holds nothing."""
+        torch = self.torch
+        from benchmarks import pt_serve
+        from repro_torch import convert
+        from repro_torch.models.api import build_model
+        from repro_torch.models.layers import numpy_param_leaves
+        if not os.path.exists(MOE_REFERENCE):
+            why = (f"{os.path.relpath(MOE_REFERENCE, ROOT)} is absent: "
+                   "grok-1 is not held to JAX at full width in this run "
+                   "(the reduced configs are, on the CPU: "
+                   "tests/test_torch_moe.py)")
+            log(f"   {why}")
+            self.report["moe_vs_jax"] = {"held": False, "why": why}
+            return
+        from repro_torch.kernels import flash_attention as fa
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(MOE_REFERENCE) as f:
+            ref = json.load(f)
+        r = pt_serve.MOE_REFERENCE
+        cfg = pt_serve.reference_config(r)
+        t0 = time.time()
+        model = build_model(cfg, device=self.dev).load_params(
+            convert.lm_params_from_leaves(
+                numpy_param_leaves(cfg, ref["config"]["param_seed"]), cfg,
+                device=self.dev))
+        draw_s = time.time() - t0
+        log(f"   reference: jax {ref['jax_version']} commit "
+            f"{ref['commit'][:12]}; {cfg.name}, {cfg.n_layers} layer, "
+            f"parameters drawn and moved in {draw_s:.1f}s")
+        fa.launches = fa.sm90_launches = 0
+        rows = self.hold_lm("moe_vs_jax", model, ref, r, pad_cache=True,
+                            launches=(fa,))
+        self.report["moe_vs_jax"] = {"held": True, "rows": rows,
+                                     "draw_s": draw_s}
+        del model
+        torch.cuda.empty_cache()
+
+    def grok_config(self):
+        import dataclasses
+        from repro_torch.configs import get_config
+        return dataclasses.replace(get_config("grok-1-314b"),
+                                   n_layers=GROK_LAYERS)
+
+    def serve_moe(self):
+        """grok-1 at full width, GROK_LAYERS layers, bfloat16, through
+        ``BatchedServer`` (``pt_serve.serve``: hymba's twelve requests in
+        two waves), the launch counts reset before and read after (kernel
+        7 once a layer a prefill, every launch on the wgmma source); kernel
+        7 first at the serve prefill's shape against its plain version;
+        wave 1's prefill logits kernel vs plain on the same weights."""
+        torch = self.torch
+        from benchmarks import pt_serve
+        cfg = self.grok_config()
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        q, k, v = self.attn_inputs(SERVE_B, SERVE_S, heads, torch.bfloat16,
+                                   seed=41)
+        self.fa_grok_err = self.fa_compare(
+            f"grok-1 serve B={SERVE_B} S={SERVE_S} {heads} bfloat16", q, k, v)
+        del q, k, v
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+
+        def run():
+            t0 = time.time()
+            server, model = pt_serve.serve(cfg, self.dev)
+            torch.cuda.synchronize()
+            out.update(server=server, model=model, wall=time.time() - t0)
+            return ("flash_attention",)
+
+        counts = self.path("serve_moe", run)
+        server, model = out["server"], out["model"]
+        st = server.stats
+        want = 2 * cfg.n_layers
+        for key in ("flash_attention", "flash_attention_sm90"):
+            self.check(counts[key] == want, f"serve_moe: {key} launched "
+                       f"{counts[key]} times, not {want}")
+        mix = pt_serve.request_mix(cfg.vocab_size)
+        self.check(st.requests_done == len(mix) and st.waves == 2,
+                   f"serve_moe: {st.requests_done} requests in {st.waves} "
+                   "waves")
+        self.check(st.nonfinite_logits == 0,
+                   f"serve_moe: {st.nonfinite_logits} non-finite logits")
+        for req, (prompt, n_new, _) in zip(server.done, mix):
+            self.check(len(req.tokens) == n_new
+                       and req.finish_reason == "length",
+                       f"serve_moe: request {req.uid} gave "
+                       f"{len(req.tokens)} of {n_new} tokens")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wave1 = server.done[:pt_serve.MAX_BATCH]
+        batch = server.make_batch_inputs(wave1,
+                                         max(len(r.prompt) for r in wave1))
+        rel = self.held_rel("grok-1 wave 1 bfloat16",
+                            *self.prefill_both(model, batch), SERVE_BF16_REL)
+        t0 = time.perf_counter()
+        model.prefill(batch)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"   wave 1 prefill again, warm: {warm_ms:.1f} ms")
+        try:  # diagnostic only: a profiler problem fails no check
+            prof = self.profile_serve(model, batch)
+        except Exception:
+            prof = None
+            log(f"   serve profile unavailable:\n{traceback.format_exc()}")
+        dec_ms = [1e3 * d / max(c, 1) for d, c in zip(st.decode_s,
+                                                       st.decode_calls)]
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"   {cfg.name}, {cfg.n_layers} layers bfloat16, "
+            f"{n_params / 1e9:.2f} B parameters, d_model {cfg.d_model}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}: {st.requests_done} "
+            f"requests, {st.waves} waves, {st.decode_steps} decode steps, "
+            f"{st.tokens_generated} tokens, {st.tokens_per_s:.1f} tokens/s; "
+            f"prefill ms per wave {[round(1e3 * p, 1) for p in st.prefill_s]}"
+            f"; decode ms per step {[round(d, 2) for d in dec_ms]}; peak "
+            f"memory {peak:.1f} GB; {out['wall']:.1f}s with the weights' "
+            "draw")
+        self.serve_moe_launches = counts
+        self.report["serve_moe"] = {
+            "layers": cfg.n_layers, "params": n_params,
+            "requests": st.requests_done, "waves": st.waves,
+            "decode_steps": st.decode_steps, "tokens": st.tokens_generated,
+            "tokens_per_s": st.tokens_per_s, "wall_s": st.wall_s,
+            "prefill_ms": [1e3 * p for p in st.prefill_s],
+            "decode_ms_per_step": dec_ms, "peak_memory_gb": peak,
+            "prefill_kernel_vs_plain_rel": rel,
+            "wall_with_draw_s": out["wall"], "warm_prefill_ms": warm_ms,
+            "profile": prof}
+        del out, server, model
+        torch.cuda.empty_cache()
+
+    def timing_moe(self):
+        """Kernel 7 at grok-1's serve prefill shape (B = 8, S = 1280,
+        48/8 heads x 128, causal, no window, bfloat16) beside its plain
+        version, its bound and ``scaled_dot_product_attention``, which
+        computes the same function there."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        F = torch.nn.functional
+        cfg = self.grok_config()
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        q, k, v = self.attn_inputs(SERVE_B, SERVE_S, heads, torch.bfloat16,
+                                   seed=42)
+        kernel, k_span = self.med_ms(lambda: fa.flash_attention(q, k, v))
+        plain, _ = self.med_ms(lambda: ref.flash_attention(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib, _ = self.med_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound, by = fa_bound_ms(q, k, SERVE_S)  # causal, no window
+        flops = attn_flops(q, SERVE_S, 4)
+        self.fa_grok_timing = {
+            "ms": kernel, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib, "span_ms": k_span,
+            "tflops": flops / kernel / 1e9,
+            "library_tflops": flops / lib / 1e9,
+            "shape": f"B={SERVE_B} S={SERVE_S} {heads} causal bfloat16"}
+        t = self.fa_grok_timing
+        log(f"   flash_attention grok-1 {t['shape']}: kernel {kernel:.4f} "
+            f"ms ({t['tflops']:.1f} TFLOP/s), plain {plain:.4f}, bound "
+            f"{bound:.4f} ({by}), sdpa {lib:.4f} "
+            f"({t['library_tflops']:.1f} TFLOP/s)")
+        self.report["timing_moe"] = t
+
+    def device_profile(self, fn):
+        """fn run once unprofiled, then once under torch.profiler: (wall s,
+        the profile, its kernels by device time, the device-time getter
+        in µs). ``fn`` must end in a synchronize."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+        wall = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
+        dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                getattr(e, "self_cuda_time_total", 0))
+        kernels = sorted((e for e in prof.key_averages()
+                          if getattr(e, "device_type", None) == cuda
+                          and dev(e) > 0), key=dev, reverse=True)
+        return wall, prof, kernels, dev
+
+    def profile_serve(self, model, batch):
+        """Where grok-1's serve time goes: one wave-1 prefill and one decode
+        step (its cache from that prefill, a slot of room) under
+        torch.profiler, each after one unprofiled call; device busy time
+        against wall and the top kernels. A diagnostic: it checks
+        nothing."""
+        torch = self.torch
+        _, cache = model.prefill(batch)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
+                 for k, v in cache.items()}
+        S = batch["tokens"].shape[1]
+        tok = batch["tokens"][:, -1:]
+
+        def prefill():
+            model.prefill(batch)
+            torch.cuda.synchronize()
+
+        def decode():
+            model.decode(cache, tok, S)
+            torch.cuda.synchronize()
+
+        out = {}
+        for name, fn in (("prefill", prefill), ("decode", decode)):
+            wall, _, kernels, dev = self.device_profile(fn)
+            busy = sum(dev(e) for e in kernels) / 1e3
+            out[name] = {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+                         "launches": sum(e.count for e in kernels),
+                         "top": [(e.key[:70], dev(e) / 1e3, e.count)
+                                 for e in kernels[:8]],
+                         "attention": [(e.key[:70], dev(e) / 1e3, e.count)
+                                       for e in kernels
+                                       if "flash_attention" in e.key]}
+            log(f"   profiled {name} (B={batch['tokens'].shape[0]}, S={S}): "
+                f"{busy:.1f} ms device busy in {1e3 * wall:.1f} ms wall, "
+                f"{out[name]['launches']} launches")
+            for kname, ms, cnt in out[name]["top"]:
+                log(f"      {ms:9.2f} ms x{cnt:<5d} {kname}")
+            for kname, ms, cnt in out[name]["attention"]:
+                log(f"      attention {ms:.2f} ms x{cnt} {kname}")
+        return out
+
     def profile_train_step(self, model, batch):
         """Where a training step's device time goes: one forward + backward
         of the trained full-depth model on one batch under torch.profiler
@@ -3199,7 +3555,6 @@ class Smoke:
         step's gradients stay with the compression phase. A diagnostic: it
         checks nothing."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
 
         def step():
             for p in model.parameters():
@@ -3207,21 +3562,10 @@ class Smoke:
             model.loss(batch)[0].backward()
             torch.cuda.synchronize()
 
-        step()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            step()
-        wall = time.perf_counter() - t0
+        wall, prof, kernels, dev = self.device_profile(step)
         for p in model.parameters():
             p.grad = None
         cuda = torch.autograd.DeviceType.CUDA
-        dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                getattr(e, "self_cuda_time_total", 0))
-        kernels = sorted((e for e in prof.key_averages()
-                          if getattr(e, "device_type", None) == cuda
-                          and dev(e) > 0), key=dev, reverse=True)
         busy_ms = sum(dev(e) for e in kernels) / 1e3
         attn = {e.key: (dev(e) / 1e3, e.count) for e in kernels
                 if "flash_attention" in e.key or "attn_bwd" in e.key}
@@ -3299,6 +3643,74 @@ class Smoke:
         for name, us, cnt in out["top"]:
             log(f"      {us:9.2f} us/step x{cnt:<3d} {name}")
         self.report["profile"] = out
+
+
+def collective_inputs():
+    """Each schedule's global input (rank r's shard at [r]) at the
+    collective bench's 2 MiB vector (collective_microbench): 65,536
+    float32 a rank's shard, (8, 8,192) a rank's reduce and all-to-all
+    buffer; and a 2**20-element leaf a rank for the compressed mean,
+    its rows at scales 1e-3 to 1e2 and one all-zero block."""
+    import numpy as np
+    n, d = COLLECTIVE_RANKS, COLLECTIVE_VECTOR // 4 // COLLECTIVE_RANKS
+    rng = np.random.default_rng(11)
+    c = rng.standard_normal((n, 1 << 20), np.float32) * (
+        np.float32(10.0) ** rng.integers(-3, 3, (n, 1)))
+    c[:, :256] = 0
+    return {"x": rng.standard_normal((n, d), np.float32),
+            "y": rng.standard_normal((n, n, d // n), np.float32),
+            "z": rng.standard_normal((n, n, d // n), np.float32),
+            "w": rng.standard_normal((n, d), np.float32),
+            "c": c.astype(np.float32)}
+
+
+def _ring_order_sum(y, r):
+    """Rank r's chunk of a ring reduce-scatter of y (n, n, d), in the
+    schedule's order: starting at rank r + 1, each next rank adds its
+    chunk r, ending at rank r; float32 throughout."""
+    n = y.shape[0]
+    acc = y[(r + 1) % n, r].copy()
+    for s in range(2, n + 1):
+        acc = acc + y[(r + s) % n, r]
+    return acc
+
+
+def collective_rank(ctx, sizes):
+    """One rank of the collectives phase (``launch.mesh.spawn_group``):
+    every schedule on this rank's shards on the card, the ring's add
+    through kernel 2 with its launches counted, ``compressed_psum_mean``
+    through kernels 3/4 and through their plain versions, the bytes
+    staged through the host; then ``pt_collective_bench``'s timings."""
+    import torch
+    from benchmarks import pt_collective_bench as cb
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import fused_reduce as fr, quant as qt
+    from repro_torch.optim.compression import compressed_psum_mean
+    t0 = time.time()
+    t = {k: torch.as_tensor(v[ctx.rank], device=ctx.device)
+         for k, v in collective_inputs().items()}
+    C.staged_bytes = 0
+    out = {"ring_ag": C.ring_all_gather(t["x"]),
+           "bidir_ring_ag": C.ring_all_gather(t["x"], bidirectional=True),
+           "ring_rs": C.ring_reduce_scatter(t["y"]),
+           "ring_ar": C.ring_all_reduce(t["y"]),
+           "a2a_linear": C.linear_all_to_all(t["z"]),
+           "a2a_pairwise": C.pairwise_all_to_all(t["z"]),
+           "incast": C.incast_gather(t["w"], root=0)}
+    fr.launches = 0
+    out["ring_rs_kernel2"] = C.ring_reduce_scatter(t["y"], add=C.fused_add)
+    k2 = fr.launches
+    qt.launches = qt.dq_launches = 0
+    out["compressed"] = compressed_psum_mean(t["c"])
+    quant = (qt.launches, qt.dq_launches)
+    out["compressed_plain"] = compressed_psum_mean(t["c"], core="plain")
+    staged = C.staged_bytes
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    t1 = time.time()
+    counts = {"kernel2": k2, "quant": quant, "staged_bytes": staged,
+              "bench": cb.bench_rank(ctx, sizes),
+              "times": (t0, t1, time.time())}
+    return out, counts
 
 
 def bits_equal(torch, a, b):
@@ -3508,7 +3920,11 @@ def main() -> int:
                      ("flash_attention_bwd_vs_plain", s.fa_bwd_vs_plain),
                      ("train_vs_jax", s.train_vs_jax), ("train", s.train),
                      ("compression", s.compression),
-                     ("timing_train", s.timing_train)):
+                     ("timing_train", s.timing_train),
+                     ("collectives", s.collectives),
+                     ("moe_vs_jax", s.moe_vs_jax),
+                     ("serve_moe", s.serve_moe),
+                     ("timing_moe", s.timing_moe)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
         s.profile_steps()
@@ -3548,14 +3964,22 @@ def main() -> int:
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
-        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]}, {
+        "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],
+        "collectives_launches": s.collective_launches["fused_accumulate"]}, {
         **KERNEL7, "launches": s.serve_launches["flash_attention"],
         "max_abs_err": s.fa_main_err, **pick(s.fa_timing),
         "library_shape": f"B={SERVE_B} S={HYMBA_WINDOW} bfloat16",
         "ms_at_library_shape": s.fa_timing["ms_at_1024"],
         "tflops": s.fa_timing["tflops"],
         "sm90_launches": s.serve_launches["flash_attention_sm90"],
-        "train_launches": s.train_launches["flash_attention"]}, {
+        "train_launches": s.train_launches["flash_attention"],
+        "serve_moe_launches": s.serve_moe_launches["flash_attention"],
+        "serve_moe_sm90_launches":
+            s.serve_moe_launches["flash_attention_sm90"],
+        "grok_serve_shape": {**pick(s.fa_grok_timing),
+                             "shape": s.fa_grok_timing["shape"],
+                             "tflops": s.fa_grok_timing["tflops"],
+                             "max_abs_err": s.fa_grok_err}}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
         "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
         "ms_at_train_shape": s.scan_timing["ms_at_train_shape"],
@@ -3565,10 +3989,12 @@ def main() -> int:
         **pick(tt["fused_selective_scan_bwd"])}, {
         **KERNEL3, "launches": s.compression_launches["quantize_int8"],
         "max_abs_err": s.quant_main_err,
-        **pick(tt["quantize_int8"])}, {
+        **pick(tt["quantize_int8"]),
+        "collectives_launches": s.collective_launches["quantize_int8"]}, {
         **KERNEL4, "launches": s.compression_launches["dequantize_int8"],
         "max_abs_err": s.quant_main_err,
-        **pick(tt["dequantize_int8"])}, {
+        **pick(tt["dequantize_int8"]),
+        "collectives_launches": s.collective_launches["dequantize_int8"]}, {
         **KERNEL5, "launches": s.train_launches["ssm_scan"],
         "max_abs_err": s.state_scan_err, **pick(tt["ssm_scan"]),
         "reverse_ms": tt["ssm_scan_reverse"]["ms"],

@@ -96,27 +96,47 @@ def _tensor(x, device="cpu") -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def lm_params_from_jax(params_np: dict, cfg=None) -> dict:
+def lm_params_from_jax(params_np: dict, cfg=None,
+                       expert_slice: Optional[slice] = None) -> dict:
     """The reference LM's parameter tree as numpy (``embed.{tok,out,ln_f}``;
     ``layers.{ln1,ln2,attn.*,ssm.*,ffn.*}`` with a leading layer axis) ->
     the port's ``DecoderLM`` state dict (``embed.*``, ``layers.<i>.*``) of
-    CPU tensors. ``cfg``, when given, must agree on the number of layers."""
-    out = {f"embed.{k}": _tensor(v) for k, v in params_np["embed"].items()}
-
-    def walk(node, prefix):
+    CPU tensors. ``cfg``, when given, must agree on the number of layers.
+    ``expert_slice`` keeps those experts of an MoE's ``ffn.w1``, ``w3``
+    and ``w2`` (``models.moe.expert_slice``: one rank's share under
+    expert parallelism)."""
+    def walk(node, path):
         for k, v in node.items():
             if isinstance(v, dict):
-                yield from walk(v, f"{prefix}{k}.")
+                yield from walk(v, path + (k,))
             else:
-                yield prefix + k, v
+                yield path + (k,), v
 
-    leaves = list(walk(params_np["layers"], ""))
-    L = leaves[0][1].shape[0]
-    if cfg is not None and cfg.n_layers != L:
-        raise ValueError(f"tree has {L} layers, config {cfg.n_layers}")
-    for name, x in leaves:
-        for i in range(L):
-            out[f"layers.{i}.{name}"] = _tensor(x[i])
+    return lm_params_from_leaves(walk(params_np, ()), cfg,
+                                 expert_slice=expert_slice)
+
+
+def lm_params_from_leaves(leaves, cfg=None, *,
+                          expert_slice: Optional[slice] = None,
+                          device="cpu") -> dict:
+    """:func:`lm_params_from_jax` of the tree's leaves ``(path, numpy
+    array)`` (``models.layers.numpy_param_leaves``), each moved to
+    ``device`` before the next is read."""
+    experts = {("ffn", k) for k in ("w1", "w3", "w2")} \
+        if expert_slice is not None else set()
+    out = {}
+    for path, x in leaves:
+        name = ".".join(path[1:])
+        if path[0] == "embed":
+            out["embed." + name] = _tensor(x, device)
+            continue
+        if cfg is not None and cfg.n_layers != x.shape[0]:
+            raise ValueError(f"tree has {x.shape[0]} layers, config "
+                             f"{cfg.n_layers}")
+        for i in range(x.shape[0]):
+            out[f"layers.{i}.{name}"] = _tensor(
+                x[i][expert_slice] if tuple(path[-2:]) in experts else x[i],
+                device)
     return out
 
 

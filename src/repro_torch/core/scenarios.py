@@ -7,7 +7,8 @@ baseline/congested cell batched; or, with ``cells``, one scale-batched
 script interprets. The port registers the paper's figures: Fig. 1 (ring
 AllReduce breakdown), Fig. 3 (self-congestion sawtooth), Fig. 4 (NSLB
 on/off), Fig. 5 (steady congestion at scale), Fig. 6 (bursty congestion)
-and Figs. 7-8 (bursty congestion at larger scale); and the families
+Figs. 7-8 (bursty congestion at larger scale) and §III-B's collective
+microbenchmark (``collective_microbench``); and the families
 beyond the paper: congestion shapes (``ramp_onset``, ``random_telegraph``,
 ``multi_tenant``), traffic programs (``phased_collectives``,
 ``multi_job_mix``), scale-batched sweeps (``scale_sweep``,
@@ -56,6 +57,8 @@ class Scenario:
     grids: Tuple[Grid, ...]
     n_iters: int = 25
     warmup: int = 5
+    # the §III-B collective microbenchmark's vector sizes (bytes)
+    microbench_sizes: Tuple[int, ...] = ()
     # non-grid figures (fig4) declare their sweep points here
     points: Tuple[tuple, ...] = ()
 
@@ -179,6 +182,15 @@ def fig7_fig8_scale(quick: bool = False) -> Scenario:
         "Paper Figs. 7-8: bursty congestion at larger scale (CRESCO8 "
         "64/128 nodes, LUMI 256 nodes), scale-batched.",
         grids, n_iters=12 if quick else 20, warmup=3 if quick else 4)
+
+
+@register
+def collective_microbench(quick: bool = False) -> Scenario:
+    return Scenario(
+        "collective_microbench",
+        "§III-B: wall-clock cost of the custom collective schedules on 8 "
+        "ranks of one process group (benchmarks/pt_collective_bench.py).",
+        grids=(), microbench_sizes=(32 * KiB, 2 * MiB))
 
 
 # --------------------------------------------------------------------------

@@ -1,14 +1,36 @@
-"""Device meshes for the port's sharded sweep launcher.
+"""Device meshes and process groups of the port.
 
-PyTorch has no mesh object: a mesh here is a tuple of ``torch.device``,
-one entry a shard, and a device may appear more than once (two shards on
-one card run one after the other).
+PyTorch has no mesh object. Two stand-ins are used:
+
+* the sweep launcher's mesh (``make_sweep_mesh``): a tuple of
+  ``torch.device``, one entry a shard; a device may appear more than once
+  (two shards on one card run one after the other);
+* a 1-D process group (``spawn_group``), the reference's ``shard_map``
+  over one mesh axis: n spawned ranks joined by ``torch.distributed``, on
+  which the collective schedules of ``core/collectives.py`` run.
+
+The transport of a process group is the caller's explicit choice:
+``"nccl"`` puts rank r on ``cuda:r`` and needs one card per rank;
+``"gloo"`` runs the ranks on the CPU or on one named card (where a CUDA
+tensor's point-to-point sends go through the host,
+``collectives.stage``). Nothing here picks a transport by what the
+machine has.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import datetime
+import math
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Callable, Tuple
 
 import torch
+
+BACKENDS = ("gloo", "nccl")
 
 
 def make_sweep_mesh(n_devices: int = 0, *, device=None
@@ -28,3 +50,144 @@ def make_sweep_mesh(n_devices: int = 0, *, device=None
     devs = tuple(torch.device("cuda", i)
                  for i in range(torch.cuda.device_count()))
     return devs[:int(n_devices)] if n_devices else devs
+
+
+@dataclasses.dataclass(frozen=True)
+class Rank:
+    """What a spawned rank's function is given: its rank, the group's
+    size and its device."""
+
+    rank: int
+    size: int
+    device: torch.device
+
+
+def rank_devices(n: int, backend: str, device="cuda"):
+    """The device of each of ``n`` ranks. ``"cpu"``: the CPU (gloo only).
+    ``"cuda"``: under nccl rank r on ``cuda:r``, which needs n cards;
+    under gloo every rank on ``cuda:0``. ``"cuda:k"``: every rank on that
+    card (gloo only)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no process group on {dev}")
+    if backend == "nccl":
+        if dev.type != "cuda" or dev.index is not None:
+            raise ValueError("nccl puts rank r on cuda:r: pass "
+                             "device='cuda'")
+        cards = torch.cuda.device_count()
+        if n > cards:
+            raise RuntimeError(f"nccl needs one card per rank: {n} ranks, "
+                               f"{cards} card(s)")
+        return [torch.device("cuda", r) for r in range(n)]
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' for ranks "
+                               "on the CPU")
+        dev = torch.device("cuda", dev.index or 0)
+    return [dev] * n
+
+
+def _rank_main(fn, rank, n, backend, device, rendezvous, out, timeout_s,
+               args):
+    """A spawned rank: one ATen thread (the ranks share the cores), its
+    device set, the group joined through the rendezvous file, ``fn(Rank,
+    *args)`` run, the group torn down; the result or the traceback
+    pickled to ``out``."""
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    import torch.distributed as dist
+    try:
+        dist.init_process_group(
+            backend, init_method=f"file://{rendezvous}", world_size=n,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            res = {"ok": True,
+                   "result": fn(Rank(rank, n, dev), *args)}
+        except Exception:
+            # written before the group goes down, so that the peers' own
+            # failures (a closed connection) come after this one
+            _dump(out, {"ok": False, "error": traceback.format_exc()})
+            raise
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        if not os.path.exists(out):
+            _dump(out, {"ok": False, "error": traceback.format_exc()})
+        return
+    _dump(out, res)
+
+
+def _dump(path, res):
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def spawn_group(fn: Callable, n: int, *, backend: str, device="cuda",
+                args: tuple = (), timeout_s: float = 600.0) -> list:
+    """Run ``fn(Rank, *args)`` on each of ``n`` spawned ranks of one
+    ``torch.distributed`` group over ``backend`` and return the ranks'
+    results in rank order. ``fn`` must be a module-level function (it is
+    pickled by name) and its result picklable without a card (tensors on
+    the CPU). The rendezvous is a file in a fresh temporary directory, so
+    no port is fixed. A rank that fails stops the others and raises here
+    with its traceback; so does a rank still running ``timeout_s`` after
+    the spawn."""
+    devices = rank_devices(n, backend, device)
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_group_") as tmp:
+        rdv = os.path.join(tmp, "rendezvous")
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(n)]
+        procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            fn, r, n, backend, str(devices[r]), rdv, outs[r], timeout_s,
+            args)) for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + timeout_s
+        failed = None
+        try:
+            while any(p.is_alive() for p in procs):
+                failed = next((r for r, p in enumerate(procs)
+                               if not p.is_alive() and p.exitcode != 0), None)
+                if failed is None:
+                    failed = next((r for r, o in enumerate(outs)
+                                   if os.path.exists(o)
+                                   and not _load(o)["ok"]), None)
+                if failed is not None or time.time() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results, errors = [], []  # errors: (written at, rank, text)
+        for r, o in enumerate(outs):
+            if not os.path.exists(o):
+                errors.append((math.inf, r, f"no result (exit code "
+                                            f"{procs[r].exitcode})"))
+                continue
+            res = _load(o)
+            if res["ok"]:
+                results.append(res["result"])
+            else:
+                errors.append((os.path.getmtime(o), r, res["error"]))
+    if errors:
+        first = min(errors)  # the rank that failed first, in full
+        lines = "; ".join(f"rank {r}: {t.strip().splitlines()[-1]}"
+                          for _, r, t in sorted(errors, key=lambda e: e[1]))
+        raise RuntimeError(
+            f"spawn_group({getattr(fn, '__name__', fn)}, {n}, {backend}): "
+            f"{len(errors)} rank(s) failed ({lines}); first, rank "
+            f"{first[1]}:\n{first[2]}")
+    return results
+
+
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)

@@ -49,9 +49,12 @@ def embed_decls(cfg) -> dict:
             "ln_f": ParamDecl((d,), init="ones")}
 
 
-def block_decls(cfg) -> dict:
+def block_decls(cfg, ep: int = 1) -> dict:
     """One layer's declarations, in the reference's order
-    (``transformer.py:build_decoder_lm``)."""
+    (``transformer.py:build_decoder_lm``); an MoE layer's expert leaves
+    hold E / ``ep`` experts (one rank's share under expert
+    parallelism)."""
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm as ssm_lib
 
     block: dict = {"ln1": ParamDecl((cfg.d_model,), init="ones")}
@@ -61,7 +64,8 @@ def block_decls(cfg) -> dict:
         block["ssm"] = ssm_lib.ssm_decls(cfg)
     if cfg.d_ff > 0:
         block["ln2"] = ParamDecl((cfg.d_model,), init="ones")
-        block["ffn"] = mlp_decls(cfg)
+        block["ffn"] = (moe_lib.moe_decls(cfg, ep) if cfg.n_experts
+                        else mlp_decls(cfg))
     return block
 
 
@@ -82,24 +86,33 @@ def _draw(decl: ParamDecl, shape, normal):
     return normal(shape) * np.float32(decl.std)
 
 
-def numpy_params(cfg, seed: int) -> dict:
-    """The reference's parameter tree (``embed.{tok,out,ln_f}``;
-    ``layers.*`` with a leading layer axis) as float32 numpy arrays, drawn
-    with ``np.random.default_rng(seed)`` leaf by leaf in declaration order:
-    the same values for both packages in the parity tests and the
-    reference rows."""
+def numpy_param_leaves(cfg, seed: int):
+    """(path, float32 array) of the reference's parameter tree, one leaf
+    at a time in declaration order (``("embed", "tok")``, ...; layer
+    leaves with a leading layer axis), drawn with
+    ``np.random.default_rng(seed)``: a caller that converts each leaf as
+    it comes never holds two copies of a large model."""
     rng = np.random.default_rng(seed)
     normal = lambda shape: rng.standard_normal(shape, np.float32)  # noqa: E731
     L = cfg.n_layers
-    out: dict = {"embed": {}, "layers": {}}
     for name, d in _leaves(embed_decls(cfg)):
-        out["embed"][name] = _draw(d, d.shape, normal)
+        yield ("embed", name), _draw(d, d.shape, normal)
     for name, d in _leaves(block_decls(cfg)):
-        node = out["layers"]
-        *path, leaf = name.split(".")
-        for p in path:
+        yield ("layers", *name.split(".")), _draw(
+            d, (L,) + tuple(d.shape), normal)
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """The reference's parameter tree (``embed.{tok,out,ln_f}``;
+    ``layers.*`` with a leading layer axis) as float32 numpy arrays
+    (:func:`numpy_param_leaves`): the same values for both packages in the
+    parity tests and the reference rows."""
+    out: dict = {"embed": {}, "layers": {}}
+    for path, x in numpy_param_leaves(cfg, seed):
+        node = out
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = _draw(d, (L,) + tuple(d.shape), normal)
+        node[path[-1]] = x
     return out
 
 
@@ -203,17 +216,23 @@ def unembed(emb, x, eps: float):
     return (rms_norm(x, emb["ln_f"], eps) @ emb["out"]).float()
 
 
-def token_xent(logits, labels, mask=None):
-    """Stable masked cross-entropy, as ``repro/models/layers.py::
-    token_xent``. logits float32 (B, S, V), the log-sum-exp over all V
-    (padded) columns; labels int (B, S); ``mask`` drops tokens from the
-    mean (the reference's iota-select picks the label's logit, a gather
-    here; a masked label < 0 picks column 0, which the mask drops)."""
+def token_nll(logits, labels):
+    """Each token's negative log-likelihood: logits float32 (B, S, V), the
+    log-sum-exp over all V (padded) columns; labels int (B, S) (the
+    reference's iota-select picks the label's logit, a gather here; a
+    label < 0 picks column 0)."""
     m = logits.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     ll = torch.gather(logits, -1,
                       labels.clamp_min(0).long()[..., None])[..., 0]
-    nll = lse - ll
+    return lse - ll
+
+
+def token_xent(logits, labels, mask=None):
+    """Stable masked cross-entropy, as ``repro/models/layers.py::
+    token_xent``: the mean of :func:`token_nll`, ``mask`` dropping tokens
+    from it (a masked label < 0 picks column 0, which the mask drops)."""
+    nll = token_nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -1,4 +1,5 @@
-"""Decoder-only LM of the port for the dense, hybrid and ssm families.
+"""Decoder-only LM of the port for the dense, moe, hybrid and ssm
+families.
 
 Mirrors ``repro/models/transformer.py::build_decoder_lm`` as an
 ``nn.Module``: a stack of blocks (attention and/or Mamba heads, then an
@@ -9,6 +10,13 @@ stacked cache), ``decode`` (one token at a shared position) and
 the sequence scan through kernel 6 (``kernels/ops.py``); their gradients
 through the attention backward kernel and kernel 5. Decode is plain
 PyTorch, as the reference computes it outside any Pallas kernel.
+
+An MoE layer's FFN is ``models/moe.py::moe_ffn``; ``loss`` adds the
+layers' load-balancing losses with the reference's weight. Given a
+``torch.distributed`` group, the model is one data-parallel shard: its
+batch is this rank's, the loss is the group's token mean, and an
+``ep``/``ep_sp`` MoE holds this rank's slice of the experts and
+dispatches over the group (expert parallelism).
 
 Parameters load without gradients (serving); a trainer turns them on with
 ``model.requires_grad_(True)``. ``loss`` checkpoints each layer as the
@@ -31,14 +39,16 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.core import collectives
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     block_decls, decode_attention, embed_decls, embed_tokens, mlp_apply,
-    rms_norm, rope, token_xent, unembed,
+    rms_norm, rope, token_nll, token_xent, unembed,
 )
 
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 RING_EMPTY = -(2 ** 30)  # slot_pos of a ring slot no token has filled
 AUX_LOSS_WEIGHT = 0.01  # the reference's MoE load-balance weight
 REMAT = ("full", "dots", "none")
@@ -52,25 +62,29 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _params(decls, dtype, device) -> nn.ParameterDict:
-    """Uninitialised parameters of a declaration tree (nested dicts)."""
+def _params(decls, dtype) -> nn.ParameterDict:
+    """Placeholders of a declaration tree's parameters (nested dicts): meta
+    tensors of their shapes and type, which hold no memory until
+    ``load_params`` assigns the real ones (grok-1's 42.6 GB would
+    otherwise sit on the card twice while a set is drawn)."""
     out = nn.ParameterDict()
     for name, d in decls.items():
         if isinstance(d, dict):
-            out[name] = _params(d, dtype, device)
+            out[name] = _params(d, dtype)
         else:
             out[name] = nn.Parameter(
-                torch.empty(d.shape, dtype=dtype, device=device),
+                torch.empty(d.shape, dtype=dtype, device="meta"),
                 requires_grad=False)
     return out
 
 
 class DecoderLM(nn.Module):
-    """The LM on one device. Parameters start uninitialised: load them
-    with :meth:`load_params` (``layers.init_params`` draws a set)."""
+    """The LM on one device. Parameters start as placeholders on the meta
+    device: load them with :meth:`load_params` (``layers.init_params``
+    draws a set)."""
 
     def __init__(self, cfg, *, device="cuda", dtype=None,
-                 core: str = "kernel"):
+                 core: str = "kernel", group=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r}")
@@ -84,11 +98,15 @@ class DecoderLM(nn.Module):
         self.has_attn = cfg.family != "ssm"
         self.has_ssm = cfg.ssm_state > 0
         self.has_mlp = cfg.d_ff > 0
-        self.embed = _params(embed_decls(cfg), self.param_dtype, self.device)
-        block = block_decls(cfg)
+        self.is_moe = cfg.n_experts > 0
+        self.group = group  # a data-parallel (and expert-parallel) group
+        self.ep = (torch.distributed.get_world_size(group)
+                   if group is not None and self.is_moe
+                   and cfg.moe_sharding in moe_lib.EP_MODES else 1)
+        self.embed = _params(embed_decls(cfg), self.param_dtype)
+        block = block_decls(cfg, self.ep)
         self.layers = nn.ModuleList(
-            _params(block, self.param_dtype, self.device)
-            for _ in range(cfg.n_layers))
+            _params(block, self.param_dtype) for _ in range(cfg.n_layers))
 
     def load_params(self, state: dict) -> "DecoderLM":
         """Take ``state`` (``embed.*``, ``layers.<i>.*``; every parameter,
@@ -159,7 +177,20 @@ class DecoderLM(nn.Module):
         return torch.einsum("bhk,hkd->bd", o, pl["wo"].to(cdt))
 
     # ---------------- blocks ----------------
+    def _ffn(self, pl, x):
+        """The FFN sub-block's output on x (B, S, d), or (B, d) for a
+        decode step, and its aux loss (None without experts)."""
+        h = rms_norm(x, pl["ln2"], self.cfg.norm_eps)
+        if not self.is_moe:
+            return mlp_apply(h, pl["ffn"], self.cfg.act), None
+        if h.dim() == 2:  # a decode step: one token a row
+            f, aux = moe_lib.moe_ffn(h[:, None], pl["ffn"], self.cfg,
+                                     group=self.group)
+            return f[:, 0], aux
+        return moe_lib.moe_ffn(h, pl["ffn"], self.cfg, group=self.group)
+
     def _seq_block(self, pl, x, emit_cache: bool = True):
+        """(x, the layer's cache, its aux loss or None)."""
         cfg = self.cfg
         h = rms_norm(x, pl["ln1"], cfg.norm_eps)
         if self.has_attn and self.has_ssm:  # hybrid: parallel heads
@@ -174,10 +205,11 @@ class DecoderLM(nn.Module):
             so, cache = ssm_lib.ssm_apply_seq(pl["ssm"], h, cfg,
                                               core=self.core)
             x = x + so
+        aux = None
         if self.has_mlp:
-            x = x + mlp_apply(rms_norm(x, pl["ln2"], cfg.norm_eps),
-                              pl["ffn"], cfg.act)
-        return x, cache
+            f, aux = self._ffn(pl, x)
+            x = x + f
+        return x, cache, aux
 
     def _dec_block(self, pl, x, cache, l, pos):
         cfg = self.cfg
@@ -195,12 +227,12 @@ class DecoderLM(nn.Module):
         else:
             x = x + so
         if self.has_mlp:
-            x = x + mlp_apply(rms_norm(x, pl["ln2"], cfg.norm_eps),
-                              pl["ffn"], cfg.act)
+            x = x + self._ffn(pl, x)[0]
         return x
 
     def _train_block(self, pl, x):
-        return self._seq_block(pl, x, emit_cache=False)[0]
+        x, _, aux = self._seq_block(pl, x, emit_cache=False)
+        return x if aux is None else (x, aux)
 
     def _layer(self, pl, x):
         """One layer of the training forward under ``cfg.remat``."""
@@ -220,16 +252,35 @@ class DecoderLM(nn.Module):
     def loss(self, batch: dict):
         """batch ``tokens`` and ``labels`` (B, S) -> (total loss, {"loss",
         "aux_loss"}), as the reference's ``loss``: the token cross-entropy
-        over every padded vocabulary column, labels < 0 masked. No family
-        ported here has experts, so ``aux_loss`` is 0."""
+        over every padded vocabulary column, labels < 0 masked, plus
+        ``AUX_LOSS_WEIGHT`` times the layers' summed load-balancing losses
+        (0 without experts). Under a group, the batch is this rank's shard
+        and the cross-entropy the mean over the group's tokens."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x = embed_tokens(self.embed, tokens, self.compute_dtype)
-        for pl in self.layers:
-            x = self._layer(pl, x)
-        logits = unembed(self.embed, x, self.cfg.norm_eps)
-        ce = token_xent(logits, labels, mask=labels >= 0)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for pl in self.layers:
+            out = self._layer(pl, x)
+            if self.is_moe:
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
+        logits = unembed(self.embed, x, self.cfg.norm_eps)
+        mask = labels >= 0
+        if self.group is None:
+            ce = token_xent(logits, labels, mask=mask)
+        else:
+            # the group's masked sum over its count, ranks in order
+            m = mask.float()
+            parts = collectives.all_gather(torch.stack(
+                [(token_nll(logits, labels) * m).sum(), m.sum()]),
+                self.group)
+            tot = parts[0]
+            for i in range(1, parts.shape[0]):
+                tot = tot + parts[i]
+            ce = tot[0] / tot[1].clamp_min(1.0)
         return ce + AUX_LOSS_WEIGHT * aux, {"loss": ce, "aux_loss": aux}
 
     @torch.no_grad()
@@ -240,7 +291,7 @@ class DecoderLM(nn.Module):
         x = embed_tokens(self.embed, tokens, self.compute_dtype)
         caches = []
         for pl in self.layers:
-            x, c = self._seq_block(pl, x)
+            x, c, _ = self._seq_block(pl, x)
             caches.append(c)
         logits = unembed(self.embed, x[:, -1], self.cfg.norm_eps)
         cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}

@@ -10,15 +10,19 @@ gradients telescopes to the true gradient sum (Karimireddy et al. 2019,
 ``(q int8, scales float32, n)``. ``core="plain"`` runs the plain versions
 on the card, to compare.
 
-``compressed_psum_mean``, the collective that moves the payload, needs a
-process group over ``torch.distributed`` and waits for the collectives
-item (ROADMAP Queue 1, item 14).
+``compressed_psum_mean`` is the collective that moves the payload over a
+``torch.distributed`` group: each rank quantizes its value (kernel 3),
+all-gathers the int8 payload and its scales (``core.collectives``),
+dequantizes every rank's part (kernel 4) and sums the parts in rank order.
+Wire bytes a rank: (n-1)/n * V * (1 + 4/block) against 2 * (n-1)/n * V * 4
+for a ring all-reduce of float32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
 from repro_torch.kernels import ops
 
 BLOCK = 256
@@ -71,6 +75,24 @@ def ef_decompress(payload: dict, like: dict, block: int = BLOCK,
     return {k: decompress_leaf(q, s, like[k].numel(), block,
                                core).reshape(like[k].shape)
             for k, (q, s, _) in payload.items()}
+
+
+def compressed_psum_mean(x: torch.Tensor, group=None, block: int = BLOCK,
+                         core: str = "kernel") -> torch.Tensor:
+    """Mean of ``x`` over the ranks of ``group`` moving int8 on the wire,
+    as the reference's ``compressed_psum_mean``: not exact (callers pair it
+    with error feedback across steps); every rank gets the same bits."""
+    v = x.reshape(-1).float()
+    vp, n_elem = _pad_to_block(v, block)
+    q, s = ops.quantize_int8(vp.reshape(1, -1), block, core=core)
+    q_all = collectives.all_gather(q.reshape(-1), group)   # (n, Np) int8
+    s_all = collectives.all_gather(s.reshape(-1), group)   # (n, Np/block)
+    back = ops.dequantize_int8(q_all, s_all, block, core=core)
+    total = back[0]
+    for i in range(1, back.shape[0]):  # rank order
+        total = total + back[i]
+    n = torch.tensor(float(back.shape[0]), device=total.device)
+    return (total[:n_elem] / n).reshape(x.shape).to(x.dtype)
 
 
 def wire_bytes(n_elems: int, dtype_bytes: int = 4, n: int = 2,

@@ -135,11 +135,9 @@ class Trainer:
         if tc.ckpt_dir and ckpt.latest_step(tc.ckpt_dir) is not None:
             tree = ckpt.restore(tc.ckpt_dir, self._like())
             got = convert.train_state_from_jax(tree, self.device)
+            self.model.load_params(got["params"])
             self.model.requires_grad_(True)
             params = dict(self.model.named_parameters())
-            with torch.no_grad():
-                for k, p in params.items():
-                    p.copy_(got["params"][k])
             state = {"params": params, "opt": got["opt"],
                      "step": got["step"]}
         else:

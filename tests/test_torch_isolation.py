@@ -55,7 +55,8 @@ def test_port_imports_without_jax_or_reference():
               "repro_torch.core.mitigation.score",
               "repro_torch.core.mitigation.agents",
               "repro_torch.runtime.whatif", "repro_torch.launch.sweep",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.core.collectives",
+              "repro_torch.models.moe"):
         assert m in mods, m
     drivers = ["benchmarks." + os.path.basename(f)[:-3]
                for f in _driver_files()]
@@ -66,6 +67,7 @@ def test_port_imports_without_jax_or_reference():
     assert "benchmarks.pt_fleet_replay" in drivers
     assert "benchmarks.pt_mitigation_lab" in drivers
     assert "benchmarks.pt_whatif" in drivers
+    assert "benchmarks.pt_collective_bench" in drivers
     mods = mods + drivers
     assert "benchmarks.pt_serve" in mods
     assert "benchmarks.pt_train" in mods

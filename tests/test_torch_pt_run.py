@@ -1,6 +1,6 @@
 """The port's figure runner as a user calls it: ``benchmarks/pt_run.py``
-runs a ported figure on the CPU when asked, and refuses, naming the
-ROADMAP item, a name the port does not run yet."""
+runs a ported figure and the collective microbenchmark on the CPU when
+asked, and refuses a name it does not know."""
 import pytest
 
 pytest.importorskip("torch")
@@ -13,9 +13,16 @@ def test_pt_run_fig1_on_cpu_and_refuses_unported(tmp_path, capsys):
                         "--cache-dir", str(tmp_path)]) == 0
     assert (tmp_path / "fig1_breakdown.csv").exists()
     assert "fig1[1048576]" in capsys.readouterr().out
-    for name in ("collectives",):
-        assert pt_run.main(["--only", name]) != 0
-        assert "ROADMAP" in capsys.readouterr().err
+    assert pt_run.main(["--only", "collectives", "--device", "cpu",
+                        "--cache-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "8 ranks over gloo on cpu" in out and "collectives[2097152]" in out
+    with open(tmp_path / "collective_bench.csv") as f:
+        head = f.readline()
+    assert "ring_all_reduce_kernel2" in head and "native_all_gather" in head
+    with pytest.raises(SystemExit):
+        pt_run.main(["--only", "nope"])
+    assert "unknown" in capsys.readouterr().err
     assert "scenarios" in pt_run.PORTED and "faults" in pt_run.PORTED
 
 

@@ -84,11 +84,13 @@ def test_replay_and_mitigation_entries_match_reference(name, quick):
 
 
 def test_registry_names_match_reference_but_one():
-    """18 of the reference's 19 entries; collective_microbench waits for
-    the collectives (ROADMAP Queue 1 item 14)."""
-    assert set(jscen.SCENARIOS) - set(tscen.SCENARIOS) == \
-        {"collective_microbench"}
-    assert set(tscen.SCENARIOS) <= set(jscen.SCENARIOS)
+    """All 19 of the reference's entries, collective_microbench (the last
+    to come) with the reference's sizes."""
+    assert set(jscen.SCENARIOS) == set(tscen.SCENARIOS)
+    assert len(tscen.SCENARIOS) == 19
+    for quick in (False, True):
+        assert tscen.get("collective_microbench", quick).microbench_sizes \
+            == jscen.get("collective_microbench", quick).microbench_sizes
 
 
 def test_mix_jobs_match_reference():

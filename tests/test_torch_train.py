@@ -328,7 +328,7 @@ def test_cli_trains_on_the_cpu():
     out = tlaunch.main(["--arch", "hymba-1.5b", "--reduced", "--device",
                         "cpu", "--steps", "6", "--seq-len", "32"])
     assert out["steps_run"] == 6 and np.isfinite(out["final_loss"])
-    with pytest.raises(SystemExit, match="item 14"):
+    with pytest.raises(SystemExit, match="item 15"):
         tlaunch.main(["--arch", "yi-6b", "--coordinator", "host:1"])
     with pytest.raises(SystemExit):  # no multi-host flags without collectives
         tlaunch.main(["--arch", "yi-6b", "--num-hosts", "2"])
