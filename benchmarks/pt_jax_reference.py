@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|lm|train|moe]``
+[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe]``
 
 ``--only`` takes a comma list of parts.
 
@@ -70,9 +70,18 @@ server's stats and the serial servers' calls. No server gets a
 ``cache_dir``.
 
 ``sweep`` (``--only sweep``, likewise) runs the sweep launcher's measured
-workload (``repro.launch.sweep._workload``) once, unsharded, in this
-process: ``sweep_tiny`` and ``sweep_quick`` hold the scale grid's and the
-panel's rows. It sets no ``XLA_FLAGS`` and no compile cache.
+workload (``repro.launch.sweep._workload``, at the port's engine chunk:
+512 steps for the tiny one) once, unsharded, in this process:
+``sweep_tiny`` and ``sweep_quick`` hold the scale grid's and the panel's
+rows. It sets no ``XLA_FLAGS`` and no compile cache.
+
+``encdec`` (``--only encdec``, likewise) adds ``encdec``: whisper-tiny at
+full width and depth (4 + 4 layers), float32 (``benchmarks.pt_serve.
+ENCDEC_REFERENCE``), the parameters of ``numpy_params``; two 32-token
+prompts over 1,500 frames drawn from a numpy seed
+(``pt_serve.reference_frames``); the prefill's last logits and one decode
+step's, kept as ``lm`` keeps them, and the loss with the prompts as
+labels.
 
 ``lm`` writes ``artifacts/bench_cache_torch/jax_lm_reference.json``:
 hymba-1.5b at full width, 2 layers, float32 (``benchmarks.pt_serve.
@@ -722,25 +731,46 @@ def whatif_rows() -> dict:
     return out
 
 
+def _sweep_workload(tiny: bool) -> dict:
+    """``repro.launch.sweep.run_workload(None, tiny=tiny)`` with the port's
+    engine chunk for the workload (``repro_torch.launch.sweep``: the tiny
+    one syncs every 512 steps, the quick one at the engines' 2,048)."""
+    from repro.core import bench
+    from repro.core.mitigation import search as msearch
+    from repro.launch import sweep
+    from repro_torch.launch.sweep import QUICK_CHUNK, TINY_CHUNK
+
+    grid, panel, candidates = sweep._workload(tiny)
+    chunk = TINY_CHUNK if tiny else QUICK_CHUNK
+    t0 = time.perf_counter()
+    pending = bench.launch_scale_grid(
+        grid["cells"], grid["victim_coll"], grid["aggr_coll"],
+        grid["sizes"], grid["profiles"], n_iters=grid["n_iters"],
+        warmup=grid["warmup"], chunk=chunk)
+    runs = msearch.run_candidates(panel, candidates, chunk=chunk)
+    scale_rows = sweep._result_rows(pending.results())
+    panel_rows = sweep._result_rows(runs)
+    return {"results_scale": scale_rows, "runs_panel": panel_rows,
+            "digest_scale": sweep._digest(scale_rows),
+            "digest_panel": sweep._digest(panel_rows),
+            "wall_s": round(time.perf_counter() - t0, 3)}
+
+
 def sweep_rows() -> dict:
     """The sweep workload's reference rows (module docstring), unsharded
     and in this process."""
-    from repro.launch import sweep
-
     out = {}
     for label, tiny in (("sweep_tiny", True), ("sweep_quick", False)):
-        rep = sweep.run_workload(None, tiny=tiny)
-        out[label] = {k: rep[k] for k in ("results_scale", "runs_panel",
-                                          "digest_scale", "digest_panel",
-                                          "wall_s")}
-        print(f"{label}: {rep['wall_s']:.1f}s", flush=True)
+        out[label] = _sweep_workload(tiny)
+        print(f"{label}: {out[label]['wall_s']:.1f}s", flush=True)
     out["sweep_commit"] = _commit()
     return out
 
 
 def _lm_steps(model, params, prompts, probe, r, mesh=None,
-              pad_cache=False) -> list:
-    """A prefill of ``prompts``, then ``r["decode_steps"]`` decode steps
+              pad_cache=False, extra=None) -> list:
+    """A prefill of ``prompts`` (with the batch entries ``extra``, an
+    encoder-decoder's frames), then ``r["decode_steps"]`` decode steps
     fed JAX's own greedy tokens: per step the rows' logit summaries.
     ``pad_cache`` gives a full-attention cache (k, v: (L, B, S, KH, D))
     room for the decode steps' keys, as the server pads it."""
@@ -754,11 +784,12 @@ def _lm_steps(model, params, prompts, probe, r, mesh=None,
     t0 = time.time()
     with jax.set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
         logits, cache = jax.jit(model.prefill)(
-            params, {"tokens": jnp.asarray(prompts)})
+            params, {"tokens": jnp.asarray(prompts), **(extra or {})})
         steps = [pt_serve.logit_summary(np.asarray(logits), probe)]
         if pad_cache:
             room = [(0, 0), (0, 0), (0, r["decode_steps"]), (0, 0), (0, 0)]
-            cache = {k: jnp.pad(v, room) for k, v in cache.items()}
+            cache = {k: jnp.pad(v, room) if k in ("k", "v") else v
+                     for k, v in cache.items()}
         print(f"{r['arch']} prefill {prompts.shape}: "
               f"{time.time() - t0:.1f}s", flush=True)
         decode = jax.jit(model.decode)
@@ -849,6 +880,43 @@ def moe_reference() -> dict:
     return _lm_doc("moe", cfg, r, probe, prompts, steps, t0)
 
 
+def encdec_rows() -> dict:
+    """The encoder-decoder's reference rows (module docstring), on the
+    JAX package, under ``encdec``."""
+    import jax
+    import jax.numpy as jnp
+
+    from benchmarks import pt_serve
+    from repro.configs import get_config
+    from repro.models.api import build_model
+    from repro.models.layers import single_device_rules
+    from repro_torch.models.layers import numpy_params
+
+    r = pt_serve.ENCDEC_REFERENCE
+    cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
+                              param_dtype=r["dtype"],
+                              compute_dtype=r["dtype"], remat="none")
+    tcfg = pt_serve.reference_config(r)
+    model = build_model(cfg, single_device_rules(), None)
+    params = jax.tree.map(jnp.asarray, numpy_params(tcfg, r["param_seed"]))
+    prompts = pt_serve.reference_prompts(tcfg, r)
+    frames = jnp.asarray(pt_serve.reference_frames(tcfg, r))
+    probe = pt_serve.probe_ids(tcfg, r)
+    t0 = time.time()
+    steps = _lm_steps(model, params, prompts, probe, r, pad_cache=True,
+                      extra={"frames": frames})
+    loss, _ = jax.jit(model.loss)(params, {
+        "frames": frames, "tokens": jnp.asarray(prompts),
+        "labels": jnp.asarray(prompts)})
+    doc = _lm_doc("encdec", cfg, r, probe, prompts, steps, t0)
+    doc["config"].update(enc_layers=cfg.enc_layers,
+                         n_frontend_tokens=cfg.n_frontend_tokens)
+    doc["loss"] = float(loss)
+    print(f"{r['arch']} loss {doc['loss']!r} ({doc['wall_s']:.1f}s)",
+          flush=True)
+    return {"encdec": doc}
+
+
 def train_reference() -> dict:
     """The training reference rows (module docstring), on the JAX
     package."""
@@ -931,11 +999,12 @@ def main() -> None:
                          "artifacts/bench_cache_torch/)")
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
-                         "fleet_replay, mitigation, whatif, sweep, lm, "
-                         "train, moe")
+                         "fleet_replay, mitigation, whatif, sweep, encdec, "
+                         "lm, train, moe")
     args = ap.parse_args()
     parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
-             "mitigation", "whatif", "sweep", "lm", "train", "moe")
+             "mitigation", "whatif", "sweep", "encdec", "lm", "train",
+             "moe")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -960,7 +1029,8 @@ def main() -> None:
                        ("scenarios", scenario_rows),
                        ("fleet_replay", fleet_replay_rows),
                        ("mitigation", mitigation_rows),
-                       ("whatif", whatif_rows), ("sweep", sweep_rows)):
+                       ("whatif", whatif_rows), ("sweep", sweep_rows),
+                       ("encdec", encdec_rows)):
         if part in run:
             path = args.out or OUT
             with open(path) as f:

@@ -11,12 +11,15 @@ the default is the config's), draws its weights from a seeded
 ``max_batch=8``), drains the queue and prints requests, waves, decode
 steps, tokens/s, prefill ms per wave, decode ms per step and each kernel's
 launch count. Runs on the CUDA device unless ``--device`` names another;
-without a card the default fails.
+without a card the default fails. Any architecture of the registry:
+``--arch whisper-tiny`` (the encoder-decoder, zero frames, as the
+reference's server gives them) or ``--arch internvl2-76b --layers 8``
+(the VLM, zero patches before each prompt) too.
 
 It also holds what the LM reference rows share between the JAX package
 (``benchmarks/pt_jax_reference.py``) and the smoke run: the reference
-configurations (hymba-1.5b, ``LM_REFERENCE``; grok-1, ``MOE_REFERENCE``)
-and the per-step logit summary.
+configurations (hymba-1.5b, ``LM_REFERENCE``; grok-1, ``MOE_REFERENCE``;
+whisper-tiny, ``ENCDEC_REFERENCE``) and the per-step logit summary.
 """
 from __future__ import annotations
 
@@ -48,6 +51,11 @@ LM_REFERENCE = dict(arch="hymba-1.5b", n_layers=2, dtype="float32",
 # parameters, 26.1 GB in float32), 2 x 64 prompt tokens, 4 steps
 MOE_REFERENCE = dict(LM_REFERENCE, arch="grok-1-314b", n_layers=1,
                      prompt_len=64, decode_steps=4)
+# the encoder-decoder's rows: whisper-tiny at full width and depth (4 + 4
+# layers), float32; 2 x 32 prompt tokens over 1,500 frames drawn from
+# frame_seed, one decode step, and the loss on the prompts as labels
+ENCDEC_REFERENCE = dict(LM_REFERENCE, arch="whisper-tiny", n_layers=4,
+                        prompt_len=32, decode_steps=1, frame_seed=2)
 
 
 def request_mix(vocab_size: int, seed: int = 0):
@@ -80,6 +88,13 @@ def reference_config(r=LM_REFERENCE):
 def reference_prompts(cfg, r=LM_REFERENCE) -> np.ndarray:
     return np.random.default_rng(r["prompt_seed"]).integers(
         0, cfg.vocab_size, (r["batch"], r["prompt_len"]), dtype=np.int32)
+
+
+def reference_frames(cfg, r=ENCDEC_REFERENCE) -> np.ndarray:
+    """The encoder-decoder rows' frames (B, F, d_model), standard normal
+    float32."""
+    return np.random.default_rng(r["frame_seed"]).standard_normal(
+        (r["batch"], cfg.n_frontend_tokens, cfg.d_model), np.float32)
 
 
 def probe_ids(cfg, r=LM_REFERENCE) -> np.ndarray:

@@ -182,11 +182,32 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    and the attention backward at the training shape and at S = 1024
    beside the backward of ``scaled_dot_product_attention``, with achieved
    TFLOP/s (10 * D flops a live pair).
+21. ``collectives``, ``moe_vs_jax``, ``serve_moe``, ``timing_moe``: the
+   §III-B schedules on 8 gloo ranks on the card (kernels 2-4 on that
+   path), and grok-1 at full width, 4 layers, served (kernel 7 at its
+   prefill shape against plain and SDPA);
+22. ``encdec_vs_jax``: whisper-tiny at full width and depth (4 + 4
+   layers), float32 (TF32 off) through the kernels, over 1,500 seeded
+   frames, held to ``jax_reference.json["encdec"]``: the prefill (kernel 7
+   twelve times, on the float32 source), one decode step and the loss;
+23. ``serve_encdec``: whisper-tiny, bfloat16, the twelve requests in two
+   waves, the launch counts reset before and read after (kernel 7 twelve
+   times a prefill: encoder, causal self and cross-attention over the
+   1,500 frames; all on the wgmma source); wave 1's prefill kernel vs
+   plain over seeded frames within the bfloat16 limit;
+24. ``serve_vlm``: internvl2-76b at full width, 8 of its 80 layers,
+   bfloat16, served likewise (kernel 7 once a layer a prefill, causal
+   over the 256 patches and the prompt); wave 1's prefill kernel vs plain
+   over seeded patches, and 4 decode steps each against a prefill of the
+   prompt grown by the tokens before it;
+25. ``timing_encdec``: kernel 7 at whisper's three shapes and internvl2's
+   prefill shape (``ENCDEC_SHAPES``, which ``FA_EDGES`` also holds in 9
+   and 16) beside its plain version, its bound and SDPA.
 
 Phases 6 to 7f run at once, in the groups of ``CONCURRENT``, each group
 in a process of its own with its launch counts its own (the main process
 runs 3 to 5 and kernel 1 at the fleet buckets meanwhile, and prints each
-group's log when it ends); phases 8 to 20 run after them, one at a time.
+group's log when it ends); phases 8 to 25 run after them, one at a time.
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -278,8 +299,25 @@ SERVE_B, SERVE_S = 8, 1280
 # order differ)
 FA_F32_ATOL = 1e-5
 FA_BF16_RTOL = 2.0 ** -7
+# kernel 7's shapes on the encoder-decoder and VLM prefill paths at B =
+# SERVE_B: (label, (Sq, Skv, (H, KH, D), causal, window)). whisper-tiny
+# runs it three ways a layer over 1,500 frames, G = 1, D = 64 (the last
+# 64-key tile ragged: 1,500 = 23 x 64 + 28); internvl2 causal over its
+# 256 patches and the wave's 1,280 prompt tokens, G = 8, D = 128
+WHISPER_HEADS = (6, 6, 64)
+WHISPER_FRAMES = 1500
+VLM_HEADS = (64, 8, 128)
+VLM_PATCHES = 256
+ENCDEC_SHAPES = (
+    ("whisper encoder", (WHISPER_FRAMES, WHISPER_FRAMES, WHISPER_HEADS,
+                         False, 0)),
+    ("whisper decoder self", (SERVE_S, SERVE_S, WHISPER_HEADS, True, 0)),
+    ("whisper cross", (SERVE_S, WHISPER_FRAMES, WHISPER_HEADS, False, 0)),
+    ("internvl2 prefill", (VLM_PATCHES + SERVE_S, VLM_PATCHES + SERVE_S,
+                           VLM_HEADS, True, 0)))
 # the bfloat16 (wgmma) attention kernels' edge cases, forward and
-# backward: (label, B, Sq, Skv, (H, KH, D), causal, window)
+# backward: (label, B, Sq, Skv, (H, KH, D), causal, window); the last
+# four are ENCDEC_SHAPES
 FA_EDGES = (
     ("S=37", 2, 37, 37, (25, 5, 64), True, 1024),
     ("S=300 w=100 (window starts mid-tile)", 2, 300, 300, (25, 5, 64),
@@ -291,7 +329,8 @@ FA_EDGES = (
      (25, 5, 64), False, 100),
     ("Sq=300 Skv=200 causal w=64, dead rows", 1, 300, 200, (25, 5, 64),
      True, 64),
-    ("Sq=37 Skv=1000 non-causal", 1, 37, 1000, (25, 5, 64), False, 0))
+    ("Sq=37 Skv=1000 non-causal", 1, 37, 1000, (25, 5, 64), False, 0)) \
+    + tuple((label, SERVE_B) + shape for label, shape in ENCDEC_SHAPES)
 SCAN_REL = 2e-6
 # the selective scan's backward vs plain and vs autograd of the plain
 # forward: each gradient within GRAD_REL of its largest magnitude (sums
@@ -452,6 +491,12 @@ COLLECTIVE_VECTOR = 2 << 20
 # parameters a layer, ~42.6 GB with embedding and head in bfloat16; the
 # 64 layers, 630 GB, fit no card)
 GROK_LAYERS = 4
+# serve_vlm: internvl2-76b at full width, cut to this many of its 80
+# layers (855.6 M parameters a layer; 8.95 B, 17.9 GB in bfloat16 with
+# embedding and head; the 80 layers, 137 GB, fit no card); and the decode
+# steps held to the grown prompt's prefill
+VLM_LAYERS = 8
+DECODE_CHECK = 4
 MOE_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
                              "jax_moe_reference.json")
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
@@ -2304,11 +2349,13 @@ class Smoke:
                 q, k, v = self.attn_inputs(B, S, heads, dtype, seed=n)
                 self.fa_compare(f"{label} B={B} S={S} {heads} {dtype}", q, k,
                                 v, causal=causal, window=window)
+        self.fa_edge_errs = {}
         for label, B, Sq, Skv, heads, causal, window in FA_EDGES:
             n += 1
             q, k, v = self.attn_inputs(B, Sq, heads, torch.bfloat16, n, Skv)
-            self.fa_compare(f"{label} B={B}", q, k, v, causal=causal,
-                            window=window)
+            self.fa_edge_errs[label] = self.fa_compare(
+                f"{label} B={B}", q, k, v, causal=causal, window=window)
+            del q, k, v
 
     # --------------------------------------------------------------- 10
     def scan_inputs(self, B, T, Di, N, x_dtype, seed):
@@ -3270,22 +3317,25 @@ class Smoke:
             "wall_s": time.time() - t0}
 
     # --------------------------------------------------------------- 22
-    def hold_lm(self, label, model, ref, r, pad_cache=False, launches=None):
-        """A prefill of the reference's prompts, then its teacher-forced
+    def hold_lm(self, label, model, ref, r, pad_cache=False, launches=None,
+                extra=None, per_prefill=None):
+        """A prefill of the reference's prompts (with the batch entries
+        ``extra``: an encoder-decoder's frames), then its teacher-forced
         decode steps, each step's logits held to its rows (LM_TOL, greedy
         tokens where JAX's margin is wide). ``pad_cache`` gives a
-        full-attention cache room for the decode steps. ``launches``: the
-        kernel modules (flash attention first) whose counts were set to 0;
-        the prefill must launch each once a layer, float32 attention on
+        full-attention cache (``k``, ``v``) room for the decode steps.
+        ``launches``: the kernel modules (flash attention first) whose
+        counts were set to 0; the prefill must launch each
+        ``per_prefill`` times (default once a layer), float32 attention on
         the float32 source."""
         torch = self.torch
         import numpy as np
         from benchmarks import pt_serve
         prompts = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
         probe = np.array(ref["probe_ids"])
-        logits, cache = model.prefill({"tokens": prompts})
+        logits, cache = model.prefill({"tokens": prompts, **(extra or {})})
         if launches:
-            L = model.cfg.n_layers
+            L = per_prefill or model.cfg.n_layers
             counts = [m.launches for m in launches]
             self.check(all(c == L for c in counts)
                        and launches[0].sm90_launches == 0,
@@ -3295,7 +3345,7 @@ class Smoke:
         if pad_cache:
             cache = {k: torch.nn.functional.pad(
                 v, (0, 0, 0, 0, 0, r["decode_steps"]))
-                for k, v in cache.items()}
+                if k in ("k", "v") else v for k, v in cache.items()}
         S, rows = prompts.shape[1], []
         for t, want in enumerate(ref["steps"]):
             res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
@@ -3486,6 +3536,254 @@ class Smoke:
             f"({t['library_tflops']:.1f} TFLOP/s)")
         self.report["timing_moe"] = t
 
+    # --------------------------------------------------------------- 24
+    def encdec_vs_jax(self):
+        """whisper-tiny at full width and depth (4 + 4 layers), float32
+        (TF32 off), through the kernels, held to
+        ``jax_reference.json["encdec"]`` as ``lm_vs_jax`` holds hymba: the
+        prefill over the rows' 1,500 seeded frames (kernel 7 twelve times,
+        all on the float32 source), one teacher-forced decode step, and
+        the loss with the prompts as labels."""
+        torch = self.torch
+        import numpy as np
+        from benchmarks import pt_serve
+        from repro_torch import convert
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models.api import build_model
+        from repro_torch.models.layers import numpy_params
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with open(REFERENCE) as f:
+            ref = json.load(f)["encdec"]
+        r = pt_serve.ENCDEC_REFERENCE
+        cfg = pt_serve.reference_config(r)
+        log(f"   reference: jax {ref['jax_version']} ({ref['jax_backend']}) "
+            f"commit {ref['commit'][:12]}; {cfg.name}, {cfg.enc_layers} + "
+            f"{cfg.n_layers} layers float32, TF32 off")
+        model = build_model(cfg, device=self.dev).load_params(
+            convert.lm_params_from_jax(
+                numpy_params(cfg, ref["config"]["param_seed"]), cfg))
+        frames = torch.as_tensor(pt_serve.reference_frames(cfg, r),
+                                 device=self.dev)
+        fa.launches = fa.sm90_launches = 0
+        rows = self.hold_lm("encdec_vs_jax", model, ref, r, pad_cache=True,
+                            launches=(fa,), extra={"frames": frames},
+                            per_prefill=cfg.enc_layers + 2 * cfg.n_layers)
+        tokens = torch.as_tensor(np.array(ref["prompts"]), device=self.dev)
+        with torch.no_grad():
+            loss = float(model.loss({"tokens": tokens, "labels": tokens,
+                                     "frames": frames})[0])
+        err = abs(loss - ref["loss"])
+        log(f"   loss {loss!r} against JAX's {ref['loss']!r}: {err:.3g}")
+        self.check(err <= LM_TOL, f"encdec_vs_jax: loss {loss} is {err} "
+                   f"from JAX's {ref['loss']} (> {LM_TOL})")
+        self.report["encdec_vs_jax"] = {"rows": rows, "loss": loss,
+                                        "loss_err": err}
+        del model
+        torch.cuda.empty_cache()
+
+    def frontend_batch(self, server, wave, seed):
+        """The wave's batch as the server builds it, the zero frames or
+        patches replaced by standard normal ones drawn from ``seed`` on the
+        card (so the kernel-vs-plain checks see a live frontend)."""
+        torch = self.torch
+        batch = server.make_batch_inputs(wave, max(len(r.prompt)
+                                                   for r in wave))
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        key = "frames" if "frames" in batch else "patches"
+        batch[key] = torch.randn(batch[key].shape, generator=g,
+                                 device=self.dev)
+        return batch
+
+    def serve_frontend(self, name, cfg, per_prefill, seed):
+        """Serve ``cfg`` (bfloat16, full width) through ``BatchedServer``
+        (``pt_serve.serve``: hymba's twelve requests in two waves), the
+        launch counts reset before and read after: kernel 7
+        ``per_prefill`` times a wave's prefill, every launch on the wgmma
+        source; every request its tokens, no non-finite logit; then wave
+        1's prefill, kernel vs plain on the same weights, over frames or
+        patches drawn from ``seed``, within SERVE_BF16_REL of the largest
+        logit; a warm prefill and a profile of one prefill and one decode
+        step. Returns (server, model, report)."""
+        torch = self.torch
+        from benchmarks import pt_serve
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+
+        def run():
+            t0 = time.time()
+            server, model = pt_serve.serve(cfg, self.dev)
+            torch.cuda.synchronize()
+            out.update(server=server, model=model, wall=time.time() - t0)
+            return ("flash_attention",)
+
+        counts = self.path(name, run)
+        server, model = out["server"], out["model"]
+        st = server.stats
+        want = st.waves * per_prefill
+        for key in ("flash_attention", "flash_attention_sm90"):
+            self.check(counts[key] == want, f"{name}: {key} launched "
+                       f"{counts[key]} times, not {want}")
+        mix = pt_serve.request_mix(cfg.vocab_size)
+        self.check(st.requests_done == len(mix) and st.waves == 2,
+                   f"{name}: {st.requests_done} requests in {st.waves} "
+                   "waves")
+        self.check(st.nonfinite_logits == 0,
+                   f"{name}: {st.nonfinite_logits} non-finite logits")
+        for req, (prompt, n_new, _) in zip(server.done, mix):
+            self.check(len(req.tokens) == n_new
+                       and req.finish_reason == "length",
+                       f"{name}: request {req.uid} gave "
+                       f"{len(req.tokens)} of {n_new} tokens")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wave1 = server.done[:pt_serve.MAX_BATCH]
+        batch = self.frontend_batch(server, wave1, seed)
+        rel = self.held_rel(f"{cfg.name} wave 1 bfloat16, seeded "
+                            "frontend", *self.prefill_both(model, batch),
+                            SERVE_BF16_REL)
+        t0 = time.perf_counter()
+        model.prefill(batch)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"   wave 1 prefill again, warm: {warm_ms:.1f} ms")
+        try:  # diagnostic only: a profiler problem fails no check
+            prof = self.profile_serve(model, batch, server.n_front())
+        except Exception:
+            prof = None
+            log(f"   serve profile unavailable:\n{traceback.format_exc()}")
+        dec_ms = [1e3 * d / max(c, 1) for d, c in zip(st.decode_s,
+                                                       st.decode_calls)]
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"   {cfg.name}, {cfg.n_layers} layers bfloat16, "
+            f"{n_params / 1e9:.3f} B parameters, d_model {cfg.d_model}: "
+            f"{st.requests_done} requests, {st.waves} waves, "
+            f"{st.decode_steps} decode steps, {st.tokens_generated} tokens, "
+            f"{st.tokens_per_s:.1f} tokens/s; prefill ms per wave "
+            f"{[round(1e3 * p, 1) for p in st.prefill_s]}; decode ms per "
+            f"step {[round(d, 2) for d in dec_ms]}; peak memory "
+            f"{peak:.1f} GB; {out['wall']:.1f}s with the weights' draw")
+        report = {
+            "layers": cfg.n_layers, "params": n_params,
+            "requests": st.requests_done, "waves": st.waves,
+            "decode_steps": st.decode_steps, "tokens": st.tokens_generated,
+            "tokens_per_s": st.tokens_per_s, "wall_s": st.wall_s,
+            "prefill_ms": [1e3 * p for p in st.prefill_s],
+            "decode_ms_per_step": dec_ms, "peak_memory_gb": peak,
+            "prefill_kernel_vs_plain_rel": rel,
+            "wall_with_draw_s": out["wall"], "warm_prefill_ms": warm_ms,
+            "launches": counts, "profile": prof}
+        return server, model, report
+
+    def serve_encdec(self):
+        """whisper-tiny at full width and depth, bfloat16, served
+        (``serve_frontend``): kernel 7 twelve times a prefill (4 encoder,
+        4 causal self, 4 cross over the 1,500 frames), all on the wgmma
+        source; the cross caches keep the frames' length."""
+        from repro_torch.configs import get_config
+        cfg = get_config("whisper-tiny")
+        server, model, rep = self.serve_frontend(
+            "serve_encdec", cfg, cfg.enc_layers + 2 * cfg.n_layers, seed=51)
+        wave1 = server.done[:8]
+        _, cache = model.prefill(server.make_batch_inputs(
+            wave1, max(len(r.prompt) for r in wave1)))
+        shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        F = cfg.n_frontend_tokens
+        self.check(shapes["xk"][2] == shapes["xv"][2] == F,
+                   f"serve_encdec: cross caches {shapes}")
+        log(f"   caches {shapes}")
+        self.serve_encdec_launches = rep["launches"]
+        self.report["serve_encdec"] = rep
+        del server, model, cache
+        self.torch.cuda.empty_cache()
+
+    def serve_vlm(self):
+        """internvl2-76b at full width cut to VLM_LAYERS layers, bfloat16,
+        served (``serve_frontend``): kernel 7 once a layer a prefill over
+        the 256 patches and the prompts, all on the wgmma source; then
+        prefill -> decode consistency on the card: wave 1 as served
+        (zero patches), prefilled and decoded DECODE_CHECK steps on the
+        server's own tokens at positions that count the patches, each
+        step's logits against a prefill of the prompts grown by the tokens
+        before it, within SERVE_BF16_REL of the largest logit."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config("internvl2-76b"),
+                                  n_layers=VLM_LAYERS)
+        server, model, rep = self.serve_frontend("serve_vlm", cfg,
+                                                 cfg.n_layers, seed=52)
+        wave1 = server.done[:8]
+        S = max(len(r.prompt) for r in wave1)
+        batch = server.make_batch_inputs(wave1, S)
+        gen = torch.as_tensor(np.stack([r.tokens for r in wave1]),
+                              device=self.dev).long()
+        P = cfg.n_frontend_tokens
+        _, cache = model.prefill(batch)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
+                                                DECODE_CHECK))
+                 for k, v in cache.items()}
+        rels, same = [], []
+        for t in range(DECODE_CHECK):
+            logits, cache = model.decode(cache, gen[:, t:t + 1], P + S + t)
+            grown = dict(batch, tokens=torch.cat([batch["tokens"],
+                                                  gen[:, :t + 1]], 1))
+            want, _ = model.prefill(grown)
+            torch.cuda.synchronize()
+            top = float(want.abs().max())
+            rels.append(float((logits - want).abs().max()) / top)
+            same.append(bool(torch.equal(logits.argmax(-1),
+                                         want.argmax(-1))))
+            self.check(rels[-1] <= SERVE_BF16_REL,
+                       f"serve_vlm: decode step {t} is {rels[-1]} of the "
+                       f"largest logit from the grown prompt's prefill")
+        log(f"   prefill -> decode, {DECODE_CHECK} steps at positions "
+            f"{P + S}..{P + S + DECODE_CHECK - 1}: "
+            f"{[f'{r:.3g}' for r in rels]} of the largest logit (limit "
+            f"{SERVE_BF16_REL}); greedy equal {same}")
+        rep.update(decode_vs_prefill_rel=rels, decode_vs_prefill_greedy=same)
+        self.serve_vlm_launches = rep["launches"]
+        self.report["serve_vlm"] = rep
+        del server, model, cache
+        torch.cuda.empty_cache()
+
+    def timing_encdec(self):
+        """Kernel 7 at the encoder-decoder's and the VLM's prefill shapes
+        (``ENCDEC_SHAPES``, B = SERVE_B, bfloat16) beside its plain
+        version, its bound and ``scaled_dot_product_attention``, which
+        computes the same function at each (no window)."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        F = torch.nn.functional
+        self.fa_encdec_timing = {}
+        for n, (label, (Sq, Skv, heads, causal, window)) in enumerate(
+                ENCDEC_SHAPES):
+            q, k, v = self.attn_inputs(SERVE_B, Sq, heads, torch.bfloat16,
+                                       seed=60 + n, Skv=Skv)
+            kernel, k_span = self.med_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window))
+            plain, _ = self.med_ms(lambda: ref.flash_attention(
+                q, k, v, causal=causal, window=window))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib, _ = self.med_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            bound, by = fa_bound_ms(q, k, window, causal)
+            flops = attn_flops(q, window, 4, Skv, causal)
+            t = {"ms": kernel, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib, "span_ms": k_span,
+                 "tflops": flops / kernel / 1e9,
+                 "library_tflops": flops / lib / 1e9,
+                 "max_abs_err": self.fa_edge_errs.get(label),
+                 "shape": f"B={SERVE_B} Sq={Sq} Skv={Skv} {heads} "
+                          f"{'causal' if causal else 'non-causal'} bfloat16"}
+            self.fa_encdec_timing[label] = t
+            log(f"   flash_attention {label} {t['shape']}: kernel "
+                f"{kernel:.4f} ms ({t['tflops']:.1f} TFLOP/s), plain "
+                f"{plain:.4f}, bound {bound:.4f} ({by}), sdpa {lib:.4f} "
+                f"({t['library_tflops']:.1f} TFLOP/s)")
+            del q, k, v, qt, kt, vt
+        self.report["timing_encdec"] = self.fa_encdec_timing
+
     def device_profile(self, fn):
         """fn run once unprofiled, then once under torch.profiler: (wall s,
         the profile, its kernels by device time, the device-time getter
@@ -3507,17 +3805,17 @@ class Smoke:
                           and dev(e) > 0), key=dev, reverse=True)
         return wall, prof, kernels, dev
 
-    def profile_serve(self, model, batch):
-        """Where grok-1's serve time goes: one wave-1 prefill and one decode
-        step (its cache from that prefill, a slot of room) under
-        torch.profiler, each after one unprofiled call; device busy time
-        against wall and the top kernels. A diagnostic: it checks
-        nothing."""
+    def profile_serve(self, model, batch, n_front=0):
+        """Where a model's serve time goes: one wave-1 prefill and one
+        decode step (its cache from that prefill, a slot of room; a VLM's
+        position after its ``n_front`` patches) under torch.profiler, each
+        after one unprofiled call; device busy time against wall and the
+        top kernels. A diagnostic: it checks nothing."""
         torch = self.torch
         _, cache = model.prefill(batch)
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
-                 for k, v in cache.items()}
-        S = batch["tokens"].shape[1]
+                 if k in ("k", "v") else v for k, v in cache.items()}
+        S = batch["tokens"].shape[1] + n_front
         tok = batch["tokens"][:, -1:]
 
         def prefill():
@@ -3775,29 +4073,34 @@ def fr_bound_ms(acc, x):
         else "operations"
 
 
-def fa_bound_ms(q, k, window):
+def live_pairs(Sq, Skv, causal, window):
+    """Live (query, key) pairs of one head: key j < Skv, j <= i when
+    causal, j > i - window when ``window`` > 0."""
+    import numpy as np
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(i - window + 1, 0) if window else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def fa_bound_ms(q, k, window, causal=True):
     """Least time for one attention launch: q, k, v read once and o
     written once over HBM bandwidth; or 4 * D flops per live (query,
-    key) pair -- causal, inside the window -- over the bf16 tensor-core
-    peak. The larger bounds it."""
-    import numpy as np
-    B, S, H, D = q.shape
-    live = int(np.minimum(np.arange(S) + 1, window).sum())  # keys per head
+    key) pair (``live_pairs``) over the bf16 tensor-core peak. The larger
+    bounds it."""
     t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         / HBM_BYTES_PER_S
-    t_ops = 4 * D * live * B * H / BF16_FLOPS
+    t_ops = attn_flops(q, window, 4, k.shape[1], causal) / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
         else "operations"
 
 
-def attn_flops(q, window, per_d):
-    """``per_d`` * D flops per live (query, key) pair -- causal, inside the
-    window -- of attention over q (B, S, H, D): 4 for the forward, 10 for
-    the backward (the flops the bounds count)."""
-    import numpy as np
+def attn_flops(q, window, per_d, Skv=None, causal=True):
+    """``per_d`` * D flops per live (query, key) pair (``live_pairs``;
+    causal with Skv = S by default) of attention over q (B, S, H, D): 4
+    for the forward, 10 for the backward (the flops the bounds count)."""
     B, S, H, D = q.shape
-    live = int(np.minimum(np.arange(S) + 1, window).sum())  # keys per head
-    return per_d * D * live * B * H
+    return per_d * D * live_pairs(S, Skv or S, causal, window) * B * H
 
 
 def scan_bound_ms(args, n_sm, clock_hz):
@@ -3924,7 +4227,11 @@ def main() -> int:
                      ("collectives", s.collectives),
                      ("moe_vs_jax", s.moe_vs_jax),
                      ("serve_moe", s.serve_moe),
-                     ("timing_moe", s.timing_moe)):
+                     ("timing_moe", s.timing_moe),
+                     ("encdec_vs_jax", s.encdec_vs_jax),
+                     ("serve_encdec", s.serve_encdec),
+                     ("serve_vlm", s.serve_vlm),
+                     ("timing_encdec", s.timing_encdec)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
         s.profile_steps()
@@ -3979,7 +4286,17 @@ def main() -> int:
         "grok_serve_shape": {**pick(s.fa_grok_timing),
                              "shape": s.fa_grok_timing["shape"],
                              "tflops": s.fa_grok_timing["tflops"],
-                             "max_abs_err": s.fa_grok_err}}, {
+                             "max_abs_err": s.fa_grok_err},
+        "serve_encdec_launches": s.serve_encdec_launches["flash_attention"],
+        "serve_encdec_sm90_launches":
+            s.serve_encdec_launches["flash_attention_sm90"],
+        "serve_vlm_launches": s.serve_vlm_launches["flash_attention"],
+        "serve_vlm_sm90_launches":
+            s.serve_vlm_launches["flash_attention_sm90"],
+        "encdec_shapes": {label: {**pick(t), "shape": t["shape"],
+                                  "tflops": t["tflops"],
+                                  "max_abs_err": t["max_abs_err"]}
+                          for label, t in s.fa_encdec_timing.items()}}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
         "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
         "ms_at_train_shape": s.scan_timing["ms_at_train_shape"],

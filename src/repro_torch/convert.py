@@ -10,8 +10,11 @@ package. A caller holding JAX objects converts with
 * params: one cell (no batch axis) or a stack of cells -> a stacked
   SimParams;
 * state: a stacked step state, both directions;
-* LM parameters: the reference's stacked tree -> the port's state dict;
-* LM caches: the stacked cache tree, both directions;
+* LM parameters: the reference's stacked tree -> the port's state dict
+  (a decoder-only LM's ``layers``; an encoder-decoder's ``enc_layers``,
+  ``enc_ln_post`` and ``dec_layers``);
+* LM caches: the stacked cache tree (an encoder-decoder's cross caches
+  ``xk``/``xv`` too), both directions;
 * train states: the reference's ``{"params", "opt", "step"}`` tree (layer
   leaves stacked over layers) and the port's (one tensor per leaf per
   layer), both directions, every dtype kept.
@@ -96,12 +99,21 @@ def _tensor(x, device="cpu") -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+# the reference's stacked groups of layers and the config field that
+# counts each
+STACKS = {"layers": "n_layers", "enc_layers": "enc_layers",
+          "dec_layers": "n_layers"}
+
+
 def lm_params_from_jax(params_np: dict, cfg=None,
                        expert_slice: Optional[slice] = None) -> dict:
     """The reference LM's parameter tree as numpy (``embed.{tok,out,ln_f}``;
-    ``layers.{ln1,ln2,attn.*,ssm.*,ffn.*}`` with a leading layer axis) ->
-    the port's ``DecoderLM`` state dict (``embed.*``, ``layers.<i>.*``) of
-    CPU tensors. ``cfg``, when given, must agree on the number of layers.
+    ``layers.{ln1,ln2,attn.*,ssm.*,ffn.*}`` with a leading layer axis; an
+    encoder-decoder's ``enc_layers.*`` and ``dec_layers.*`` with one and
+    ``enc_ln_post`` without) -> the port's state dict (``embed.*``,
+    ``layers.<i>.*``; ``enc_layers.<i>.*``, ``enc_ln_post``,
+    ``dec_layers.<i>.*``) of CPU tensors. ``cfg``, when given, must agree
+    on the number of layers of each stack.
     ``expert_slice`` keeps those experts of an MoE's ``ffn.w1``, ``w3``
     and ``w2`` (``models.moe.expert_slice``: one rank's share under
     expert parallelism)."""
@@ -126,15 +138,16 @@ def lm_params_from_leaves(leaves, cfg=None, *,
         if expert_slice is not None else set()
     out = {}
     for path, x in leaves:
-        name = ".".join(path[1:])
-        if path[0] == "embed":
-            out["embed." + name] = _tensor(x, device)
+        group, name = path[0], ".".join(path[1:])
+        if group not in STACKS:
+            out[".".join(path)] = _tensor(x, device)
             continue
-        if cfg is not None and cfg.n_layers != x.shape[0]:
-            raise ValueError(f"tree has {x.shape[0]} layers, config "
-                             f"{cfg.n_layers}")
+        want = None if cfg is None else getattr(cfg, STACKS[group])
+        if want is not None and want != x.shape[0]:
+            raise ValueError(f"tree has {x.shape[0]} {group}, config "
+                             f"{want}")
         for i in range(x.shape[0]):
-            out[f"layers.{i}.{name}"] = _tensor(
+            out[f"{group}.{i}.{name}"] = _tensor(
                 x[i][expert_slice] if tuple(path[-2:]) in experts else x[i],
                 device)
     return out
@@ -142,8 +155,9 @@ def lm_params_from_leaves(leaves, cfg=None, *,
 
 def lm_cache_from_jax(cache_np: dict, device="cpu") -> dict:
     """The reference's stacked LM cache (numpy leaves ``k``, ``v``,
-    ``slot_pos``, ``conv``, ``ssm``, each with a leading layer axis) -> the
-    port's cache on ``device``; every dtype is kept."""
+    ``slot_pos``, ``conv``, ``ssm``; an encoder-decoder's ``xk``, ``xv``;
+    each with a leading layer axis) -> the port's cache on ``device``;
+    every dtype is kept."""
     return {k: _tensor(v, device) for k, v in cache_np.items()}
 
 
@@ -157,23 +171,25 @@ def lm_cache_to_jax(cache: dict) -> dict:
     return out
 
 
-_LAYER = re.compile(r"^layers\.(\d+)\.(.+)$")
+_LAYER = re.compile(r"^(layers|enc_layers|dec_layers)\.(\d+)\.(.+)$")
 
 
 def stack_layers(flat: dict) -> dict:
     """{``layers.<i>.x``: tensor} -> {``layers.x``: tensors stacked over
-    i}; any other key is kept as it is. The reference's layout."""
+    i}, and so for an encoder-decoder's ``enc_layers`` and ``dec_layers``;
+    any other key is kept as it is. The reference's layout."""
     out, layered = {}, {}
     for k, v in flat.items():
         m = _LAYER.match(k)
         if m:
-            layered.setdefault(m.group(2), {})[int(m.group(1))] = v
+            layered.setdefault((m.group(1), m.group(3)), {})[
+                int(m.group(2))] = v
         else:
             out[k] = v
-    for rest, by_layer in layered.items():
+    for (group, rest), by_layer in layered.items():
         if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"layers of {rest!r}: {sorted(by_layer)}")
-        out[f"layers.{rest}"] = torch.stack(
+            raise ValueError(f"{group} of {rest!r}: {sorted(by_layer)}")
+        out[f"{group}.{rest}"] = torch.stack(
             [by_layer[i] for i in range(len(by_layer))])
     return out
 
@@ -220,9 +236,10 @@ def _unstack(node, device) -> dict:
     for k, x in flatten(node).items():
         t = x if isinstance(x, torch.Tensor) else _tensor(x)
         t = t.to(device)
-        if k.startswith("layers."):
+        group, _, rest = k.partition(".")
+        if group in STACKS:
             for i in range(t.shape[0]):
-                out[f"layers.{i}.{k[len('layers.'):]}"] = t[i].clone()
+                out[f"{group}.{i}.{rest}"] = t[i].clone()
         else:
             out[k] = t
     return out

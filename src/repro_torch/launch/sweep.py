@@ -145,6 +145,10 @@ def whatif_launcher(mesh, *, dispatch: str = "devices"):
 # --------------------------------------------------------------------------
 
 TINY_CELLS = (("cresco8", 8), ("cresco8", 12))
+# engine steps between host syncs: the tiny cells end well inside 512
+# steps, and a cell runs to the end of its chunk, so at the engines'
+# 2,048 three quarters of the tiny smoke's steps ran past the cells' end
+TINY_CHUNK, QUICK_CHUNK = 512, 2048
 QUICK_CELLS = (("cresco8", 16), ("cresco8", 64),
                ("lumi", 16), ("lumi", 64))
 MiB = float(2 ** 20)
@@ -154,7 +158,8 @@ def _workload(tiny: bool):
     """The measured sweep: the quick ``scale_sweep`` grid (2 scales x 2
     systems, ring AllGather against AlltoAll at 2 MiB) plus the quick
     mitigation panel x 3 candidates. ``tiny`` shrinks both for the
-    subprocess test."""
+    subprocess test, and syncs the engine every ``TINY_CHUNK`` steps
+    (both phases)."""
     from repro_torch.core import congestion as cong
     from repro_torch.core.fabric.routing import POLICY_ECMP, POLICY_NSLB
     from repro_torch.core.mitigation import score as mscore
@@ -165,7 +170,8 @@ def _workload(tiny: bool):
     grid = dict(cells=list(cells), victim_coll="ring_allgather",
                 aggr_coll="alltoall", sizes=sizes,
                 profiles=(cong.steady(),),
-                n_iters=6 if tiny else 15, warmup=2 if tiny else 3)
+                n_iters=6 if tiny else 15, warmup=2 if tiny else 3,
+                chunk=TINY_CHUNK if tiny else QUICK_CHUNK)
     panel = mscore.panel_from_scenario("mitigation_panel", quick=True)
     candidates = [msearch.default_candidate(),
                   msearch.Candidate(policy=POLICY_ECMP),
@@ -214,9 +220,10 @@ def run_workload(mesh, *, tiny: bool, dispatch: str = "devices",
     pending = bench.launch_scale_grid(
         grid["cells"], grid["victim_coll"], grid["aggr_coll"],
         grid["sizes"], grid["profiles"], n_iters=grid["n_iters"],
-        warmup=grid["warmup"], launcher=scale_launcher, device=device)
+        warmup=grid["warmup"], chunk=grid["chunk"], launcher=scale_launcher,
+        device=device)
     t_launch = time.perf_counter() - t0
-    runs = msearch.run_candidates(panel, candidates,
+    runs = msearch.run_candidates(panel, candidates, chunk=grid["chunk"],
                                   launcher=panel_launcher, device=device)
     scale_results = pending.results()
     wall = time.perf_counter() - t0

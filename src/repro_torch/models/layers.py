@@ -69,6 +69,37 @@ def block_decls(cfg, ep: int = 1) -> dict:
     return block
 
 
+def encdec_decls(cfg) -> dict:
+    """The encoder-decoder's declarations, as the reference's
+    ``encdec.py:build_encdec`` (``:43-54``): ``enc_layers`` (``ln1``,
+    ``attn``, ``ln2``, ``ffn``) and ``dec_layers`` (with ``lnx`` and the
+    cross-attention ``xattn``) one layer each, and the single
+    ``enc_ln_post``."""
+    ln = lambda: ParamDecl((cfg.d_model,), init="ones")  # noqa: E731
+    return {
+        "enc_layers": {"ln1": ln(), "attn": attn_decls(cfg), "ln2": ln(),
+                       "ffn": mlp_decls(cfg)},
+        "enc_ln_post": ln(),
+        "dec_layers": {"ln1": ln(), "attn": attn_decls(cfg), "lnx": ln(),
+                       "xattn": attn_decls(cfg), "ln2": ln(),
+                       "ffn": mlp_decls(cfg)}}
+
+
+def model_decls(cfg, ep: int = 1):
+    """(group, declarations, layers) of the whole parameter tree in the
+    reference's order: ``embed``, then a decoder-only LM's ``layers`` or
+    an encoder-decoder's ``enc_layers``, ``enc_ln_post``, ``dec_layers``.
+    A group of ``layers`` > 0 holds one layer's declarations, stacked on a
+    leading layer axis; ``enc_ln_post`` is a single leaf (0)."""
+    out = [("embed", embed_decls(cfg), 0)]
+    if not cfg.is_encdec:
+        return out + [("layers", block_decls(cfg, ep), cfg.n_layers)]
+    enc = encdec_decls(cfg)
+    return out + [("enc_layers", enc["enc_layers"], cfg.enc_layers),
+                  ("enc_ln_post", enc["enc_ln_post"], 0),
+                  ("dec_layers", enc["dec_layers"], cfg.n_layers)]
+
+
 def _leaves(decls: Mapping, prefix: str = ""):
     """(dotted name, decl) of a nested declaration tree, in order."""
     for name, d in decls.items():
@@ -86,28 +117,36 @@ def _draw(decl: ParamDecl, shape, normal):
     return normal(shape) * np.float32(decl.std)
 
 
+def _group_leaves(cfg):
+    """(path, decl, leading layer axis or ()) of :func:`model_decls`."""
+    for group, decls, n in model_decls(cfg):
+        if isinstance(decls, ParamDecl):
+            yield (group,), decls, ()
+            continue
+        for name, d in _leaves(decls):
+            yield (group, *name.split(".")), d, ((n,) if n else ())
+
+
 def numpy_param_leaves(cfg, seed: int):
     """(path, float32 array) of the reference's parameter tree, one leaf
     at a time in declaration order (``("embed", "tok")``, ...; layer
-    leaves with a leading layer axis), drawn with
+    leaves with a leading layer axis; an encoder-decoder's
+    ``("enc_ln_post",)`` without one), drawn with
     ``np.random.default_rng(seed)``: a caller that converts each leaf as
     it comes never holds two copies of a large model."""
     rng = np.random.default_rng(seed)
     normal = lambda shape: rng.standard_normal(shape, np.float32)  # noqa: E731
-    L = cfg.n_layers
-    for name, d in _leaves(embed_decls(cfg)):
-        yield ("embed", name), _draw(d, d.shape, normal)
-    for name, d in _leaves(block_decls(cfg)):
-        yield ("layers", *name.split(".")), _draw(
-            d, (L,) + tuple(d.shape), normal)
+    for path, d, lead in _group_leaves(cfg):
+        yield path, _draw(d, lead + tuple(d.shape), normal)
 
 
 def numpy_params(cfg, seed: int) -> dict:
     """The reference's parameter tree (``embed.{tok,out,ln_f}``;
-    ``layers.*`` with a leading layer axis) as float32 numpy arrays
-    (:func:`numpy_param_leaves`): the same values for both packages in the
-    parity tests and the reference rows."""
-    out: dict = {"embed": {}, "layers": {}}
+    ``layers.*`` with a leading layer axis, or an encoder-decoder's
+    ``enc_layers.*``, ``enc_ln_post``, ``dec_layers.*``) as float32 numpy
+    arrays (:func:`numpy_param_leaves`): the same values for both packages
+    in the parity tests and the reference rows."""
+    out: dict = {}
     for path, x in numpy_param_leaves(cfg, seed):
         node = out
         for p in path[:-1]:
@@ -118,10 +157,12 @@ def numpy_params(cfg, seed: int) -> dict:
 
 def init_params(cfg, generator: torch.Generator, dtype=None,
                 device="cuda") -> dict:
-    """The port's state dict (``embed.*``, ``layers.<i>.*``) drawn from
-    ``generator`` on ``device``, following each declaration's ``init`` and
-    ``std``, in ``dtype`` (default the config's ``param_dtype``). Normal
-    draws are float32, then cast, one tensor at a time."""
+    """The port's state dict (``embed.*``, ``layers.<i>.*``; an
+    encoder-decoder's ``enc_layers.<i>.*``, ``enc_ln_post``,
+    ``dec_layers.<i>.*``) drawn from ``generator`` on ``device``,
+    following each declaration's ``init`` and ``std``, in ``dtype``
+    (default the config's ``param_dtype``). Normal draws are float32, then
+    cast, one tensor at a time."""
     dtype = dtype or getattr(torch, cfg.param_dtype)
 
     def draw(d: ParamDecl):
@@ -133,10 +174,16 @@ def init_params(cfg, generator: torch.Generator, dtype=None,
                         dtype=torch.float32)
         return x.mul_(d.std).to(dtype)
 
-    out = {f"embed.{n}": draw(d) for n, d in _leaves(embed_decls(cfg))}
-    block = list(_leaves(block_decls(cfg)))
-    for i in range(cfg.n_layers):
-        out.update({f"layers.{i}.{n}": draw(d) for n, d in block})
+    out = {}
+    for group, decls, n in model_decls(cfg):
+        if isinstance(decls, ParamDecl):
+            out[group] = draw(decls)
+        elif not n:
+            out.update({f"{group}.{k}": draw(d) for k, d in _leaves(decls)})
+        else:
+            block = list(_leaves(decls))
+            for i in range(n):
+                out.update({f"{group}.{i}.{k}": draw(d) for k, d in block})
     return out
 
 

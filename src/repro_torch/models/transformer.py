@@ -1,4 +1,4 @@
-"""Decoder-only LM of the port for the dense, moe, hybrid and ssm
+"""Decoder-only LM of the port for the dense, moe, vlm, hybrid and ssm
 families.
 
 Mirrors ``repro/models/transformer.py::build_decoder_lm`` as an
@@ -11,8 +11,12 @@ the sequence scan through kernel 6 (``kernels/ops.py``); their gradients
 through the attention backward kernel and kernel 5. Decode is plain
 PyTorch, as the reference computes it outside any Pallas kernel.
 
-An MoE layer's FFN is ``models/moe.py::moe_ffn``; ``loss`` adds the
-layers' load-balancing losses with the reference's weight. Given a
+A VLM prepends its ``patches`` (B, n_frontend_tokens, d_model), stub
+frontend embeddings as in the reference, to the embedded tokens: rope
+positions run over patches and text together, so a decode step's position
+counts the patches, and ``loss`` drops the patch positions before the
+unembedding. An MoE layer's FFN is ``models/moe.py::moe_ffn``; ``loss``
+adds the layers' load-balancing losses with the reference's weight. Given a
 ``torch.distributed`` group, the model is one data-parallel shard: its
 batch is this rank's, the loss is the group's token mean, and an
 ``ep``/``ep_sp`` MoE holds this rank's slice of the experts and
@@ -48,7 +52,7 @@ from repro_torch.models.layers import (
     rms_norm, rope, token_nll, token_xent, unembed,
 )
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 RING_EMPTY = -(2 ** 30)  # slot_pos of a ring slot no token has filled
 AUX_LOSS_WEIGHT = 0.01  # the reference's MoE load-balance weight
 REMAT = ("full", "dots", "none")
@@ -60,6 +64,23 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _dots_policy(ctx, op, *args, **kwargs):
     return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(remat: str, block, pl, *args):
+    """``block(pl, *args)``, one layer of a training forward, under the
+    reference's ``_scan_layers`` policy: ``"full"`` recomputes the whole
+    layer in the backward, ``"dots"`` keeps the outputs of the matrix
+    products without batch dimensions and recomputes the rest. Without
+    gradients it is the plain call."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return block(pl, *args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(block, pl, *args, use_reentrant=False, **kw)
 
 
 def _params(decls, dtype) -> nn.ParameterDict:
@@ -236,29 +257,30 @@ class DecoderLM(nn.Module):
 
     def _layer(self, pl, x):
         """One layer of the training forward under ``cfg.remat``."""
-        remat = self.cfg.remat
-        if remat not in REMAT:
-            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
-        if remat == "none":
-            return self._train_block(pl, x)
-        kw = {}
-        if remat == "dots":
-            kw["context_fn"] = functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy)
-        return ckpt.checkpoint(self._train_block, pl, x, use_reentrant=False,
-                               **kw)
+        return remat_layer(self.cfg.remat, self._train_block, pl, x)
+
+    def _embed_in(self, batch: dict):
+        """The embedded tokens, a VLM's patches before them; and the number
+        of patch positions (0 for a text-only model)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        if self.cfg.family != "vlm":
+            return x, 0
+        front = torch.as_tensor(batch["patches"], device=self.device).to(
+            self.compute_dtype)
+        return torch.cat([front, x], dim=1), front.shape[1]
 
     # ---------------- public entry points ----------------
     def loss(self, batch: dict):
-        """batch ``tokens`` and ``labels`` (B, S) -> (total loss, {"loss",
-        "aux_loss"}), as the reference's ``loss``: the token cross-entropy
-        over every padded vocabulary column, labels < 0 masked, plus
-        ``AUX_LOSS_WEIGHT`` times the layers' summed load-balancing losses
-        (0 without experts). Under a group, the batch is this rank's shard
-        and the cross-entropy the mean over the group's tokens."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        """batch ``tokens`` and ``labels`` (B, S) (a VLM's ``patches`` too)
+        -> (total loss, {"loss", "aux_loss"}), as the reference's
+        ``loss``: the token cross-entropy over every padded vocabulary
+        column, labels < 0 masked, plus ``AUX_LOSS_WEIGHT`` times the
+        layers' summed load-balancing losses (0 without experts). Under a
+        group, the batch is this rank's shard and the cross-entropy the
+        mean over the group's tokens."""
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        x, n_front = self._embed_in(batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for pl in self.layers:
             out = self._layer(pl, x)
@@ -267,7 +289,7 @@ class DecoderLM(nn.Module):
                 aux = aux + a
             else:
                 x = out
-        logits = unembed(self.embed, x, self.cfg.norm_eps)
+        logits = unembed(self.embed, x[:, n_front:], self.cfg.norm_eps)
         mask = labels >= 0
         if self.group is None:
             ce = token_xent(logits, labels, mask=mask)
@@ -285,10 +307,10 @@ class DecoderLM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict):
-        """batch ``tokens`` (B, S) -> (last-position logits (B, V_pad)
-        float32, stacked cache)."""
-        tokens = batch["tokens"].to(self.device)
-        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        """batch ``tokens`` (B, S) (a VLM's ``patches`` (B, P, d) too) ->
+        (last-position logits (B, V_pad) float32, stacked cache over the
+        P + S positions)."""
+        x, _ = self._embed_in(batch)
         caches = []
         for pl in self.layers:
             x, c, _ = self._seq_block(pl, x)
@@ -299,8 +321,8 @@ class DecoderLM(nn.Module):
 
     @torch.no_grad()
     def decode(self, cache: dict, tokens, pos: int):
-        """tokens (B, 1) at absolute position ``pos`` -> (logits (B, V_pad)
-        float32, cache updated in place)."""
+        """tokens (B, 1) at absolute position ``pos`` (a VLM's counts its
+        patches) -> (logits (B, V_pad) float32, cache updated in place)."""
         pos = int(pos)
         x = embed_tokens(self.embed, tokens[:, 0].to(self.device),
                          self.compute_dtype)

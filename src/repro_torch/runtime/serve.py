@@ -9,6 +9,13 @@ decodes until every member finishes (EOS or its token budget).
 Temperature sampling draws from a seeded ``torch.Generator`` on the
 model's device; it cannot reproduce ``jax.random``, so only greedy
 decoding matches the reference token for token.
+
+A VLM's wave gets zero ``patches`` and an encoder-decoder's zero
+``frames`` (B, n_frontend_tokens, d_model), as the reference's server
+gives them. A VLM's prefill cache holds the patches' positions too, so its
+decode positions count them and its KV cache is padded from its real
+length. There the port departs from the reference, whose server pads only
+a cache of the prompt's length and so leaves a VLM's unpadded.
 """
 from __future__ import annotations
 
@@ -80,16 +87,21 @@ class BatchedServer:
         return self._uid
 
     # ------------------------------------------------------------------
-    def _pad_cache(self, cache: dict, prompt_len: int, target_len: int):
-        """Grow a full-attention KV cache along the sequence so decode can
-        write up to ``target_len``; a sliding window's ring stays as it
-        is."""
-        extra = target_len - prompt_len
+    def n_front(self) -> int:
+        """Positions a VLM's patches take before the prompt (0 otherwise)."""
+        cfg = self.model.cfg
+        return cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+    def _pad_cache(self, cache: dict, extra: int):
+        """Grow a full-attention KV cache (``k``, ``v``: (L, B, S, KH, D),
+        S counting a VLM's patches) by ``extra`` positions so decode can
+        write its tokens; an encoder-decoder's cross caches (``xk``,
+        ``xv``) and a sliding window's ring stay as they are."""
         if extra <= 0 or self.model.cfg.sliding_window:
             return cache
         for key in ("k", "v"):
             x = cache.get(key)
-            if x is not None and x.dim() == 5 and x.shape[2] == prompt_len:
+            if x is not None and x.dim() == 5:
                 cache[key] = torch.nn.functional.pad(
                     x, (0, 0, 0, 0, 0, extra))
         return cache
@@ -101,12 +113,21 @@ class BatchedServer:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
 
     def make_batch_inputs(self, wave: List[Request], S: int) -> dict:
-        """The wave's prompts right-padded to S with ``pad_id``."""
+        """The wave's prompts right-padded to S with ``pad_id``; a VLM's
+        zero ``patches`` or an encoder-decoder's zero ``frames``."""
         toks = np.full((len(wave), S), self.pad_id, np.int32)
         for i, r in enumerate(wave):
             toks[i, : len(r.prompt)] = r.prompt[:S]
-        return {"tokens": torch.as_tensor(toks, dtype=torch.int64,
-                                          device=self.model.device)}
+        dev = self.model.device
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64,
+                                           device=dev)}
+        cfg = self.model.cfg
+        front = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+        if front:
+            batch[front] = torch.zeros(
+                (len(wave), cfg.n_frontend_tokens, cfg.d_model),
+                dtype=torch.float32, device=dev)
+        return batch
 
     # ------------------------------------------------------------------
     def step_wave(self) -> int:
@@ -126,7 +147,8 @@ class BatchedServer:
         logits, cache = self.model.prefill(batch)
         # counted on the device, read once at the end of the wave
         nonfinite = (~torch.isfinite(logits)).any().long()
-        cache = self._pad_cache(cache, S, S + budget)
+        cache = self._pad_cache(cache, budget)
+        n_front = self.n_front()
 
         out_tokens = np.full((B, budget), self.pad_id, np.int32)
         alive = np.ones((B,), bool)
@@ -149,7 +171,8 @@ class BatchedServer:
             self.stats.decode_steps += 1
             if not alive.any():
                 break
-            logits, cache = self.model.decode(cache, next_tok[:, None], S + t)
+            logits, cache = self.model.decode(cache, next_tok[:, None],
+                                              S + n_front + t)
             calls += 1
             nonfinite += (~torch.isfinite(logits)).any()
             next_tok = self._sample(logits, temperature)
