@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe]``
+[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe|dense]``
 
 ``--only`` takes a comma list of parts.
 
@@ -109,6 +109,12 @@ parameters, 26.1 GB), its parameters built leaf by leaf from
 ``numpy_param_leaves``; a prefill of two 64-token prompts and 4 decode
 steps fed JAX's greedy tokens (the prefill's cache padded for them), kept
 as ``lm`` keeps them. It needs about 30 GB of host memory.
+
+``dense`` (only with ``--only dense``) writes
+``artifacts/bench_cache_torch/jax_dense_reference.json``: phi3-mini at
+full width, 2 layers, float32 (``benchmarks.pt_serve.DENSE_REFERENCE``:
+0.42 B parameters, 1.7 GB; head size 96), the prompts and steps of ``lm``,
+the prefill's cache padded for the decode steps as ``moe`` pads it.
 """
 from __future__ import annotations
 
@@ -148,6 +154,7 @@ CHILD_RSS_GIB = 8
 SCENARIO_WORKERS = 2
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 MOE_OUT = os.path.join(os.path.dirname(OUT), "jax_moe_reference.json")
+DENSE_OUT = os.path.join(os.path.dirname(OUT), "jax_dense_reference.json")
 TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
 
 
@@ -820,8 +827,10 @@ def _lm_doc(part, cfg, r, probe, prompts, steps, t0) -> dict:
             "steps": steps, "wall_s": time.time() - t0}
 
 
-def lm_reference() -> dict:
-    """The LM reference rows (module docstring), on the JAX package."""
+def lm_reference(r=None, part: str = "lm", pad_cache: bool = False) -> dict:
+    """The LM reference rows (module docstring) of the reference config
+    ``r`` (default ``pt_serve.LM_REFERENCE``), on the JAX package;
+    ``pad_cache`` grows a full-attention cache for the decode steps."""
     import jax
     import jax.numpy as jnp
 
@@ -831,18 +840,18 @@ def lm_reference() -> dict:
     from repro.models.layers import single_device_rules
     from repro_torch.models.layers import numpy_params
 
-    r = pt_serve.LM_REFERENCE
+    r = r or pt_serve.LM_REFERENCE
     cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["n_layers"],
                               param_dtype=r["dtype"],
                               compute_dtype=r["dtype"], remat="none")
-    tcfg = pt_serve.reference_config()
+    tcfg = pt_serve.reference_config(r)
     model = build_model(cfg, single_device_rules(), None)
     params = jax.tree.map(jnp.asarray, numpy_params(tcfg, r["param_seed"]))
-    prompts = pt_serve.reference_prompts(tcfg)
-    probe = pt_serve.probe_ids(tcfg)
+    prompts = pt_serve.reference_prompts(tcfg, r)
+    probe = pt_serve.probe_ids(tcfg, r)
     t0 = time.time()
-    steps = _lm_steps(model, params, prompts, probe, r)
-    return _lm_doc("lm", cfg, r, probe, prompts, steps, t0)
+    steps = _lm_steps(model, params, prompts, probe, r, pad_cache=pad_cache)
+    return _lm_doc(part, cfg, r, probe, prompts, steps, t0)
 
 
 def moe_reference() -> dict:
@@ -1000,11 +1009,11 @@ def main() -> None:
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
                          "fleet_replay, mitigation, whatif, sweep, encdec, "
-                         "lm, train, moe")
+                         "lm, train, moe, dense")
     args = ap.parse_args()
     parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
              "mitigation", "whatif", "sweep", "encdec", "lm", "train",
-             "moe")
+             "moe", "dense")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -1045,6 +1054,10 @@ def main() -> None:
         _write(train_reference(), (only and args.out) or TRAIN_OUT)
     if "moe" in run:
         _write(moe_reference(), (only and args.out) or MOE_OUT)
+    if "dense" in run:
+        from benchmarks import pt_serve
+        _write(lm_reference(pt_serve.DENSE_REFERENCE, "dense",
+                            pad_cache=True), (only and args.out) or DENSE_OUT)
 
 if __name__ == "__main__":
     main()

@@ -13,13 +13,16 @@ steps, tokens/s, prefill ms per wave, decode ms per step and each kernel's
 launch count. Runs on the CUDA device unless ``--device`` names another;
 without a card the default fails. Any architecture of the registry:
 ``--arch whisper-tiny`` (the encoder-decoder, zero frames, as the
-reference's server gives them) or ``--arch internvl2-76b --layers 8``
-(the VLM, zero patches before each prompt) too.
+reference's server gives them), ``--arch internvl2-76b --layers 8``
+(the VLM, zero patches before each prompt), ``--arch phi3-mini-3.8b``
+and ``--arch granite-20b`` (dense, full depth: 7.6 and 56.3 GB) or
+``--arch kimi-k2-1t-a32b --layers 1`` (38.8 GB) too.
 
 It also holds what the LM reference rows share between the JAX package
 (``benchmarks/pt_jax_reference.py``) and the smoke run: the reference
 configurations (hymba-1.5b, ``LM_REFERENCE``; grok-1, ``MOE_REFERENCE``;
-whisper-tiny, ``ENCDEC_REFERENCE``) and the per-step logit summary.
+phi3-mini, ``DENSE_REFERENCE``; whisper-tiny, ``ENCDEC_REFERENCE``) and
+the per-step logit summary.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ LM_REFERENCE = dict(arch="hymba-1.5b", n_layers=2, dtype="float32",
 # parameters, 26.1 GB in float32), 2 x 64 prompt tokens, 4 steps
 MOE_REFERENCE = dict(LM_REFERENCE, arch="grok-1-314b", n_layers=1,
                      prompt_len=64, decode_steps=4)
+# the dense rows: phi3-mini at full width, 2 layers (0.42 B parameters,
+# 1.7 GB in float32), as LM_REFERENCE: D = 96, where hymba has 64
+DENSE_REFERENCE = dict(LM_REFERENCE, arch="phi3-mini-3.8b")
 # the encoder-decoder's rows: whisper-tiny at full width and depth (4 + 4
 # layers), float32; 2 x 32 prompt tokens over 1,500 frames drawn from
 # frame_seed, one decode step, and the loss on the prompts as labels

@@ -121,7 +121,8 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    and bfloat16, and at the serve shape; plus a G = 1, a D = 128 and a
    non-causal case; and, in bfloat16, the wgmma kernel's edges: lengths
    no tile divides (37, 300, 1000), a window starting mid-tile, D = 16
-   and 128 with G = 1 non-causal, Sq != Skv and rows with no live key;
+   and 128 with G = 1 non-causal, Sq != Skv and rows with no live key,
+   and the head sizes 96 and 112 and G = 48 (in float32 too);
    each call's launch counts show bfloat16 on the wgmma source and
    float32 on the float32 one, and the row log-sum-exp agrees;
 10. holds the selective-scan kernel (kernel 6) against its plain version
@@ -160,7 +161,8 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    training shape (B = 4, S = 1280, 25/5 heads x 64, window 1024) in
    float32 and bfloat16, S = 1000, G = 1 with D = 128, and non-causal
    with a window (rows with no live key); in bfloat16 also the wgmma
-   kernels' edges as in 9, and two launches on the same inputs bit-equal;
+   kernels' edges as in 9 (the new head sizes in float32 too), and two
+   launches on the same inputs bit-equal;
 17. ``train_vs_jax``: full-width 2-layer hymba-1.5b, float32 (TF32 off),
    3 AdamW steps through the kernels, held to
    ``artifacts/bench_cache_torch/jax_train_reference.json``;
@@ -202,12 +204,28 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    prompt grown by the tokens before it;
 25. ``timing_encdec``: kernel 7 at whisper's three shapes and internvl2's
    prefill shape (``ENCDEC_SHAPES``, which ``FA_EDGES`` also holds in 9
-   and 16) beside its plain version, its bound and SDPA.
+   and 16) beside its plain version, its bound and SDPA;
+26. ``dense_vs_jax``: phi3-mini-3.8b at full width, 2 layers, float32
+   (TF32 off) through the kernels (kernel 7's float32 source at D = 96),
+   held to ``artifacts/bench_cache_torch/jax_dense_reference.json``:
+   prefill and 8 teacher-forced decode steps within DENSE_TOL;
+27. ``serve_dense``: the dense family at full width and depth, bfloat16,
+   served likewise: phi3-mini-3.8b (kernel 7 at 32/32 heads x 96), then
+   granite-20b (48/1 heads x 128, MQA: G = 48), each once a layer a
+   prefill, all on the wgmma source; wave 1's prefill kernel vs plain;
+28. ``serve_kimi``: kimi-k2 at full width on ``KIMI_LAYERS`` of its 61
+   layers (384 experts top-8; kernel 7 at 64/8 heads x 112), served
+   likewise;
+29. ``timing_dense``: kernel 7 and its backward at the three prefill
+   shapes of 27 and 28 (``DENSE_SHAPES``, which ``FA_EDGES`` also holds
+   in 9 and 16, and whose float32 runs 9 and 16 make with the D = 96,
+   D = 112 and G = 48 edges of ``FA_HEAD_EDGES``) beside their plain
+   versions, their bounds, SDPA and SDPA's backward.
 
 Phases 6 to 7f run at once, in the groups of ``CONCURRENT``, each group
 in a process of its own with its launch counts its own (the main process
 runs 3 to 5 and kernel 1 at the fleet buckets meanwhile, and prints each
-group's log when it ends); phases 8 to 25 run after them, one at a time.
+group's log when it ends); phases 8 to 29 run after them, one at a time.
 
 It prints a ``{"kernels": [...]}`` line before the last and ends with
 ``{"ok": true, "device": {...}}``; any failed check exits non-zero
@@ -219,6 +237,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -315,9 +334,27 @@ ENCDEC_SHAPES = (
     ("whisper cross", (SERVE_S, WHISPER_FRAMES, WHISPER_HEADS, False, 0)),
     ("internvl2 prefill", (VLM_PATCHES + SERVE_S, VLM_PATCHES + SERVE_S,
                            VLM_HEADS, True, 0)))
+# kernel 7's shapes on the dense and kimi-k2 serve prefills (B = SERVE_B,
+# the wave's 1,280 tokens, causal, no window): phi3-mini 32/32 heads x 96,
+# kimi-k2 64/8 x 112 and granite-20b's MQA 48/1 x 128 (G = 48: 48 of a
+# warpgroup's 64 rows live). The serve phases check their configs' heads
+# against these
+DENSE_SHAPES = (
+    ("phi3-mini prefill", (SERVE_S, SERVE_S, (32, 32, 96), True, 0)),
+    ("kimi-k2 prefill", (SERVE_S, SERVE_S, (64, 8, 112), True, 0)),
+    ("granite-20b prefill", (SERVE_S, SERVE_S, (48, 1, 128), True, 0)))
+# the head sizes and grouping that only those configs bring, at ragged
+# lengths, then DENSE_SHAPES: run on all four sources (bfloat16 in FA_EDGES,
+# float32 beside it), forward and backward
+FA_HEAD_EDGES = (
+    ("D=96 G=1 non-causal S=300", 2, 300, 300, (4, 4, 96), False, 0),
+    ("D=112 G=8 S=300 w=100 (window starts mid-tile)", 2, 300, 300,
+     (16, 2, 112), True, 100),
+    ("G=48 D=128 S=300", 1, 300, 300, (48, 1, 128), True, 0)) \
+    + tuple((label, SERVE_B) + shape for label, shape in DENSE_SHAPES)
 # the bfloat16 (wgmma) attention kernels' edge cases, forward and
 # backward: (label, B, Sq, Skv, (H, KH, D), causal, window); the last
-# four are ENCDEC_SHAPES
+# ten are ENCDEC_SHAPES and FA_HEAD_EDGES
 FA_EDGES = (
     ("S=37", 2, 37, 37, (25, 5, 64), True, 1024),
     ("S=300 w=100 (window starts mid-tile)", 2, 300, 300, (25, 5, 64),
@@ -330,7 +367,8 @@ FA_EDGES = (
     ("Sq=300 Skv=200 causal w=64, dead rows", 1, 300, 200, (25, 5, 64),
      True, 64),
     ("Sq=37 Skv=1000 non-causal", 1, 37, 1000, (25, 5, 64), False, 0)) \
-    + tuple((label, SERVE_B) + shape for label, shape in ENCDEC_SHAPES)
+    + tuple((label, SERVE_B) + shape for label, shape in ENCDEC_SHAPES) \
+    + FA_HEAD_EDGES
 SCAN_REL = 2e-6
 # the selective scan's backward vs plain and vs autograd of the plain
 # forward: each gradient within GRAD_REL of its largest magnitude (sums
@@ -352,6 +390,16 @@ SCAN_BWD_CASES = (
 # lm_vs_jax: logits within LM_TOL absolute of the JAX rows; greedy tokens
 # equal wherever JAX's top-2 margin exceeds 10 x LM_TOL
 LM_TOL = 8e-6
+# dense_vs_jax (phi3-mini, d_model 3072, d_ff 8192): logits within
+# DENSE_TOL absolute of the JAX rows. LM_TOL is below the float32 noise at
+# this width: the port's plain path on the CPU is 3.4e-5-4.7e-5 from the
+# rows, the kernels on the card 1.06e-5-3.28e-5, and each package's
+# float32 logits 8e-6 from its own float64 ones at one layer of 64 tokens
+# (the reference's compiled float32 rope adds a position-proportional
+# term: its K cache is 4.5e-4 from the port's at position 1,279). A 0.1%
+# error in the attention scale moves the rows 6.2e-3, a causal mask one
+# key wide 3.3e-2 (PERF.md §6)
+DENSE_TOL = 1e-4
 # serve: prefill logits, kernel vs plain on the same weights, relative to
 # the largest |logit|. In bfloat16 (wave 1) rounding alone moves them
 # 0.035 through 32 layers, as much as a window one key too wide (0.048):
@@ -499,6 +547,17 @@ VLM_LAYERS = 8
 DECODE_CHECK = 4
 MOE_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
                              "jax_moe_reference.json")
+DENSE_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
+                               "jax_dense_reference.json")
+# serve_dense: phi3-mini-3.8b (32 layers, 3.82 B parameters, 7.6 GB) and
+# granite-20b (52 layers, 28.17 B, 56.3 GB) at full width and depth, in
+# this order; serve_kimi: kimi-k2 at full width on this many of its 61
+# layers (19.38 B parameters with embedding and head, 38.8 GB; two layers,
+# 72.8 GB, leave no room for the activations). Each dense architecture
+# with its DENSE_SHAPES label
+DENSE_ARCHS = (("phi3-mini-3.8b", "phi3-mini prefill"),
+               ("granite-20b", "granite-20b prefill"))
+KIMI_LAYERS = 1
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -664,11 +723,20 @@ class Smoke:
         self.report["ptxas"] = {}
         for (src, flags, _), lib in zip(sources, libs):
             log(f"built {os.path.relpath(lib, ROOT)}")
+            entry = None
             for line in _build.log(src, flags).splitlines():
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1] if "'" in line else None
                 if "registers" in line or "smem" in line or "spill" in line:
-                    log("   ptxas:", line.strip())
+                    # a spill names its kernel (the mangled name holds
+                    # the template's head size and consumer count)
+                    spills = any(int(n) for n in re.findall(
+                        r"(\d+) bytes spill", line))
+                    text = f"{entry}: {line.strip()}" if spills \
+                        else line.strip()
+                    log("   ptxas:", text)
                     self.report["ptxas"].setdefault(src.name, []).append(
-                        line.strip())
+                        text)
         log(f"   all {len(sources)} built in {time.time() - t0:.1f}s")
         # the wgmma kernels run on the tensor cores and TMA: their SASS
         # must hold HGMMA and UTMALDG
@@ -2356,6 +2424,13 @@ class Smoke:
             self.fa_edge_errs[label] = self.fa_compare(
                 f"{label} B={B}", q, k, v, causal=causal, window=window)
             del q, k, v
+        # the float32 source at the new head sizes and prefill shapes
+        for label, B, Sq, Skv, heads, causal, window in FA_HEAD_EDGES:
+            n += 1
+            q, k, v = self.attn_inputs(B, Sq, heads, torch.float32, n, Skv)
+            self.fa_compare(f"{label} B={B} float32", q, k, v,
+                            causal=causal, window=window)
+            del q, k, v
 
     # --------------------------------------------------------------- 10
     def scan_inputs(self, B, T, Di, N, x_dtype, seed):
@@ -2412,27 +2487,41 @@ class Smoke:
 
     # --------------------------------------------------------------- 11
     def lm_vs_jax(self):
+        from benchmarks import pt_serve
+        from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+        self.rows_vs_jax("lm_vs_jax", LM_REFERENCE, pt_serve.LM_REFERENCE,
+                         (fa, ss))
+
+    def rows_vs_jax(self, label, path, r, kernels, pad_cache=False,
+                    tol=LM_TOL):
+        """The reference config ``r`` at float32 (TF32 off) through the
+        kernels, on ``numpy_params``' weights, held to the JAX rows at
+        ``path`` by ``hold_lm`` (``kernels``: the modules whose launch
+        counts it reads, flash attention first)."""
         torch = self.torch
         from benchmarks import pt_serve
         from repro_torch import convert
-        from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
         from repro_torch.models.api import build_model
         from repro_torch.models.layers import numpy_params
         # float32 means float32 here: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        with open(LM_REFERENCE) as f:
+        with open(path) as f:
             ref = json.load(f)
+        cfg = pt_serve.reference_config(r)
         log(f"   reference: jax {ref['jax_version']} ({ref['jax_backend']}) "
-            f"commit {ref['commit'][:12]}; TF32 off (matmul and cuDNN)")
-        cfg = pt_serve.reference_config()
+            f"commit {ref['commit'][:12]}; {cfg.name}, {cfg.n_layers} layers "
+            f"float32, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+            f"{cfg.resolved_head_dim}; TF32 off (matmul and cuDNN)")
         model = build_model(cfg, device=self.dev).load_params(
             convert.lm_params_from_jax(
                 numpy_params(cfg, ref["config"]["param_seed"]), cfg))
-        fa.launches = ss.launches = fa.sm90_launches = 0
-        rows = self.hold_lm("lm_vs_jax", model, ref, pt_serve.LM_REFERENCE,
-                            launches=(fa, ss))
-        self.report["lm_vs_jax"] = rows
+        for m in kernels:
+            m.launches = 0
+        kernels[0].sm90_launches = 0
+        self.report[label] = self.hold_lm(label, model, ref, r,
+                                          pad_cache=pad_cache,
+                                          launches=kernels, tol=tol)
         del model
         torch.cuda.empty_cache()
 
@@ -2755,10 +2844,12 @@ class Smoke:
 
     # --------------------------------------------------------------- 16
     def fa_bwd_compare(self, label, B, Sq, Skv, heads, dtype, causal, window,
-                       seed):
+                       seed, exact=False):
         """The attention backward vs ref.flash_attention_bwd on the same
         card tensors, and (float32) vs autograd of the plain forward;
-        returns the max abs error."""
+        returns the max abs error. ``exact`` (float32): vs the plain
+        version evaluated in float64 instead, the float32 plain and
+        autograd's own distances from it logged beside."""
         torch = self.torch
         from repro_torch.kernels import flash_attention as fa, ref
         H, KH, D = heads
@@ -2785,12 +2876,23 @@ class Smoke:
                        f"differ")
         want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                        window=window)
+        plain_off = None
+        if exact:
+            want32 = want
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window,
+                                           dtype=torch.float64)
         auto = None
         if dtype == torch.float32:
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             ref.flash_attention(*leaves, causal=causal,
                                 window=window).backward(do)
             auto = [t.grad for t in leaves]
+            if exact:  # float32's own rounding, for the record
+                plain_off = max(float((a - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+                    for a, w in zip(want32 + tuple(auto), want + want))
+                auto = None
         _, lse_plain = ref.flash_attention(q, k, v, causal=causal,
                                            window=window, return_lse=True)
         torch.cuda.synchronize()
@@ -2825,6 +2927,9 @@ class Smoke:
             parts.append(f"vs autograd {rel:.3g} of max")
         if same is not None:
             parts.append(f"two launches bit-equal {same}")
+        if plain_off is not None:
+            parts.append(f"vs float64 (plain and autograd in float32: "
+                         f"{plain_off:.3g} of max)")
         log(f"   {label:46s} {', '.join(parts)}")
         return worst
 
@@ -2849,10 +2954,21 @@ class Smoke:
                 n += 1
                 self.fa_bwd_compare(f"{label} B={B} {dtype}", B, Sq, Skv,
                                     heads, dtype, causal, window, n)
+        self.fa_bwd_edge_errs = {}
         for label, B, Sq, Skv, heads, causal, window in FA_EDGES:
             n += 1
-            self.fa_bwd_compare(f"{label} B={B} bfloat16", B, Sq, Skv, heads,
-                                torch.bfloat16, causal, window, n)
+            self.fa_bwd_edge_errs[label] = self.fa_bwd_compare(
+                f"{label} B={B} bfloat16", B, Sq, Skv, heads, torch.bfloat16,
+                causal, window, n)
+        # the float32 source at the new head sizes and prefill shapes, held
+        # to the plain version in float64: at granite-20b's prefill a key's
+        # sums run over 61,440 rows, where the float32 plain version and
+        # autograd are 1.0e-5 and 1.6e-5 of the largest gradient from a
+        # Kahan-summed kernel (FA_BWD_F32_REL is 1e-5)
+        for label, B, Sq, Skv, heads, causal, window in FA_HEAD_EDGES:
+            n += 1
+            self.fa_bwd_compare(f"{label} B={B} float32", B, Sq, Skv, heads,
+                                torch.float32, causal, window, n, exact=True)
 
     # --------------------------------------------------------------- 17
     def train_vs_jax(self):
@@ -3318,10 +3434,10 @@ class Smoke:
 
     # --------------------------------------------------------------- 22
     def hold_lm(self, label, model, ref, r, pad_cache=False, launches=None,
-                extra=None, per_prefill=None):
+                extra=None, per_prefill=None, tol=LM_TOL):
         """A prefill of the reference's prompts (with the batch entries
         ``extra``: an encoder-decoder's frames), then its teacher-forced
-        decode steps, each step's logits held to its rows (LM_TOL, greedy
+        decode steps, each step's logits held to its rows (``tol``, greedy
         tokens where JAX's margin is wide). ``pad_cache`` gives a
         full-attention cache (``k``, ``v``) room for the decode steps.
         ``launches``: the kernel modules (flash attention first) whose
@@ -3349,15 +3465,15 @@ class Smoke:
         S, rows = prompts.shape[1], []
         for t, want in enumerate(ref["steps"]):
             res = pt_serve.reference_errors(logits.cpu().numpy(), want, probe,
-                                            LM_TOL)
+                                            tol)
             rows.append(res)
             log(f"   step {t}: max abs err {res['max_abs_err']:.3g}, greedy "
                 f"{[w['token'] for w in want]} margins "
                 f"{[round(w['margin'], 4) for w in want]}, mismatched rows "
                 f"{res['greedy_mismatch']}")
-            self.check(res["max_abs_err"] <= LM_TOL,
+            self.check(res["max_abs_err"] <= tol,
                        f"{label} step {t}: max abs err "
-                       f"{res['max_abs_err']} > {LM_TOL}")
+                       f"{res['max_abs_err']} > {tol}")
             self.check(not res["greedy_mismatch"],
                        f"{label} step {t}: greedy tokens differ in rows "
                        f"{res['greedy_mismatch']}")
@@ -3583,28 +3699,31 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def frontend_batch(self, server, wave, seed):
-        """The wave's batch as the server builds it, the zero frames or
-        patches replaced by standard normal ones drawn from ``seed`` on the
-        card (so the kernel-vs-plain checks see a live frontend)."""
+        """The wave's batch as the server builds it, an encoder-decoder's
+        zero frames or a VLM's zero patches replaced by standard normal
+        ones drawn from ``seed`` on the card (so the kernel-vs-plain checks
+        see a live frontend); a decoder-only LM's batch as it is."""
         torch = self.torch
         batch = server.make_batch_inputs(wave, max(len(r.prompt)
                                                    for r in wave))
         g = torch.Generator(device=self.dev).manual_seed(seed)
-        key = "frames" if "frames" in batch else "patches"
-        batch[key] = torch.randn(batch[key].shape, generator=g,
-                                 device=self.dev)
+        for key in ("frames", "patches"):
+            if key in batch:
+                batch[key] = torch.randn(batch[key].shape, generator=g,
+                                         device=self.dev)
         return batch
 
-    def serve_frontend(self, name, cfg, per_prefill, seed):
+    def serve_arch(self, name, cfg, per_prefill, seed):
         """Serve ``cfg`` (bfloat16, full width) through ``BatchedServer``
-        (``pt_serve.serve``: hymba's twelve requests in two waves), the
-        launch counts reset before and read after: kernel 7
-        ``per_prefill`` times a wave's prefill, every launch on the wgmma
-        source; every request its tokens, no non-finite logit; then wave
-        1's prefill, kernel vs plain on the same weights, over frames or
-        patches drawn from ``seed``, within SERVE_BF16_REL of the largest
-        logit; a warm prefill and a profile of one prefill and one decode
-        step. Returns (server, model, report)."""
+        (``pt_serve.serve``: hymba's twelve requests in two waves; the
+        weights drawn on the card a leaf at a time), the launch counts
+        reset before and read after: kernel 7 ``per_prefill`` times a
+        wave's prefill, every launch on the wgmma source; every request
+        its tokens, no non-finite logit; then wave 1's prefill, kernel vs
+        plain on the same weights (over frames or patches drawn from
+        ``seed`` where the model has a frontend), within SERVE_BF16_REL of
+        the largest logit; a warm prefill and a profile of one prefill and
+        one decode step. Returns (server, model, report)."""
         torch = self.torch
         from benchmarks import pt_serve
         torch.cuda.empty_cache()
@@ -3639,9 +3758,9 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated() / 1e9
         wave1 = server.done[:pt_serve.MAX_BATCH]
         batch = self.frontend_batch(server, wave1, seed)
-        rel = self.held_rel(f"{cfg.name} wave 1 bfloat16, seeded "
-                            "frontend", *self.prefill_both(model, batch),
-                            SERVE_BF16_REL)
+        front = ", seeded frontend" if cfg.n_frontend_tokens else ""
+        rel = self.held_rel(f"{cfg.name} wave 1 bfloat16{front}",
+                            *self.prefill_both(model, batch), SERVE_BF16_REL)
         t0 = time.perf_counter()
         model.prefill(batch)
         torch.cuda.synchronize()
@@ -3655,14 +3774,16 @@ class Smoke:
         dec_ms = [1e3 * d / max(c, 1) for d, c in zip(st.decode_s,
                                                        st.decode_calls)]
         n_params = sum(p.numel() for p in model.parameters())
+        dec_launches = prof["decode"]["launches"] if prof else None
         log(f"   {cfg.name}, {cfg.n_layers} layers bfloat16, "
             f"{n_params / 1e9:.3f} B parameters, d_model {cfg.d_model}: "
             f"{st.requests_done} requests, {st.waves} waves, "
             f"{st.decode_steps} decode steps, {st.tokens_generated} tokens, "
             f"{st.tokens_per_s:.1f} tokens/s; prefill ms per wave "
             f"{[round(1e3 * p, 1) for p in st.prefill_s]}; decode ms per "
-            f"step {[round(d, 2) for d in dec_ms]}; peak memory "
-            f"{peak:.1f} GB; {out['wall']:.1f}s with the weights' draw")
+            f"step {[round(d, 2) for d in dec_ms]} ({dec_launches} device "
+            f"launches a step); peak memory {peak:.1f} GB; "
+            f"{out['wall']:.1f}s with the weights' draw")
         report = {
             "layers": cfg.n_layers, "params": n_params,
             "requests": st.requests_done, "waves": st.waves,
@@ -3672,17 +3793,18 @@ class Smoke:
             "decode_ms_per_step": dec_ms, "peak_memory_gb": peak,
             "prefill_kernel_vs_plain_rel": rel,
             "wall_with_draw_s": out["wall"], "warm_prefill_ms": warm_ms,
-            "launches": counts, "profile": prof}
+            "launches": counts, "decode_launches": dec_launches,
+            "profile": prof}
         return server, model, report
 
     def serve_encdec(self):
         """whisper-tiny at full width and depth, bfloat16, served
-        (``serve_frontend``): kernel 7 twelve times a prefill (4 encoder,
+        (``serve_arch``): kernel 7 twelve times a prefill (4 encoder,
         4 causal self, 4 cross over the 1,500 frames), all on the wgmma
         source; the cross caches keep the frames' length."""
         from repro_torch.configs import get_config
         cfg = get_config("whisper-tiny")
-        server, model, rep = self.serve_frontend(
+        server, model, rep = self.serve_arch(
             "serve_encdec", cfg, cfg.enc_layers + 2 * cfg.n_layers, seed=51)
         wave1 = server.done[:8]
         _, cache = model.prefill(server.make_batch_inputs(
@@ -3699,7 +3821,7 @@ class Smoke:
 
     def serve_vlm(self):
         """internvl2-76b at full width cut to VLM_LAYERS layers, bfloat16,
-        served (``serve_frontend``): kernel 7 once a layer a prefill over
+        served (``serve_arch``): kernel 7 once a layer a prefill over
         the 256 patches and the prompts, all on the wgmma source; then
         prefill -> decode consistency on the card: wave 1 as served
         (zero patches), prefilled and decoded DECODE_CHECK steps on the
@@ -3711,8 +3833,8 @@ class Smoke:
         from repro_torch.configs import get_config
         cfg = dataclasses.replace(get_config("internvl2-76b"),
                                   n_layers=VLM_LAYERS)
-        server, model, rep = self.serve_frontend("serve_vlm", cfg,
-                                                 cfg.n_layers, seed=52)
+        server, model, rep = self.serve_arch("serve_vlm", cfg, cfg.n_layers,
+                                             seed=52)
         wave1 = server.done[:8]
         S = max(len(r.prompt) for r in wave1)
         batch = server.make_batch_inputs(wave1, S)
@@ -3784,6 +3906,130 @@ class Smoke:
             del q, k, v, qt, kt, vt
         self.report["timing_encdec"] = self.fa_encdec_timing
 
+    # --------------------------------------------------------------- 26
+    def dense_vs_jax(self):
+        """phi3-mini-3.8b at full width, 2 layers, float32 (TF32 off),
+        through the kernels (kernel 7 on its float32 source at D = 96, G =
+        1), held to ``jax_dense_reference.json`` as ``lm_vs_jax`` holds
+        hymba: the prefill of two 1,280-token prompts and 8 teacher-forced
+        decode steps, within DENSE_TOL."""
+        from benchmarks import pt_serve
+        from repro_torch.kernels import flash_attention as fa
+        self.rows_vs_jax("dense_vs_jax", DENSE_REFERENCE,
+                         pt_serve.DENSE_REFERENCE, (fa,), pad_cache=True,
+                         tol=DENSE_TOL)
+
+    def check_heads(self, name, cfg, label):
+        """The config's attention heads are DENSE_SHAPES' ``label``."""
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        want = dict(DENSE_SHAPES)[label][2]
+        self.check(heads == want, f"{name}: {cfg.name}'s heads {heads} are "
+                   f"not {label}'s {want}")
+
+    def serve_dense(self):
+        """The dense family at full width and depth, bfloat16, served
+        (``serve_arch``): phi3-mini-3.8b (kernel 7 at G = 1, D = 96), then
+        granite-20b (G = 48, D = 128, MQA), each once a layer a prefill,
+        all on the wgmma source."""
+        from repro_torch.configs import get_config
+        self.serve_dense_launches, self.report["serve_dense"] = {}, {}
+        for arch, label in DENSE_ARCHS:
+            cfg = get_config(arch)
+            self.check_heads("serve_dense", cfg, label)
+            server, model, rep = self.serve_arch(
+                f"serve_dense {arch}", cfg, cfg.n_layers, seed=53)
+            self.serve_dense_launches[arch] = rep["launches"]
+            self.report["serve_dense"][arch] = rep
+            del server, model
+            self.torch.cuda.empty_cache()
+
+    def serve_kimi(self):
+        """kimi-k2 at full width on KIMI_LAYERS of its 61 layers,
+        bfloat16, served (``serve_arch``): 384 experts top-8 dispatched
+        by ``moe._dispatch_indices``' stable sort, kernel 7 once a layer a
+        prefill at G = 8, D = 112, all on the wgmma source."""
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                                  n_layers=KIMI_LAYERS)
+        self.check_heads("serve_kimi", cfg, "kimi-k2 prefill")
+        server, model, rep = self.serve_arch("serve_kimi", cfg, cfg.n_layers,
+                                             seed=54)
+        rep["experts"], rep["top_k"] = cfg.n_experts, cfg.top_k
+        self.serve_kimi_launches = rep["launches"]
+        self.report["serve_kimi"] = rep
+        del server, model
+        self.torch.cuda.empty_cache()
+
+    def timing_dense(self):
+        """Kernel 7 and its backward at the dense and kimi-k2 prefill
+        shapes (``DENSE_SHAPES``, B = SERVE_B, bfloat16, causal) beside
+        their plain versions, their bounds and
+        ``scaled_dot_product_attention`` (``enable_gqa=True``, causal) and
+        its backward, which compute the same functions there."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        F = torch.nn.functional
+        self.fa_dense_timing, self.fa_bwd_dense_timing = {}, {}
+        for n, (label, (Sq, Skv, heads, causal, window)) in enumerate(
+                DENSE_SHAPES):
+            q, k, v = self.attn_inputs(SERVE_B, Sq, heads, torch.bfloat16,
+                                       seed=70 + n, Skv=Skv)
+            do = self.attn_inputs(SERVE_B, Sq, heads, torch.bfloat16,
+                                  seed=80 + n, Skv=Skv)[0]
+            kernel, k_span = self.med_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=window))
+            plain, _ = self.med_ms(lambda: ref.flash_attention(
+                q, k, v, causal=causal, window=window), n=20)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            lib, _ = self.med_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            bound, by = fa_bound_ms(q, k, window, causal)
+            flops = attn_flops(q, window, 4, Skv, causal)
+            shape = (f"B={SERVE_B} Sq={Sq} Skv={Skv} {heads} "
+                     f"{'causal' if causal else 'non-causal'} bfloat16")
+            t = {"ms": kernel, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib, "span_ms": k_span,
+                 "tflops": flops / kernel / 1e9,
+                 "library_tflops": flops / lib / 1e9,
+                 "max_abs_err": self.fa_edge_errs.get(label),
+                 "shape": shape}
+            self.fa_dense_timing[label] = t
+            log(f"   flash_attention {label} {shape}: kernel {kernel:.4f} "
+                f"ms ({t['tflops']:.1f} TFLOP/s), plain {plain:.4f}, bound "
+                f"{bound:.4f} ({by}), sdpa {lib:.4f} "
+                f"({t['library_tflops']:.1f} TFLOP/s)")
+            # the backward: causal without a window is fa_bwd_bound_ms'
+            # window of Sq
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+            kernel, k_span = self.med_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal, window=window))
+            plain, _ = self.med_ms(lambda: ref.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=causal, window=window), n=10)
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            go = do.transpose(1, 2)
+            lib, _ = self.med_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), go, retain_graph=True), graph=False)
+            bound, by = fa_bwd_bound_ms(q, k, window or Sq)
+            flops = attn_flops(q, window, 10, Skv, causal)
+            t = {"ms": kernel, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib, "span_ms": k_span,
+                 "tflops": flops / kernel / 1e9,
+                 "library_tflops": flops / lib / 1e9,
+                 "max_abs_err": self.fa_bwd_edge_errs.get(label),
+                 "shape": shape}
+            self.fa_bwd_dense_timing[label] = t
+            log(f"   flash_attention_bwd {label}: kernel {kernel:.4f} ms "
+                f"({t['tflops']:.1f} TFLOP/s), plain {plain:.4f}, bound "
+                f"{bound:.4f} ({by}), sdpa backward {lib:.4f} "
+                f"({t['library_tflops']:.1f} TFLOP/s)")
+            del q, k, v, do, o, lse, qt, kt, vt, lib_out, go
+            torch.cuda.empty_cache()
+        self.report["timing_dense"] = {"forward": self.fa_dense_timing,
+                                       "backward": self.fa_bwd_dense_timing}
+
     def device_profile(self, fn):
         """fn run once unprofiled, then once under torch.profiler: (wall s,
         the profile, its kernels by device time, the device-time getter
@@ -3810,8 +4056,11 @@ class Smoke:
         decode step (its cache from that prefill, a slot of room; a VLM's
         position after its ``n_front`` patches) under torch.profiler, each
         after one unprofiled call; device busy time against wall and the
-        top kernels. A diagnostic: it checks nothing."""
+        top kernels. Kernel 7's share of the device time is given only
+        where the profile holds as many of its launches as its counter
+        counted in the profiled call. A diagnostic: it checks nothing."""
         torch = self.torch
+        from repro_torch.kernels import flash_attention as fa
         _, cache = model.prefill(batch)
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
                  if k in ("k", "v") else v for k, v in cache.items()}
@@ -3828,22 +4077,42 @@ class Smoke:
 
         out = {}
         for name, fn in (("prefill", prefill), ("decode", decode)):
-            wall, _, kernels, dev = self.device_profile(fn)
+            n0 = fa.launches
+            wall, prof, kernels, dev = self.device_profile(fn)
+            counted = (fa.launches - n0) // 2  # fn ran twice
             busy = sum(dev(e) for e in kernels) / 1e3
+            attn = [(e.key[:70], dev(e) / 1e3, e.count) for e in kernels
+                    if "flash_attention" in e.key]
+            seen = sum(c for _, _, c in attn)
+            # the kernel's launches one by one in the trace, beside the
+            # averages' count
+            events = sum(1 for e in prof.events()
+                         if "flash_attention" in e.name
+                         and getattr(e, "device_type", None)
+                         == torch.autograd.DeviceType.CUDA)
+            share = (sum(ms for _, ms, _ in attn) / busy
+                     if counted and seen == counted and busy else None)
             out[name] = {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
                          "launches": sum(e.count for e in kernels),
                          "top": [(e.key[:70], dev(e) / 1e3, e.count)
                                  for e in kernels[:8]],
-                         "attention": [(e.key[:70], dev(e) / 1e3, e.count)
-                                       for e in kernels
-                                       if "flash_attention" in e.key]}
+                         "attention": attn,
+                         "attention_launches_profiled": seen,
+                         "attention_events": events,
+                         "attention_launches_counted": counted,
+                         "attention_share": share}
             log(f"   profiled {name} (B={batch['tokens'].shape[0]}, S={S}): "
                 f"{busy:.1f} ms device busy in {1e3 * wall:.1f} ms wall, "
                 f"{out[name]['launches']} launches")
             for kname, ms, cnt in out[name]["top"]:
                 log(f"      {ms:9.2f} ms x{cnt:<5d} {kname}")
-            for kname, ms, cnt in out[name]["attention"]:
+            for kname, ms, cnt in attn:
                 log(f"      attention {ms:.2f} ms x{cnt} {kname}")
+            log(f"      kernel 7: {seen} launches in the profile's "
+                f"averages, {events} in its events, {counted} counted; "
+                + (f"{100 * share:.1f}% of the device time" if share
+                   is not None else "no share read (the profile is short "
+                   "of launches)" if counted else "not on this path"))
         return out
 
     def profile_train_step(self, model, batch):
@@ -4231,7 +4500,11 @@ def main() -> int:
                      ("encdec_vs_jax", s.encdec_vs_jax),
                      ("serve_encdec", s.serve_encdec),
                      ("serve_vlm", s.serve_vlm),
-                     ("timing_encdec", s.timing_encdec)):
+                     ("timing_encdec", s.timing_encdec),
+                     ("dense_vs_jax", s.dense_vs_jax),
+                     ("serve_dense", s.serve_dense),
+                     ("serve_kimi", s.serve_kimi),
+                     ("timing_dense", s.timing_dense)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
         s.profile_steps()
@@ -4296,7 +4569,18 @@ def main() -> int:
         "encdec_shapes": {label: {**pick(t), "shape": t["shape"],
                                   "tflops": t["tflops"],
                                   "max_abs_err": t["max_abs_err"]}
-                          for label, t in s.fa_encdec_timing.items()}}, {
+                          for label, t in s.fa_encdec_timing.items()},
+        "serve_dense_launches": {
+            arch: {k: c[k] for k in ("flash_attention",
+                                     "flash_attention_sm90")}
+            for arch, c in s.serve_dense_launches.items()},
+        "serve_kimi_launches": s.serve_kimi_launches["flash_attention"],
+        "serve_kimi_sm90_launches":
+            s.serve_kimi_launches["flash_attention_sm90"],
+        "dense_shapes": {label: {**pick(t), "shape": t["shape"],
+                                 "tflops": t["tflops"],
+                                 "max_abs_err": t["max_abs_err"]}
+                         for label, t in s.fa_dense_timing.items()}}, {
         **KERNEL6, "launches": s.serve_launches["fused_selective_scan"],
         "max_abs_err": s.scan_main_err, **pick(s.scan_timing),
         "ms_at_train_shape": s.scan_timing["ms_at_train_shape"],
@@ -4324,7 +4608,11 @@ def main() -> int:
             tt["flash_attention_bwd"]["ms_at_library_shape"],
         "tflops": tt["flash_attention_bwd"]["tflops"],
         "sm90_launches":
-            s.train_launches["flash_attention_bwd_sm90"]}]}))
+            s.train_launches["flash_attention_bwd_sm90"],
+        "dense_shapes": {label: {**pick(t), "shape": t["shape"],
+                                 "tflops": t["tflops"],
+                                 "max_abs_err": t["max_abs_err"]}
+                         for label, t in s.fa_bwd_dense_timing.items()}}]}))
     print(s.smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@
 // q (B, Sq, H, D), k/v (B, Skv, KH, D), query head h reads KV head h / G
 // (G = H / KH), scale 1/sqrt(D), causal mask q_pos >= kv_pos, keys past
 // Skv masked, and with window > 0 keys at kv_pos <= q_pos - window masked.
-// q, k, v and o are float32, the head sizes {16, 64, 128} template
-// instances. This is kernel 7's float32 path; bfloat16 runs on the wgmma
-// kernel flash_attention_sm90.cu.
+// q, k, v and o are float32, the head sizes {16, 64, 96, 112, 128}
+// template instances. This is kernel 7's float32 path; bfloat16 runs on the
+// wgmma kernel flash_attention_sm90.cu.
 //
 // With an lse buffer (B, H, Sq) float32, the kernel also writes each row's
 // log-sum-exp of its scaled scores, m + log(l) (-inf for a row with no live
@@ -25,8 +25,9 @@
 // block_q query positions x the G query heads that read this KV head, so
 // each K/V tile staged in shared memory serves G heads (hymba: G = 5, 25
 // positions x 5 heads = 125 rows). A query row belongs to a group of
-// TPR = D/32 adjacent threads (one for D <= 32), each holding DPT = D/TPR
-// of its q and accumulator dimensions in registers; a score is the group's
+// TPR adjacent threads, the least power of two with TPR * 32 >= D (one for
+// D <= 32; four for D = 96, 112 and 128), each holding DPT = D/TPR of its
+// q and accumulator dimensions in registers; a score is the group's
 // partial dot products summed with xor shuffles. Thread p of a group holds
 // the float4 chunks p, p + TPR, ..., so the group's reads of one K or V row
 // fall in distinct banks, and every row of the block reads the same K/V
@@ -57,6 +58,15 @@ constexpr int kThreads = 256;
 constexpr int kBlockKV = 64;  // keys per shared-memory tile
 constexpr int kChunk = 16;    // keys per online-softmax update
 
+// threads a query row: the least power of two with 32 of them per thread
+// covering D, so a group's xor shuffles stay inside it
+template <int D>
+__host__ __device__ constexpr int threads_per_row() {
+  int t = 1;
+  while (32 * t < D) t *= 2;
+  return t;
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -72,9 +82,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                            float* __restrict__ lse, int Sq, int Skv, int H,
                            int KH, int block_q, int causal, int window,
                            float scale) {
-  constexpr int TPR = D >= 32 ? D / 32 : 1;  // threads per query row
+  constexpr int TPR = threads_per_row<D>();  // threads per query row
   constexpr int DPT = D / TPR;               // dimensions per thread
   constexpr int C4 = DPT / 4;                // float4 chunks per thread
+  static_assert(D % (4 * TPR) == 0, "a row's float4 chunks split evenly");
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [kBlockKV][D]
   float* vs = ks + kBlockKV * D;                // [kBlockKV][D]
@@ -195,9 +206,9 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t stream) {
-  // query positions per block: a row is D/32 threads (at least one), and
-  // the G heads of one position sit side by side
-  constexpr int TPR = D >= 32 ? D / 32 : 1;
+  // query positions per block: a row is threads_per_row threads, and the
+  // G heads of one position sit side by side
+  constexpr int TPR = threads_per_row<D>();
   const int block_q = (kThreads / TPR) / (H / KH);
   if (block_q < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * kBlockKV * D * sizeof(float);
@@ -221,9 +232,9 @@ extern "C" {
 // Launches o = attention(q, k, v) on `stream`, and writes the rows'
 // log-sum-exp to lse (B, H, Sq) float32 unless lse is null. Pointers are
 // device pointers to contiguous, 16-byte aligned buffers in the layouts
-// above, all float32; D is 16, 64 or 128; H a multiple of KH, with H / KH
-// rows of D / 32 threads (at least one) within 256 threads. Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for a D or a head
+// above, all float32; D is 16, 64, 96, 112 or 128; H a multiple of KH,
+// with H / KH rows of threads_per_row threads within 256 threads. Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for a D or a head
 // ratio it does not take).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int Sq, int Skv, int H,
@@ -237,6 +248,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
                         s);
+    case 96:
+      return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                        s);
+    case 112:
+      return launch<112>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                         s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
                          s);

@@ -19,19 +19,22 @@
 // Design: two passes, each a kernel, and no atomics, so a launch is
 // deterministic; the wrapper counts the pair as one launch.
 // * Pass 1, dK and dV: one block per (key tile, KV head, batch row). A key
-//   belongs to TPR = D/16 adjacent threads (one for D = 16) that hold 16 of
-//   its dimensions of k, v, dK and dV in registers (64 keys a block at D =
-//   64). The block walks the query positions that can see its keys --
-//   causally from its first key, and up to its last key + window - 1 --
-//   times all G heads of its KV head, staging 64 query rows at a time
+//   belongs to TPR = D/16 adjacent threads (one for D = 16; four for D =
+//   96 and 112, so that a power of two splits the row evenly) that hold
+//   D / TPR of its dimensions of k, v, dK and dV in registers (64 keys a
+//   block at D = 64). The block walks the query positions that can see its
+//   keys -- causally from its first key, and up to its last key + window -
+//   1 -- times all G heads of its KV head, staging 64 query rows at a time
 //   (q * scale, dO, lse, delta) in shared memory, where every thread reads
 //   the same row at once (a broadcast). Dot products are the group's
-//   partial sums added with xor shuffles.
+//   partial sums added with xor shuffles. Above kCompensateAbove heads a
+//   KV head, dK and dV carry Kahan's compensation through the long sum.
 // * Pass 2, dQ: one block per (query tile, KV head, batch row), as the
-//   forward: block_q positions x G heads of rows, each row TPR threads
-//   holding 16 dimensions of q * scale, dO and dQ; it walks the key tiles of
-//   64 its rows can see (staged as float32 in shared memory), recomputes P
-//   and dS and accumulates dS . K.
+//   forward: block_q positions x G heads of rows (a block takes a chunk of
+//   the heads where its rows cannot hold all G), each row TPR threads
+//   holding D / TPR dimensions of q * scale, dO and dQ; it walks the key
+//   tiles of 64 its rows can see (staged as float32 in shared memory),
+//   recomputes P and dS and accumulates dS . K.
 // Ragged last tiles are masked, not padded.
 //
 // Bound on the H100 SXM: operations. Per live (query, key) pair the
@@ -54,7 +57,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsQ = 64;    // query rows staged at a time (pass 1)
 constexpr int kBlockKV = 64;  // keys staged at a time (pass 2)
-constexpr int kDPT = 16;      // dimensions per thread
+constexpr int kCompensateAbove = 8;  // heads a KV head (pass 1)
+
+// threads a row (a key in pass 1): the largest power of two at most D / 16
+// that splits the row's D / 4 float4 chunks evenly, so a group's xor
+// shuffles stay inside it (16 dimensions a thread, but 24 and 28 for D =
+// 96 and 112)
+template <int D>
+__host__ __device__ constexpr int threads_per_row() {
+  int t = 1;
+  while (32 * t <= D && (D / 4) % (2 * t) == 0) t *= 2;
+  return t;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -77,8 +91,21 @@ __device__ __forceinline__ bool live_pair(int q_pos, int kv_pos, int Skv,
          (window <= 0 || kv_pos > q_pos - window);
 }
 
+// sum += x with Kahan's compensation c, which carries each add's rounding
+// error into the next
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
+  const float y = x - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
+
 // ------------------------------------------------------------ pass 1
-template <int D>
+// kCompensate: dK and dV summed with Kahan's compensation, for G above
+// kCompensateAbove heads a KV head, where a key's sum runs over G x Sq
+// rows (granite-20b: 61,440 at S = 1,280) and a plain float32 chain drifts
+// 1.2e-5 of the largest gradient from the plain version's sums
+template <int D, bool kCompensate>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkdv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -89,9 +116,10 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dk, float* __restrict__ dv,
                          int Sq, int Skv, int H, int KH, int causal,
                          int window, float scale) {
-  constexpr int TPR = D / kDPT >= 1 ? D / kDPT : 1;  // threads per key
-  constexpr int C4 = kDPT / 4;                      // float4 chunks a thread
-  constexpr int BK = kThreads / TPR;                // keys per block
+  constexpr int TPR = threads_per_row<D>();  // threads per key
+  constexpr int DPT = D / TPR;               // dimensions a thread
+  constexpr int C4 = DPT / 4;                // float4 chunks a thread
+  constexpr int BK = kThreads / TPR;         // keys per block
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kRowsQ][D], q * scale
   float* dos = qs + kRowsQ * D;                 // [kRowsQ][D]
@@ -108,7 +136,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long kv_off =
       ((static_cast<long long>(b) * Skv + kv_pos) * KH + kvh) * D;
 
-  float kr[kDPT], vr[kDPT], dkr[kDPT], dvr[kDPT];
+  float kr[DPT], vr[DPT], dkr[DPT], dvr[DPT];
+  float dkc[kCompensate ? DPT : 1], dvc[kCompensate ? DPT : 1];
 #pragma unroll
   for (int c = 0; c < C4; ++c) {
     float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
@@ -122,7 +151,9 @@ __global__ void __launch_bounds__(kThreads)
     vr[4 * c + 3] = vx.w;
   }
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) dkr[i] = dvr[i] = 0.f;
+  for (int i = 0; i < DPT; ++i) dkr[i] = dvr[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kCompensate ? DPT : 1); ++i) dkc[i] = dvc[i] = 0.f;
 
   // the query positions that can see a key of this tile
   const int k_end = min(k0 + BK, Skv);
@@ -191,10 +222,20 @@ __global__ void __launch_bounds__(kThreads)
             qrow + (part + c * TPR) * 4);
         const float4 d4 = *reinterpret_cast<const float4*>(
             drow + (part + c * TPR) * 4);
-        dvr[4 * c] += p * d4.x, dvr[4 * c + 1] += p * d4.y,
-            dvr[4 * c + 2] += p * d4.z, dvr[4 * c + 3] += p * d4.w;
-        dkr[4 * c] += ds * q4.x, dkr[4 * c + 1] += ds * q4.y,
-            dkr[4 * c + 2] += ds * q4.z, dkr[4 * c + 3] += ds * q4.w;
+        if constexpr (kCompensate) {
+          const float dx[4] = {d4.x, d4.y, d4.z, d4.w};
+          const float qx[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            kahan_add(dvr[4 * c + e], dvc[4 * c + e], p * dx[e]);
+            kahan_add(dkr[4 * c + e], dkc[4 * c + e], ds * qx[e]);
+          }
+        } else {
+          dvr[4 * c] += p * d4.x, dvr[4 * c + 1] += p * d4.y,
+              dvr[4 * c + 2] += p * d4.z, dvr[4 * c + 3] += p * d4.w;
+          dkr[4 * c] += ds * q4.x, dkr[4 * c + 1] += ds * q4.y,
+              dkr[4 * c + 2] += ds * q4.z, dkr[4 * c + 3] += ds * q4.w;
+        }
       }
     }
   }
@@ -220,26 +261,32 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, float* __restrict__ dq,
-                       int Sq, int Skv, int H, int KH, int block_q,
+                       int Sq, int Skv, int H, int KH, int Gc, int block_q,
                        int causal, int window, float scale) {
-  constexpr int TPR = D / kDPT >= 1 ? D / kDPT : 1;  // threads per row
-  constexpr int C4 = kDPT / 4;
+  constexpr int TPR = threads_per_row<D>();  // threads per row
+  constexpr int DPT = D / TPR;
+  constexpr int C4 = DPT / 4;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [kBlockKV][D]
   float* vs = ks + kBlockKV * D;                // [kBlockKV][D]
 
+  // the block's rows: block_q positions x Gc of the G heads (all of them
+  // where a block's rows hold them; else blockIdx.y picks the chunk)
   const int G = H / KH;
-  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int n_chunks = (G + Gc - 1) / Gc;
+  const int b = blockIdx.z, kvh = blockIdx.y / n_chunks;
+  const int g0 = (blockIdx.y % n_chunks) * Gc;
   const int q0 = blockIdx.x * block_q;
   const int tid = threadIdx.x;
   const int row = tid / TPR, part = tid % TPR;
-  const int q_pos = q0 + row / G;
-  const int head = kvh * G + row % G;
-  const bool active = row < block_q * G && q_pos < Sq;
+  const int q_pos = q0 + row / Gc;
+  const int g = g0 + row % Gc;
+  const int head = kvh * G + g;
+  const bool active = row < block_q * Gc && q_pos < Sq && g < G;
   const long long q_off =
       ((static_cast<long long>(b) * Sq + q_pos) * H + head) * D;
 
-  float qr[kDPT], dor[kDPT], dqr[kDPT];
+  float qr[DPT], dor[DPT], dqr[DPT];
 #pragma unroll
   for (int c = 0; c < C4; ++c) {
     float4 qx = make_float4(0.f, 0.f, 0.f, 0.f), dx = qx;
@@ -253,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
     dor[4 * c + 3] = dx.w;
   }
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) dqr[i] = 0.f;
+  for (int i = 0; i < DPT; ++i) dqr[i] = 0.f;
   float l = -INFINITY, dl = 0.f;
   if (active) {
     const long long off = (static_cast<long long>(b) * H + head) * Sq + q_pos;
@@ -327,15 +374,21 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
            int B, int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t stream) {
-  constexpr int TPR = D / kDPT >= 1 ? D / kDPT : 1;
+  constexpr int TPR = threads_per_row<D>();
+  // pass 2's rows: the G heads of a position side by side, cut into
+  // chunks of as many as a block's rows hold (granite-20b: G = 48 over 32
+  // rows at D = 128)
   const int G = H / KH;
-  const int block_q = (kThreads / TPR) / G;
-  if (block_q < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = kThreads / TPR;
+  const int Gc = G < rows ? G : rows;
+  const int block_q = rows / Gc;
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   const size_t smem1 = (2 * kRowsQ * D + 2 * kRowsQ) * sizeof(float);
   const size_t smem2 = 2 * kBlockKV * D * sizeof(float);
+  auto* dkdv = G > kCompensateAbove ? attn_bwd_dkdv_kernel<D, true>
+                                     : attn_bwd_dkdv_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
@@ -350,15 +403,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* delta_ = static_cast<const float*>(delta);
   const int BK = kThreads / TPR;
   const dim3 grid1((Skv + BK - 1) / BK, KH, B);
-  attn_bwd_dkdv_kernel<D><<<grid1, kThreads, smem1, stream>>>(
+  dkdv<<<grid1, kThreads, smem1, stream>>>(
       q_, k_, v_, do_, lse_, delta_, static_cast<float*>(dk),
       static_cast<float*>(dv), Sq, Skv, H, KH, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid2((Sq + block_q - 1) / block_q, KH, B);
+  const dim3 grid2((Sq + block_q - 1) / block_q, KH * ((G + Gc - 1) / Gc),
+                   B);
   attn_bwd_dq_kernel<D><<<grid2, kThreads, smem2, stream>>>(
       q_, k_, v_, do_, lse_, delta_, static_cast<float*>(dq), Sq, Skv, H, KH,
-      block_q, causal, window, scale);
+      Gc, block_q, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,11 +422,9 @@ extern "C" {
 
 // Launches both passes on `stream`: dq (B, Sq, H, D), dk and dv (B, Skv,
 // KH, D) from q, k, v, dout in the same layouts (all float32, contiguous,
-// 16-byte aligned) and lse, delta (B, H, Sq) float32. D is 16, 64 or
-// 128; H a multiple of KH with H / KH rows of D / 16 threads (at least
-// one) within 256 threads. Returns the
-// cudaError_t of the launches (cudaErrorInvalidValue for a D or a head
-// ratio it does not take).
+// 16-byte aligned) and lse, delta (B, H, Sq) float32. D is 16, 64, 96,
+// 112 or 128; H a multiple of KH. Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for a D it does not take).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, void* dk,
@@ -387,6 +439,12 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
                         KH, causal, window, s);
+    case 96:
+      return launch<96>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H,
+                        KH, causal, window, s);
+    case 112:
+      return launch<112>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                         H, KH, causal, window, s);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
                          H, KH, causal, window, s);

@@ -19,8 +19,8 @@
 // products as bf16 hi + lo pairs (hi = bf16(x), lo = bf16(x - hi)), two
 // wgmmas each, which keeps the bf16 limit that a single rounding breaks.
 //
-// Design: three kernels and no atomics, so a launch is deterministic; the
-// wrapper counts the three as one launch.
+// Design: three kernels (four for G > kHeadsABlock) and no atomics, so a
+// launch is deterministic; the wrapper counts them as one launch.
 // * Pass 0: delta from o and dO, one pass over both.
 // * Pass 1, dK and dV: one block per (128 keys, KV head, batch row), the
 //   first key blocks of every head launched first (under a causal mask
@@ -35,7 +35,9 @@
 //   memory), P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) in
 //   registers, then dV += P^T . dO and dK += dS^T . Q, each as hi + lo
 //   (m64nDk16, A from registers, B read MN-major). dK is scaled once at
-//   the end.
+//   the end. Above kHeadsABlock heads a KV head (granite-20b's MQA), the
+//   heads are split over blocks and a fourth kernel adds their float32
+//   sums in a fixed order.
 // * Pass 2, dQ: one block per (3 x P query positions, KV head, batch
 //   row), rows grouped as in the forward (P = 64 / G positions x G heads a
 //   warpgroup; two warpgroups for D = 128), Q and dO resident, K and V
@@ -66,9 +68,18 @@ using namespace sm90;
 
 constexpr int kStages = 3;  // ring stages
 constexpr int kNC1 = 2;     // pass 1's consumer warpgroups (240 registers)
+// pass 1's heads a block: dK and dV sum over the G heads' query rows in
+// the tensor cores' float32 accumulators, whose adds round toward zero,
+// so the error grows with the rows summed. Above this many heads
+// (granite-20b: G = 48, 61,440 rows a key at S = 1,280, 4e-3 relative)
+// the heads are cut into chunks of at most this many, each a block, and
+// their float32 sums added in chunk order by attn_bwd_dkdv_reduce. The
+// wrapper sizes the chunks' workspace with the same number
+// (kernels/flash_attention.py BWD_HEADS_A_BLOCK).
+constexpr int kHeadsABlock = 8;
 
 // pass 2's consumer warpgroups: three (160 registers each) where the
-// accumulators fit, two (240) for D = 128
+// accumulators fit (D = 96 and 112 too), two (240) for D = 128
 template <int D>
 constexpr int consumers2() {
   return D == 128 ? 2 : 3;
@@ -76,20 +87,29 @@ constexpr int consumers2() {
 
 // ------------------------------------------------------------ pass 0
 // delta = rowsum(dO * O) in float32, (B, H, Sq), from o and dO (B, Sq, H,
-// D) in bf16: D / 8 threads a row, 16 bytes of each a thread, summed over
-// the row's threads with xor shuffles
+// D) in bf16: a row's D / 8 pieces of 16 bytes, one a thread, over a
+// power-of-two group of threads (D / 8 but for D = 96 and 112, whose 12
+// and 14 pieces take 16 threads, the last idle), summed over the group
+// with xor shuffles
+template <int D>
+__host__ __device__ constexpr int delta_threads() {
+  int t = 1;
+  while (t < D / 8) t *= 2;
+  return t;
+}
+
 template <int D>
 __global__ void __launch_bounds__(256)
     attn_bwd_delta_sm90(const __nv_bfloat16* __restrict__ o,
                         const __nv_bfloat16* __restrict__ dout,
                         float* __restrict__ delta, int Sq, int H,
                         long long rows) {
-  constexpr int TPR = D / 8;
+  constexpr int TPR = delta_threads<D>();
   const long long row =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / TPR;
   const int part = threadIdx.x % TPR;
   float sum = 0.f;
-  if (row < rows) {
+  if (row < rows && part < D / 8) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
     const uint4 c =
         *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
@@ -136,8 +156,10 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                       int H, int KH, int causal, int window, float scale) {
+                       __nv_bfloat16* __restrict__ dv,
+                       float* __restrict__ part, int Sq, int Skv, int H,
+                       int KH, int Gs, int causal, int window,
+                       float scale) {
   using C = Chunk<D>;
   using L = Smem1<D>;
   constexpr int NC = kNC1;
@@ -159,7 +181,10 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
   const int q_hi = window > 0 ? min(Sq, k_end - 1 + window) : Sq;
   const int n_pos =
       q_hi > q_lo ? (q_hi - q_lo + kTileRows - 1) / kTileRows : 0;
-  const int n_tiles = G * n_pos;  // head-major
+  // blockIdx.z picks the block's Gs heads of the G (all of them but for
+  // G > kHeadsABlock)
+  const int g_lo = blockIdx.z * Gs;
+  const int n_tiles = min(Gs, G - g_lo) * n_pos;  // head-major
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -190,7 +215,7 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
       // past Sq get lse = +inf, which makes their P 0
       float l_next[2], d_next[2];
       auto fetch = [&](int t) {
-        const int head = kvh * G + t / n_pos;
+        const int head = kvh * G + g_lo + t / n_pos;
         const int p0 = q_lo + (t % n_pos) * kTileRows;
         const long long row0 = (static_cast<long long>(b) * H + head) * Sq;
 #pragma unroll
@@ -203,7 +228,7 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
       if (n_tiles > 0) fetch(0);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
-        const int head = kvh * G + t / n_pos;
+        const int head = kvh * G + g_lo + t / n_pos;
         const int p0 = q_lo + (t % n_pos) * kTileRows;
         uint8_t* stage = smem + L::kRing + s * L::kStage;
         float* lse_s = reinterpret_cast<float*>(stage + 2 * L::kTile);
@@ -319,6 +344,11 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
+    // one block of the heads: dK (scaled) and dV in bf16; one of several:
+    // its float32 sums into its chunk's slice of `part`, which
+    // attn_bwd_dkdv_reduce adds up
+    const long long n = static_cast<long long>(gridDim.x) * Skv * D;
+    float* part_k = part == nullptr ? nullptr : part + 2 * blockIdx.z * n;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (key[h] >= Skv) continue;
@@ -328,12 +358,40 @@ __global__ void __launch_bounds__(Roles<kNC1>::kThreads, 1)
       for (int j = 0; j < D / 8; ++j) {
         const int col = acc_col(4 * j, lane);
         const int i = 4 * j + 2 * h;
-        *reinterpret_cast<uint32_t*>(dk + off + col) =
-            pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + off + col) =
-            pack_bf16(dv_acc[i], dv_acc[i + 1]);
+        if (part == nullptr) {
+          *reinterpret_cast<uint32_t*>(dk + off + col) =
+              pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + off + col) =
+              pack_bf16(dv_acc[i], dv_acc[i + 1]);
+        } else {
+          *reinterpret_cast<float2*>(part_k + off + col) =
+              make_float2(dk_acc[i], dk_acc[i + 1]);
+          *reinterpret_cast<float2*>(part_k + n + off + col) =
+              make_float2(dv_acc[i], dv_acc[i + 1]);
+        }
       }
     }
+  }
+}
+
+// dK and dV (B, Skv, KH, D) in bf16 from the n_split head chunks' float32
+// partial sums in `part` ([chunk][dK, dV][B, Skv, KH, D]), added in chunk
+// order in float32; dK scaled once at the end
+__global__ void __launch_bounds__(256)
+    attn_bwd_dkdv_reduce(const float* __restrict__ part,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, long long n,
+                         int n_split, float scale) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float a = 0.f, c = 0.f;
+    for (int z = 0; z < n_split; ++z) {
+      a += part[2 * z * n + i];
+      c += part[(2 * z + 1) * n + i];
+    }
+    dk[i] = __float2bfloat16_rn(a * scale);
+    dv[i] = __float2bfloat16_rn(c);
   }
 }
 
@@ -515,10 +573,15 @@ __global__ void __launch_bounds__(Roles<NC>::kThreads, 1)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq,
-           void* dk, void* dv, int B, int Sq, int Skv, int H, int KH,
-           int causal, int window, cudaStream_t stream) {
+           void* dk, void* dv, void* part, int B, int Sq, int Skv, int H,
+           int KH, int causal, int window, cudaStream_t stream) {
   constexpr int NC2 = consumers2<D>();
   const int G = H / KH;
+  // pass 1's head chunks: Gs heads a block, n_split blocks a key block
+  const int n_split = (G + kHeadsABlock - 1) / kHeadsABlock;
+  const int Gs = (G + n_split - 1) / n_split;
+  if (n_split > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int Gc = G < kTileRows ? G : kTileRows;
   const int P = kTileRows / Gc;
   const float scale = 1.f / sqrtf(static_cast<float>(D));
@@ -547,7 +610,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                              Smem2<D, NC2>::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long rows_per_block = 256 / (D / 8);
+  const long long rows_per_block = 256 / delta_threads<D>();
   attn_bwd_delta_sm90<D>
       <<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
          256, 0, stream>>>(static_cast<const __nv_bfloat16*>(o),
@@ -558,14 +621,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float* lse_ = static_cast<const float*>(lse);
   const float* delta_ = static_cast<const float*>(delta);
   const int keys = kNC1 * kTileRows;
-  const dim3 grid1(B * KH, (Skv + keys - 1) / keys);
+  const dim3 grid1(B * KH, (Skv + keys - 1) / keys, n_split);
+  float* part_ = n_split > 1 ? static_cast<float*>(part) : nullptr;
   attn_bwd_dkdv_sm90<D>
       <<<grid1, Roles<kNC1>::kThreads, Smem1<D>::kBytes, stream>>>(
           tm_q1, tm_do1, tm_k, tm_v, lse_, delta_,
           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          Sq, Skv, H, KH, causal, window, scale);
+          part_, Sq, Skv, H, KH, Gs, causal, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_split > 1) {
+    const long long n = static_cast<long long>(B) * Skv * KH * D;
+    const long long blocks = (n + 255) / 256;
+    attn_bwd_dkdv_reduce<<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                               : 4096),
+                           256, 0, stream>>>(
+        part_, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), n, n_split, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid2((Sq + NC2 * P - 1) / (NC2 * P), KH * ((G + Gc - 1) / Gc),
                    B);
   attn_bwd_dq_sm90<D, NC2>
@@ -580,31 +655,39 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// Launches the three kernels on `stream`: delta = rowsum(dO * O) into
-// delta (B, H, Sq) float32, then dk and dv (B, Skv, KH, D), then dq (B,
-// Sq, H, D), all bfloat16, from bfloat16 q, k, v, o and dout in the same
-// layouts (contiguous, 16-byte aligned) and the forward's lse (B, H, Sq)
-// float32. D is 16, 64 or 128; H a multiple of KH. Returns a cudaError_t
-// (cudaErrorInvalidValue for a D it does not take or a tensor map
-// cuTensorMapEncodeTiled refuses).
+// Launches the kernels on `stream`: delta = rowsum(dO * O) into delta
+// (B, H, Sq) float32, then dk and dv (B, Skv, KH, D), then dq (B, Sq, H,
+// D), all bfloat16, from bfloat16 q, k, v, o and dout in the same layouts
+// (contiguous, 16-byte aligned) and the forward's lse (B, H, Sq) float32.
+// For G = H / KH > kHeadsABlock, part is a float32 workspace of 2 x
+// ceil(G / kHeadsABlock) x B x Skv x KH x D (else unused, may be null).
+// D is 16, 64, 96, 112 or 128; H a multiple of KH. Returns a cudaError_t
+// (cudaErrorInvalidValue for a D it does not take, a missing workspace or
+// a tensor map cuTensorMapEncodeTiled refuses).
 int flash_attention_bwd_sm90_launch(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
                                     void* delta, void* dq, void* dk,
-                                    void* dv, int B, int Sq, int Skv, int H,
-                                    int KH, int D, int causal, int window,
-                                    void* stream) {
+                                    void* dv, void* part, int B, int Sq,
+                                    int Skv, int H, int KH, int D,
+                                    int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                        H, KH, causal, window, s);
+      return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                        Sq, Skv, H, KH, causal, window, s);
     case 64:
-      return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
-                        H, KH, causal, window, s);
+      return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                        Sq, Skv, H, KH, causal, window, s);
+    case 96:
+      return launch<96>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                        Sq, Skv, H, KH, causal, window, s);
+    case 112:
+      return launch<112>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                         Sq, Skv, H, KH, causal, window, s);
     case 128:
-      return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq,
-                         Skv, H, KH, causal, window, s);
+      return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                         Sq, Skv, H, KH, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

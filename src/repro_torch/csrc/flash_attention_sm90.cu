@@ -9,7 +9,9 @@
 // src/repro_torch/kernels/ref.py::flash_attention: q (B, Sq, H, D), k/v
 // (B, Skv, KH, D), query head h reads KV head h / G (G = H / KH), scale
 // 1/sqrt(D), causal mask q_pos >= kv_pos, keys past Skv masked, and with
-// window > 0 keys at kv_pos <= q_pos - window masked; D is 16, 64 or 128.
+// window > 0 keys at kv_pos <= q_pos - window masked; D is 16, 64, 96,
+// 112 or 128 (phi3-mini's 96 and kimi-k2's 112 in 16-value chunks,
+// sm90.cuh).
 // With an lse buffer (B, H, Sq) float32 it also writes each row's
 // log-sum-exp of its scaled scores (-inf for a row with no live key),
 // from which the backward (flash_attention_bwd_sm90.cu) recomputes P.
@@ -67,7 +69,8 @@ using namespace sm90;
 constexpr int kStages = 3;  // K/V ring
 
 // consumer warpgroups a block: three (160 registers each) where the
-// accumulators fit, two (240) for D = 128
+// accumulators fit (D = 96 and 112 too: 48 and 56 a thread), two (240)
+// for D = 128
 template <int D>
 constexpr int consumers() {
   return D == 128 ? 2 : 3;
@@ -315,9 +318,9 @@ extern "C" {
 // Launches o = attention(q, k, v) on `stream` for bfloat16 q, k, v, o,
 // and writes the rows' log-sum-exp to lse (B, H, Sq) float32 unless lse
 // is null. Pointers are device pointers to contiguous, 16-byte aligned
-// buffers in the layouts above; D is 16, 64 or 128 and H a multiple of
-// KH. Returns a cudaError_t (cudaErrorInvalidValue for a D it does not
-// take or a tensor map cuTensorMapEncodeTiled refuses).
+// buffers in the layouts above; D is 16, 64, 96, 112 or 128 and H a
+// multiple of KH. Returns a cudaError_t (cudaErrorInvalidValue for a D it
+// does not take or a tensor map cuTensorMapEncodeTiled refuses).
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int Sq, int Skv,
                                 int H, int KH, int D, int causal, int window,
@@ -330,6 +333,12 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
                         s);
+    case 96:
+      return launch<96>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                        s);
+    case 112:
+      return launch<112>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
+                         s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal, window,
                          s);

@@ -6,10 +6,12 @@
 //
 // Tiles. A tile is 64 rows of one bf16 chunk of the head dimension: 64
 // values (128 bytes, 128-byte swizzle) for D = 64 and 128, which take one
-// and two chunks; 16 values (32 bytes, 32-byte swizzle) for D = 16. TMA
+// and two chunks; 16 values (32 bytes, 32-byte swizzle) for D = 16, 96 and
+// 112, which take one, six and seven (64 divides neither 96 nor 112). TMA
 // writes each chunk swizzled, and the wgmma descriptors read it with the
 // matching layout: K-major where the head dimension is the product's
-// depth (q . k, dO . v), MN-major where the rows are (P . V, dS . K).
+// depth (q . k, dO . v), MN-major where the rows are (P . V, dS . K); an
+// MN-major operand N = D wide spans the chunks at the leading byte offset.
 #pragma once
 
 #include <cuda.h>
@@ -62,15 +64,17 @@ __device__ __forceinline__ void regs_down() {
 
 template <int D>
 struct Chunk {
-  static constexpr int kCols = D >= 64 ? 64 : D;     // bf16 values a row
+  static_assert(D % 16 == 0, "the head size is a multiple of 16");
+  static constexpr bool kWide = D % 64 == 0;         // 64-value chunks
+  static constexpr int kCols = kWide ? 64 : 16;      // bf16 values a row
   static constexpr int kCount = D / kCols;           // chunks of a head
   static constexpr int kRowBytes = kCols * 2;        // 128 or 32
   static constexpr int kBytes = kTileRows * kRowBytes;  // one chunk tile
   static constexpr int kTileBytes = kCount * kBytes;    // a D-wide tile
   // wgmma layout type: 1 = 128-byte swizzle, 3 = 32-byte swizzle
-  static constexpr uint64_t kLayout = D >= 64 ? 1 : 3;
+  static constexpr uint64_t kLayout = kWide ? 1 : 3;
   static constexpr CUtensorMapSwizzle kSwizzle =
-      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+      kWide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -292,6 +296,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A . B, A from registers (four bf16x2 a thread), B read from
+// shared memory MN-major (m64n96k16, B transposed)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, A from registers (four bf16x2 a thread), B read from
+// shared memory MN-major (m64n112k16, B transposed)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // acc += A . B over a D-wide B (N = D), A from registers
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2],
@@ -299,6 +366,8 @@ __device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2],
                                          uint64_t db) {
   if constexpr (D == 16) wgmma_rs_n16(acc, a, db);
   if constexpr (D == 64) wgmma_rs_n64(acc, a, db);
+  if constexpr (D == 96) wgmma_rs_n96(acc, a, db);
+  if constexpr (D == 112) wgmma_rs_n112(acc, a, db);
   if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
 }
 

@@ -39,7 +39,11 @@ SM90_BWD_SOURCE = _build.CSRC / "flash_attention_bwd_sm90.cu"
 # fused multiply-adds on: the dot products gain accuracy from them
 FLAGS = tuple(f for f in _build.NVCC_FLAGS if f != "--fmad=false")
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 64, 128)  # the kernels' template instances
+HEAD_DIMS = (16, 64, 96, 112, 128)  # the kernels' template instances
+# the bfloat16 backward's heads a dK/dV block (csrc/flash_attention_bwd_sm90.cu
+# kHeadsABlock): above it the heads of a KV head are split over blocks,
+# whose float32 sums land in a workspace the wrapper allocates
+BWD_HEADS_A_BLOCK = 8
 
 launches = 0
 bwd_launches = 0
@@ -77,7 +81,7 @@ def _load_sm90():
 
 
 def _load_sm90_bwd():
-    return _load_source(SM90_BWD_SOURCE, 10)
+    return _load_source(SM90_BWD_SOURCE, 11)
 
 
 def _launch(source, n_ptr, *args):
@@ -157,7 +161,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row log-sum-exp ``lse`` (B, H, Sq) float32 and the output gradient
     ``do`` (all CUDA, contiguous, q's type but lse). delta = rowsum(dO * O)
     in float32 is formed by a first kernel in bfloat16 and here in
-    float32; the kernels' two passes run on it."""
+    float32; the kernels' two passes run on it. In bfloat16 with more than
+    BWD_HEADS_A_BLOCK query heads a KV head, dK and dV are summed by head
+    chunks into a float32 workspace allocated here."""
     global bwd_launches, sm90_bwd_launches
     B, Sq, Skv, H, KH, D = _check_qkv(q, k, v, window,
                                       (("o", o), ("do", do)))
@@ -176,10 +182,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if q.dtype == torch.bfloat16:  # the kernel forms delta itself
                 delta = torch.empty((B, H, Sq), dtype=torch.float32,
                                     device=q.device)
-                _launch(SM90_BWD_SOURCE, 10, q.data_ptr(), k.data_ptr(),
+                n_split = -(-(H // KH) // BWD_HEADS_A_BLOCK)
+                part = torch.empty((2 * n_split, B, Skv, KH, D),
+                                   dtype=torch.float32, device=q.device) \
+                    if n_split > 1 else None
+                _launch(SM90_BWD_SOURCE, 11, q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), o.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                        dk.data_ptr(), dv.data_ptr(), *dims)
+                        dk.data_ptr(), dv.data_ptr(),
+                        part.data_ptr() if part is not None else None,
+                        *dims)
                 sm90_bwd_launches += 1
             else:
                 delta = (do.float() * o.float()).sum(-1).transpose(

@@ -23,13 +23,13 @@ def fused_accumulate(acc: torch.Tensor, x: torch.Tensor,
     return (acc.float() + scale * x.float()).to(acc.dtype)
 
 
-def _attn_scores(q, k, causal: bool, window: int):
-    """Scaled float32 scores (B, KH, G, Sq, Skv) with masked pairs at
+def _attn_scores(q, k, causal: bool, window: int, dtype=torch.float32):
+    """Scaled scores (B, KH, G, Sq, Skv) in ``dtype`` with masked pairs at
     -inf, and the live mask (Sq, Skv)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    qr = q.reshape(B, Sq, KH, H // KH, D).float()
-    s = torch.einsum("bqkgd,bckd->bkgqc", qr, k.float()) / math.sqrt(D)
+    qr = q.reshape(B, Sq, KH, H // KH, D).to(dtype)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qr, k.to(dtype)) / math.sqrt(D)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
@@ -71,7 +71,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: int = 0):
+                        *, causal: bool = True, window: int = 0,
+                        dtype=torch.float32):
     """(dq, dk, dv) of :func:`flash_attention`, each in its input's type,
     from the forward's output ``o`` and row log-sum-exp ``lse`` (B, H, Sq)
     and the output gradient ``do``; the specification of the backward
@@ -79,23 +80,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     matrices written out: P = exp(s - lse) on the live pairs (0 elsewhere,
     and for a row with no live key), delta = rowsum(dO * O),
     dS = P * (dO . V - delta); dV = P^T dO, dK = dS^T q / sqrt(D),
-    dQ = dS K / sqrt(D), summed over the G query heads of a KV head."""
+    dQ = dS K / sqrt(D), summed over the G query heads of a KV head.
+    ``dtype`` float64 evaluates the same function with float64 products
+    and sums (to hold a kernel where float32's own rounding over long sums
+    reaches a check's limit)."""
     B, Sq, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
-    s, mask = _attn_scores(q, k, causal, window)
-    lse5 = lse.reshape(B, KH, G, Sq, 1).float()
+    s, mask = _attn_scores(q, k, causal, window, dtype)
+    lse5 = lse.reshape(B, KH, G, Sq, 1).to(dtype)
     live = mask & torch.isfinite(lse5)
     p = torch.where(live, torch.exp(s - torch.where(live, lse5, 0.0)), 0.0)
-    do5 = do.reshape(B, Sq, KH, G, D).float()
-    delta = (do5 * o.reshape(B, Sq, KH, G, D).float()).sum(-1)  # b q k g
-    dp = torch.einsum("bqkgd,bckd->bkgqc", do5, v.float())
+    do5 = do.reshape(B, Sq, KH, G, D).to(dtype)
+    delta = (do5 * o.reshape(B, Sq, KH, G, D).to(dtype)).sum(-1)  # b q k g
+    dp = torch.einsum("bqkgd,bckd->bkgqc", do5, v.to(dtype))
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     scale = 1.0 / math.sqrt(D)
     dv = torch.einsum("bkgqc,bqkgd->bckd", p, do5)
     dk = torch.einsum("bkgqc,bqkgd->bckd", ds,
-                      q.reshape(B, Sq, KH, G, D).float()) * scale
-    dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.float()) * scale
+                      q.reshape(B, Sq, KH, G, D).to(dtype)) * scale
+    dq = torch.einsum("bkgqc,bckd->bqkgd", ds, k.to(dtype)) * scale
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

@@ -45,9 +45,13 @@ FA_F32_ATOL = 1e-5
 FA_BF16_RTOL = 2.0 ** -7
 FA_BWD_F32_REL = 1e-5
 
-# (B, Sq, Skv, H, KH, D): G = H / KH in {1, 2, 5}, ragged lengths
+# (B, Sq, Skv, H, KH, D): G = H / KH in {1, 2, 5}, ragged lengths; then
+# the configs' other head sizes, phi3-mini's D = 96 (G = 1) and kimi-k2's
+# D = 112 (G = 8), and granite-20b's G = 48 (MQA)
 SHAPES = [(2, 40, 40, 4, 4, 16), (1, 37, 37, 4, 2, 128),
-          (2, 64, 64, 10, 2, 64), (1, 70, 70, 5, 1, 16)]
+          (2, 64, 64, 10, 2, 64), (1, 70, 70, 5, 1, 16),
+          (1, 45, 45, 3, 3, 96), (1, 37, 37, 8, 1, 112),
+          (1, 29, 29, 48, 1, 16)]
 
 
 def _qkv(shape, seed=0, dtype=np.float32):
@@ -159,11 +163,14 @@ def test_kernel_matches_plain_on_card():
 
 # ------------------------------------------------------------- backward
 # (shape, causal, window): G = 1, 2 and 5, ragged lengths, and rows with no
-# live key (Sq > Skv under a window, causal or not)
+# live key (Sq > Skv under a window, causal or not); then D = 96 (G = 1,
+# non-causal), D = 112 (G = 8, a window) and G = 48
 BWD_CASES = [(SHAPES[0], True, 0), (SHAPES[1], True, 8),
              (SHAPES[2], True, 24), (SHAPES[3], False, 0),
              ((1, 40, 24, 4, 2, 16), True, 8),
-             ((1, 50, 30, 10, 2, 16), False, 10)]
+             ((1, 50, 30, 10, 2, 16), False, 10),
+             (SHAPES[4], False, 0), (SHAPES[5], True, 24),
+             (SHAPES[6], True, 0)]
 
 
 def _rel(got, want):
@@ -202,6 +209,23 @@ def test_plain_backward_matches_autograd_and_jax(case):
     tops.flash_attention(*fn, causal=causal, window=window).backward(tdo)
     for g, leaf in zip(got, fn):
         assert torch.equal(g, leaf.grad)
+
+
+def test_plain_backward_in_float64_is_the_same_function():
+    """``dtype=torch.float64`` evaluates the backward's specification with
+    float64 products and sums: within the float32 tolerance of the default,
+    each gradient in its input's type."""
+    shape, causal, window = BWD_CASES[5]
+    q, k, v, do = (torch.as_tensor(a) for a in _bwd_inputs(shape, seed=7))
+    o, lse = tref.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    got = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window, dtype=torch.float64)
+    want = tref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32
+        assert _rel(g.numpy(), w.numpy()) <= GRAD_REL
 
 
 def test_plain_lse_is_the_masked_logsumexp():
@@ -359,7 +383,7 @@ def test_sm90_sources_export_what_the_wrapper_loads():
     and passes pointers, eight ints and the stream; the kernels take no
     PyTorch header (a plain C interface, built in seconds)."""
     for src, n_ptr in ((tfa.SOURCE, 5), (tfa.BWD_SOURCE, 9),
-                       (tfa.SM90_SOURCE, 5), (tfa.SM90_BWD_SOURCE, 10)):
+                       (tfa.SM90_SOURCE, 5), (tfa.SM90_BWD_SOURCE, 11)):
         text = src.read_text()
         head = text[text.index(f"int {src.stem}_launch("):]
         head = head[head.index("(") + 1:head.index(")")]
@@ -369,6 +393,15 @@ def test_sm90_sources_export_what_the_wrapper_loads():
         assert "#include <torch" not in text
     for src in (tfa.SM90_SOURCE, tfa.SM90_BWD_SOURCE):
         assert '#include "sm90.cuh"' in src.read_text()
+
+
+def test_bwd_head_chunks_match_the_source():
+    """The wrapper sizes the bfloat16 backward's head-chunk workspace with
+    the source's own number of heads a dK/dV block."""
+    import re
+    text = tfa.SM90_BWD_SOURCE.read_text()
+    got = re.search(r"constexpr int kHeadsABlock = (\d+);", text)
+    assert got and int(got.group(1)) == tfa.BWD_HEADS_A_BLOCK
 
 
 def test_build_keys_on_headers(tmp_path):
