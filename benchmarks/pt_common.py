@@ -89,11 +89,10 @@ def expected_grid_keys(grid) -> "List[tuple]":
 
 
 def scenario_rows(scenario, *, device: torch.device, cache_dir: str,
-                  force: bool = False, comment: str = "") -> List[Dict]:
+                  force: bool = False) -> List[Dict]:
     """Run a registered scenario through ``repro_torch.core.scenarios``
     with grid-level CSV caching: a grid whose cells are all cached is
-    skipped; otherwise the whole grid re-runs as one batched run.
-    ``comment`` heads the CSV as ``#`` lines."""
+    skipped; otherwise the whole grid re-runs as one batched run."""
     from repro_torch.core import scenarios as scen
 
     path, cache = _load_cache(cache_dir, scenario.name, SCENARIO_KEYS, force)
@@ -108,7 +107,7 @@ def scenario_rows(scenario, *, device: torch.device, cache_dir: str,
             row["device"] = device_name(device)
             cache[tuple(row[k] for k in SCENARIO_KEYS)] = row
             rows.append(row)
-        _write(path, SCENARIO_KEYS, cache, comment)
+        _write(path, SCENARIO_KEYS, cache)
     return rows
 
 
@@ -164,8 +163,7 @@ def jax_agreement(name: str, rows: List[Dict], quick: bool,
     return out
 
 
-def _write(path: str, keys: List[str], cache: Dict[tuple, Dict],
-           comment: str = ""):
+def _write(path: str, keys: List[str], cache: Dict[tuple, Dict]):
     fields: List[str] = []
     for row in cache.values():
         for k in row:
@@ -173,8 +171,6 @@ def _write(path: str, keys: List[str], cache: Dict[tuple, Dict],
                 fields.append(k)
     tmp = path + ".tmp"
     with open(tmp, "w", newline="") as f:
-        for line in comment.splitlines():
-            f.write(f"# {line}\n")
         w = csv.DictWriter(f, fieldnames=fields)
         w.writeheader()
         for row in cache.values():

@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe|dense]``
+[--only fabric|fig7_fig8|scenarios|scale512|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe|dense]``
 
 ``--only`` takes a comma list of parts.
 
@@ -39,6 +39,14 @@ Per row: the ratio, both times, the iteration counts, ``job_times`` and
 It calls the benchmarks' row functions directly and never
 ``cached_sweep``, so the committed CSVs under ``artifacts/bench_cache/``
 are left as they are.
+
+``scale512`` (``--only scale512``, which adds these keys and keeps the
+others) runs the reference's ``bench.run_scale_grid`` over the four
+512-node alltoall cells of ``scale_sweep``'s full ladder
+(``SCALE512``: victim ring_allgather, 32 KiB, steady, 4 iterations, 1
+warm-up), each cell in a child process of its own, all four at once,
+given ``FULL_GRID_S`` seconds: ``scale512`` holds their rows, in the
+order of ``SCALE512``'s cells, ``scale512_commit`` the commit.
 
 ``fleet_replay`` (``--only fleet_replay``, which adds these keys and
 keeps the others) runs ``benchmarks/fleet_replay.py``'s quick templates
@@ -152,6 +160,10 @@ SCENARIO_FAMILIES = ("ramp_onset", "random_telegraph", "multi_tenant",
                      "mixed_topology", "link_fault", "intra_node")
 CHILD_RSS_GIB = 8
 SCENARIO_WORKERS = 2
+# scale_sweep's 512-node alltoall cells: cells, sizes, n_iters and warmup
+# (the steady profile)
+SCALE512 = ((("haicgu_ib", 512), ("leonardo", 512), ("cresco8", 512),
+             ("lumi", 512)), (32 << 10,), 4, 1)
 LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 MOE_OUT = os.path.join(os.path.dirname(OUT), "jax_moe_reference.json")
 DENSE_OUT = os.path.join(os.path.dirname(OUT), "jax_dense_reference.json")
@@ -433,6 +445,48 @@ def _family_grid_child(name: str, index: int, path: str) -> None:
     rows = _family_grid_rows(name, False, index)
     with open(path, "w") as f:
         json.dump(rows, f)
+
+
+def _scale512_child(cell, path: str) -> None:
+    """A child process: one 512-node alltoall cell's rows to ``path``."""
+    from repro.core import congestion as cong
+
+    _, sizes, n_iters, warmup = SCALE512
+    rows = _scale_rows("scale512", [tuple(cell)], "alltoall", sizes,
+                       (cong.steady(),), n_iters, warmup)
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def scale512_rows() -> dict:
+    """The rows of SCALE512's cells, each cell in a child process of its
+    own, all at once, each given ``FULL_GRID_S`` seconds."""
+    import multiprocessing
+    import tempfile
+
+    cells = SCALE512[0]
+    ctx = multiprocessing.get_context("spawn")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"cell{i}.json")
+                 for i in range(len(cells))]
+        procs = [ctx.Process(target=_scale512_child, args=(c, p))
+                 for c, p in zip(cells, paths)]
+        t0 = time.time()
+        for proc in procs:
+            proc.start()
+        for cell, path, proc in zip(cells, paths, procs):
+            proc.join(max(0.0, t0 + FULL_GRID_S - time.time()))
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            if not os.path.exists(path):
+                raise RuntimeError(
+                    f"scale512 {cell}: the JAX CPU path did not finish in "
+                    f"{FULL_GRID_S} s (exit code {proc.exitcode})")
+            with open(path) as f:
+                rows += json.load(f)
+    return {"scale512": rows, "scale512_commit": _commit()}
 
 
 def _rss_gib(pid: int) -> float:
@@ -1008,12 +1062,12 @@ def main() -> None:
                          "artifacts/bench_cache_torch/)")
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
-                         "fleet_replay, mitigation, whatif, sweep, encdec, "
+                         "scale512, fleet_replay, mitigation, whatif, sweep, encdec, "
                          "lm, train, moe, dense")
     args = ap.parse_args()
-    parts = ("fabric", "fig7_fig8", "scenarios", "fleet_replay",
-             "mitigation", "whatif", "sweep", "encdec", "lm", "train",
-             "moe", "dense")
+    parts = ("fabric", "fig7_fig8", "scenarios", "scale512",
+             "fleet_replay", "mitigation", "whatif", "sweep", "encdec", "lm",
+             "train", "moe", "dense")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -1036,6 +1090,7 @@ def main() -> None:
     # parts that add their keys to the file and keep the others
     for part, rows in (("fig7_fig8", fig7_fig8_rows),
                        ("scenarios", scenario_rows),
+                       ("scale512", scale512_rows),
                        ("fleet_replay", fleet_replay_rows),
                        ("mitigation", mitigation_rows),
                        ("whatif", whatif_rows), ("sweep", sweep_rows),

@@ -13,11 +13,10 @@ launches, its agreement with the JAX package's rows of the same grids
 (``pt_common.jax_agreement``), the ramp check and the phased-vs-flat
 ratio deltas.
 
-Kernel 1 takes at most ``fabric_step.MAX_FLOWS`` flows a cell, and a
-512-node alltoall cell of ``scale_sweep``'s full ladder has about 65,000:
-those cells wait for ROADMAP Queue 2 item 6. The full run stops that
-grid's ladder at 256 nodes and says so on its own line and in the CSV's
-header comment; the registry entry is the reference's.
+Each registry entry runs as it is. ``scale_sweep``'s full alltoall
+ladder pads all 24 of its cells, 16 to 512 nodes, into one bucket of
+65,536 flows (a 512-node alltoall cell's), which kernel 1 runs on a
+cluster of eight blocks of four 2,048-flow parts.
 
 ``PYTHONPATH=src python -m benchmarks.pt_new_scenarios [--quick]
 [--force] [--family ramp_onset,...] [--device cpu] [--cache-dir DIR]``
@@ -25,7 +24,6 @@ header comment; the registry entry is the reference's.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 from benchmarks.pt_common import (default_cache_dir, jax_agreement,
@@ -38,30 +36,6 @@ from repro_torch.kernels import fabric_step
 FAMILIES = ("ramp_onset", "random_telegraph", "multi_tenant",
             "phased_collectives", "multi_job_mix", "scale_sweep",
             "mixed_topology")
-# the largest alltoall allocation whose cells kernel 1 takes (a
-# 256-node alltoall has 16,384 flows, fabric_step.MAX_FLOWS)
-MAX_ALLTOALL_NODES = 256
-
-
-def runnable(scenario):
-    """(scenario as the port runs it, note): ``scale_sweep``'s alltoall
-    ladder stops at MAX_ALLTOALL_NODES; the note names the cells left out
-    and why ("" when none are)."""
-    grids, dropped = [], []
-    for g in scenario.grids:
-        if g.cells and g.aggressor == "alltoall":
-            keep = tuple(c for c in g.cells if c[1] <= MAX_ALLTOALL_NODES)
-            dropped += [c for c in g.cells if c not in keep]
-            g = dataclasses.replace(g, cells=keep)
-        grids.append(g)
-    if not dropped:
-        return scenario, ""
-    note = (f"{scenario.name}: the alltoall cells {dropped} (more than "
-            f"{fabric_step.MAX_FLOWS} flows a cell) wait for ROADMAP "
-            f"Queue 2 item 6 (kernel 1 above {fabric_step.MAX_FLOWS} "
-            f"flows a cell); this run stops that grid's ladder at "
-            f"{MAX_ALLTOALL_NODES} nodes")
-    return dataclasses.replace(scenario, grids=tuple(grids)), note
 
 
 def print_rows(name: str, description: str, rows) -> None:
@@ -83,13 +57,11 @@ def main(force: bool = False, quick: bool = False, device=None,
     cache_dir = cache_dir or default_cache_dir(device)
     all_rows = []
     for name in families:
-        scen, note = runnable(scenarios.get(name, quick))
-        if note:
-            print(f"# {note}", flush=True)
+        scen = scenarios.get(name, quick)
         steps0, launches0 = sim.step_count, fabric_step.launches
         t0 = time.time()
         rows = scenario_rows(scen, device=device, cache_dir=cache_dir,
-                             force=force, comment=note)
+                             force=force)
         wall = time.time() - t0
         all_rows.extend(rows)
         print_rows(name, scen.description, rows)

@@ -105,7 +105,20 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    meanwhile ``launch.sweep``'s tiny smoke in fresh processes, the cold
    one building kernel 1 into an empty build directory and the warm one
    only loading it (its build-cache checks present and true);
-8. times kernels 1 (also at the two fleet buckets) and 2, their plain
+7g. ``kernel1_large``: kernel 1 above 16,384 flows a cell, at
+   ``scale_sweep``'s 512-node alltoall bucket (the four 512-node cells
+   padded together, B = 4: 65,536 flows on a cluster of eight blocks of
+   four 2,048-flow parts, the wide layout), with and without aux: within
+   §13 of plain, ten launches bit-equal, each cell alone (the bucket's
+   operands on its own flows and links) bit-equal to its row; a random
+   cell of ten parts in the shared layout, the wide layout bit-equal to
+   it, and a cluster of two whose one-pass sort shares its scratch with
+   the hop tables; the pad check with cresco8/128 and cresco8/512 in one
+   bucket (32 KiB, steady); the four cells through
+   ``bench.run_scale_grid`` held to ``jax_reference.json["scale512"]``
+   (iteration counts equal, times within 2%), one kernel-1 launch a step;
+8. times kernels 1 (also at the two fleet buckets and the 512-node
+   alltoall bucket) and 2, their plain
    versions, their bounds and, for the fused accumulate, the library call
    ``torch.add``, per shape (kernel 1
    beside its time before its redesign, ``EARLIER_MS``, and its time in
@@ -222,7 +235,7 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
    D = 112 and G = 48 edges of ``FA_HEAD_EDGES``) beside their plain
    versions, their bounds, SDPA and SDPA's backward.
 
-Phases 6 to 7f run at once, in the groups of ``CONCURRENT``, each group
+Phases 6 to 7g run at once, in the groups of ``CONCURRENT``, each group
 in a process of its own with its launch counts its own (the main process
 runs 3 to 5 and kernel 1 at the fleet buckets meanwhile, and prints each
 group's log when it ends); phases 8 to 29 run after them, one at a time.
@@ -492,6 +505,21 @@ WIDE_SHAPES = (("lumi/128/alltoall", "lumi", 128, "ring_allgather",
 FIG8_ALLTOALL = ((("cresco8", 128), ("lumi", 256)), (2 << 20,),
                  ((2e-3, 0.2e-3),), 8, 2)
 PAD_CHECK_ITERS, PAD_CHECK_CHUNK = 3, 256
+# kernel 1 above 16,384 flows a cell: scale_sweep's four 512-node alltoall
+# cells (65,536 flows each; padded together, a cluster of eight blocks of
+# four 2,048-flow parts) held to jax_reference.json's "scale512" (victim
+# ring_allgather; sizes, n_iters, warmup; the steady profile), the pad
+# check's pair (a 128-node cell of two parts in the 65,536-flow bucket)
+# and a random shape of ten parts that both layouts take
+LARGE_CELLS = (("haicgu_ib", 512), ("leonardo", 512), ("cresco8", 512),
+               ("lumi", 512))
+LARGE_GRID = ((32 << 10,), 4, 1)
+LARGE_LABEL = "scale_sweep 512-node alltoall bucket"
+LARGE_PAD_CELLS = (("cresco8", 128), ("cresco8", 512))
+PARTS_SHAPE = (20000, 1, 40, 9, 6)
+# a cluster of two in the shared layout whose one-pass sort leaves the hop
+# items in the scratch a cluster's hop tables reuse
+ONE_PASS_SHAPE = (3000, 1, 40, 9, 6)
 # the beyond-paper families (their first quick grid; phased_collectives'
 # first flat/phased pair) held to jax_reference.json's scenarios_quick
 FAMILY_GRIDS = (("ramp_onset", (0,)), ("random_telegraph", (0,)),
@@ -527,7 +555,8 @@ GRAD_HIST_REL = 1e-4
 # the longest group. The main process meanwhile holds kernels 1 and 2 to
 # their plain versions; every phase that times something runs after the
 # groups have ended, alone on the card.
-CONCURRENT = (("main_path",), ("fig1", "fig3", "fig6", "scenarios"),
+CONCURRENT = (("main_path", "kernel1_large"),
+              ("fig1", "fig3", "fig6", "scenarios"),
               ("fleet_replay", "sweep"), ("fig7_fig8", "mitigation",
                                           "whatif"))
 WORKER_TIMEOUT_S = 700
@@ -1035,6 +1064,151 @@ class Smoke:
         args, kw = self.random_inputs(RANDOM_SHAPES[1], seed=9)
         self.compare(f"random {RANDOM_SHAPES[1]}, zero-capacity links",
                      self.zero_capacity(args, n_zero=30, silent=40), kw, True)
+
+    # ------------------------------------------------------------ 3b
+    def large_bucket(self):
+        """Kernel 1's operands at scale_sweep's 512-node alltoall bucket
+        (LARGE_CELLS padded together by bench.scale_grid_inputs), B = 4:
+        each cell's steady sub-cell at 32 KiB on its geometry row; and
+        each cell's own case."""
+        torch = self.torch
+        from repro_torch.core import bench, congestion as cong
+        from repro_torch.core.fabric import simulator as sim
+        cases, _, stacked, p = bench.scale_grid_inputs(
+            LARGE_CELLS, "ring_allgather", "alltoall", LARGE_GRID[0],
+            (cong.steady(),))
+        geom, p = sim.hetero_cells(stacked, p, self.dev)
+        # (baseline, steady) a cell: the steady ones
+        rows = torch.arange(1, p.dt.shape[0], 2, device=self.dev)
+        args, kw = self.core_inputs(geom.take(rows), p.take(rows), seed=400)
+        return cases, args, kw
+
+    def kernel1_large(self):
+        """Kernel 1 above 16,384 flows a cell: at the 512-node alltoall
+        bucket (B = 4) within §13 of plain, REPEATS launches bit-equal,
+        each cell alone (the bucket's operands on its own flows and links)
+        bit-equal to its row; at PARTS_SHAPE (ten parts, two a block) the
+        wide layout bit-equal to the shared one; the pad check with a
+        128-node cell in the 65,536-flow bucket; and the four cells through
+        bench.run_scale_grid held to jax_reference.json's "scale512"."""
+        torch = self.torch
+        from repro_torch.core import bench, congestion as cong
+        from repro_torch.core.fabric import simulator as sim
+        from repro_torch.kernels import fabric_step as fs
+        cases, args, kw = self.large_bucket()
+        B, F, H = args[0].shape
+        L1 = args[4].shape[1]
+        cfg = self.launch_config(LARGE_LABEL, args, kw)
+        bs = fs.block_shape(F, H, L1, kw["n_src"], kw["n_sw"], cfg.cluster)
+        log(f"   {LARGE_LABEL}: B={B} F={F} H={H} L+1={L1} "
+            f"n_src={kw['n_src']} n_sw={kw['n_sw']}; {cfg.threads} threads, "
+            f"cluster {cfg.cluster}, {bs.parts} parts ({bs.nf} flows, "
+            f"{bs.n_items} hop items) a block, {cfg.smem} B shared, "
+            f"{len(cfg.workspace)} rows in a workspace of {cfg.ws_bytes} B "
+            f"a block")
+        self.check(cfg.cluster == 8 and bs.parts == 4 and cfg.workspace,
+                   f"{LARGE_LABEL}: cluster {cfg.cluster}, {bs.parts} parts "
+                   f"a block, workspace {cfg.workspace}")
+        for aux in (False, True):
+            err = self.compare(LARGE_LABEL, args, kw, aux)
+            if not aux:
+                self.large_err = err
+        # each cell alone on its own flows and links (the sink moved back
+        # past them) against its row of the bucket
+        sink = L1 - 1
+        for aux in (False, True):
+            whole = fs.fabric_step_core(*args, with_aux=aux, **kw)
+            same = True
+            for b, case in enumerate(cases):
+                g = case.geom
+                links = torch.cat([torch.arange(g.L, device=self.dev),
+                                   torch.tensor([sink], device=self.dev)])
+                own = cell_args(args, b)
+                plinks = own[0][:, :g.n_flows]
+                plinks = torch.where(plinks == sink, g.L, plinks)
+                flow_rows = [x[:, :g.n_flows].contiguous()
+                             for x in (own[1], own[2], own[3])]
+                link_rows = [x[:, links].contiguous()
+                             for x in (own[4], own[5], own[6], own[7],
+                                       own[8])]
+                alone = fs.fabric_step_core(
+                    plinks.contiguous(), flow_rows[0], flow_rows[1],
+                    flow_rows[2], *link_rows, *own[9:], n_src=g.n_src,
+                    n_sw=g.n_sw, with_aux=aux)
+                for k, x in alone.items():
+                    if x is None:
+                        continue
+                    row = whole[k][b]
+                    want = row[:g.n_flows] if k in ("inject", "achieved") \
+                        else row[links]
+                    same &= bits_equal(torch, x[0], want)
+            self.check(same, f"{LARGE_LABEL} aux={int(aux)}: a cell alone "
+                       f"differs from its row of the bucket")
+            log(f"   {LARGE_LABEL} aux={int(aux)}: each cell alone "
+                f"bit-equal to its row on its flows and links: {same}")
+        # a cell of ten parts that both layouts take: the wide layout moves
+        # rows, not work
+        args_p, kw_p = self.random_inputs(PARTS_SHAPE, seed=7, B=3)
+        label = f"random {PARTS_SHAPE}"
+        cfg_p = self.launch_config(label, args_p, kw_p)
+        F_p, H_p, L_p, n_src_p, n_sw_p = PARTS_SHAPE
+        bs_p = fs.block_shape(F_p, H_p, L_p + 1, n_src_p, n_sw_p,
+                              cfg_p.cluster)
+        log(f"   {label}: cluster {cfg_p.cluster}, {bs_p.parts} parts a "
+            f"block, {'wide' if cfg_p.workspace else 'shared'}")
+        self.check(bs_p.parts == 2, f"{label}: {bs_p.parts} parts a block")
+        for aux in (False, True):
+            self.compare(label, args_p, kw_p, aux)
+            shared = fs.fabric_step_core(*args_p, with_aux=aux, **kw_p)
+            wide = fs.fabric_step_core(*args_p, with_aux=aux, wide=True,
+                                       **kw_p)
+            same = all(bits_equal(torch, wide[k], shared[k])
+                       for k in shared if shared[k] is not None)
+            self.check(same and not cfg_p.workspace,
+                       f"{label} aux={int(aux)}: the wide layout differs "
+                       f"from the shared one")
+            log(f"   {label:32s} aux={int(aux)} wide layout bit-equal to "
+                f"shared: {same}")
+        self.batch_invariance(label, args_p, kw_p)
+        args_o, kw_o = self.random_inputs(ONE_PASS_SHAPE, seed=8, B=3)
+        label = f"random {ONE_PASS_SHAPE}"
+        cfg_o = self.launch_config(label, args_o, kw_o)
+        self.check(cfg_o.cluster == 2 and not cfg_o.workspace,
+                   f"{label}: cluster {cfg_o.cluster}, {cfg_o.workspace}")
+        for aux in (False, True):
+            self.compare(label, args_o, kw_o, aux)
+        self.batch_invariance(label, args_o, kw_o)
+        sizes, n_iters, warmup = LARGE_GRID
+        self.pad_check("512-node alltoall bucket", LARGE_PAD_CELLS,
+                       "alltoall", sizes, [cong.steady()])
+        ref = self.reference()
+        rows = []
+
+        def run():
+            t0, s0 = time.time(), sim.step_count
+            results = bench.run_scale_grid(
+                LARGE_CELLS, "ring_allgather", "alltoall", sizes,
+                [cong.steady()], n_iters=n_iters, warmup=warmup,
+                device=self.dev)
+            torch.cuda.synchronize()
+            wall, steps = time.time() - t0, sim.step_count - s0
+            log(f"   scale512 {LARGE_CELLS}: {steps} steps in {wall:.1f}s")
+            for r in results:
+                want = next(w for w in ref["scale512"] if (
+                    w["system"], w["n_nodes"], w["vector_bytes"],
+                    w["profile"]) == (r.system, r.n_nodes, r.vector_bytes,
+                                      r.profile))
+                rows.append(self.hold(
+                    f"scale512 {r.system}/{r.n_nodes}/{r.aggressor} "
+                    f"{r.vector_bytes:.0f} {r.profile}", r, want, wall,
+                    steps))
+            return ("fabric_step_core",)
+
+        counts = self.path("kernel1_large", run)
+        self.large_launches = counts["fabric_step_core"]
+        self.check(len(rows) == len(LARGE_CELLS),
+                   f"scale512: {len(rows)} rows, want {len(LARGE_CELLS)}")
+        self.report["kernel1_large"] = rows
 
     # ------------------------------------------------------------- 4
     def fr_inputs(self, shape, acc_t, x_t, seed, offset=0):
@@ -2190,6 +2364,11 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import fabric_step as fs, ref
         self.timings = {}
+        # kernel 1 above 16,384 flows: the 512-node alltoall bucket, built
+        # here (kernel1_large ran in a process of its own)
+        _, args, kw = self.large_bucket()
+        self.launch_config(LARGE_LABEL, args, kw)
+        self.shapes[LARGE_LABEL] = (args, kw)
         log(f"   {'shape':26s} {'kernel ms':>10s} {'was ms':>8s} "
             f"{'redesign':>8s} {'plain ms':>10s} {'bound ms':>10s}  bound by  "
             f"threads x cluster, layout  (mean of the event span)")
@@ -4525,6 +4704,8 @@ def main() -> int:
     wide = {label: {k: s.timings[label][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by")}
         for label, *_ in WIDE_SHAPES}
+    large = {k: s.timings[LARGE_LABEL][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": s.main_launches, "max_abs_err": s.main_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4540,7 +4721,10 @@ def main() -> int:
             for label in ("fleet quick bucket", "fleet full bucket")},
         "fleet_max_abs_err": s.fleet_err,
         "whatif_max_abs_err": s.whatif_err,
-        "fault_caps_max_abs_err": s.fault_err, "wide_shapes": wide}, {
+        "fault_caps_max_abs_err": s.fault_err, "wide_shapes": wide,
+        "large_shape": {"label": LARGE_LABEL, **large,
+                        "launches": s.large_launches,
+                        "max_abs_err": s.large_err}}, {
         **KERNEL2, "launches": s.fr_path_launches,
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],

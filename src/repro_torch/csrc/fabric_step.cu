@@ -17,14 +17,18 @@
 // Layout. One cell runs on a cluster of C blocks of T threads; C, T and
 // the layout depend on the cell's shapes (F, H, L+1, n_src, n_sw) alone,
 // never on the batch (kernels/fabric_step.py::launch_config): C = 1 up to
-// 2048 flows, and more only where a block's rows would not fit. Block
-// `rank` owns the flows [rank*nf, (rank+1)*nf), the links [rank*nl, ...),
-// the sources [rank*ns, ...) and the switches [rank*nw, ...) (nf = F on
-// one block and FLOWS_PER_BLOCK on a cluster, so flow i is block
-// i / 2048's whatever the cluster, and flows appended to a cell (a
-// bucket's padding) never move a real flow to another block; nl =
-// ceil((L+1)/C), and so on); the other blocks reach its rows through
-// distributed shared memory, with barrier.cluster between phases.
+// 2048 flows, and more only where a block's rows would not fit. The unit
+// of summation is the part: the flows [p*2048, (p+1)*2048) of a cell on
+// a cluster (all its flows on one block). Block `rank` owns P consecutive
+// parts, the flows [rank*nf, (rank+1)*nf) with nf = P*2048 (F on one
+// block), the links [rank*nl, ...), the sources [rank*ns, ...) and the
+// switches [rank*nw, ...) (nl = ceil((L+1)/C), and so on); the other
+// blocks reach its rows through distributed shared memory, with
+// barrier.cluster between phases. P = 1 up to C*2048 flows; above 8*2048
+// (an alltoall over more than 256 nodes) the cluster is 8 and P =
+// ceil(F / (8*2048)), so a cell has V = C*P <= MAX_PARTS parts. Flow i is
+// part i / 2048's whatever the cluster and P, and flows appended to a
+// cell (a bucket's padding) never move a real flow to another part.
 //
 // Wide layout. Where a block's rows do not fit 227 KB of shared memory
 // (an alltoall over 128 or more LUMI nodes: L+1 up to 34,300 links and
@@ -52,15 +56,19 @@
 //      the segments and the long ones (see 3) are listed by ballots and
 //      one block scan.
 // 3. Every segment sum is a fold in this order:
-//    * a block's part with n <= SERIAL_MAX = 8 contributions, in
+//    * a part's share with n <= SERIAL_MAX = 8 contributions, in
 //      ascending index (flow or link), is one thread's left fold from 0:
 //      ((0 + v0) + v1) + ...;
-//    * a longer part is one warp's: lane j folds v_j, v_{j+32}, ... from
+//    * a longer one is one warp's: lane j folds v_j, v_{j+32}, ... from
 //      0, then a butterfly p += shfl_xor(p, o) for o = 16, 8, 4, 2, 1;
-//    * with C > 1 the blocks' parts are added in rank order: src_load over
-//      every rank, a rank without a part adding 0, ((P_0 + P_1) + ...) +
-//      P_{C-1}; a hop's link loads and served rates over the ranks that
-//      contributed, starting from the first.
+//    * with C > 1 the parts' shares are added in part order: src_load
+//      over every part, a part without a share adding 0, ((S_0 + S_1) +
+//      ...) + S_{V-1}; a hop's link loads and served rates over the parts
+//      that contributed, starting from the first. A block with P > 1
+//      folds each of its parts on its own: its flows are grouped by
+//      (part, source), and a hop's segment is a run of one (link, part)
+//      in the sorted items, whose words carry the part in their index's
+//      top bits.
 //    A switch's sums are one part, whatever C: its owner folds all its
 //    links (reading q and occ of another block's links from the
 //    operands), so they do not depend on how the links are split, and a
@@ -72,11 +80,12 @@
 //    a segment sums the load, adds it to arrival and takes the
 //    over-subscription divide; after a barrier each flow divides its rate
 //    by its link's factor (one IEEE divide a thread); with aux a third
-//    pass sums the served rate. With C > 1 the blocks post their parts to
-//    the link's owner and mark it touched; the owner adds the parts of
-//    the links on its list; the blocks read the factor back: two cluster
-//    barriers a hop (four with aux). Only the prologue and the epilogue
-//    (arrival, q_new with the sink pinned, caps_eff) pass over every link.
+//    pass sums the served rate. With C > 1 the blocks post each part's
+//    share to the link's owner and mark the part in the link's 32-bit
+//    mask; the owner adds the shares of the links on its list; the blocks
+//    read the factor back: two cluster barriers a hop (four with aux).
+//    Only the prologue and the epilogue (arrival, q_new with the sink
+//    pinned, caps_eff) pass over every link.
 //
 // Two launches are bit-equal, and a cell gives the same bits alone or in
 // any batch. Build with --fmad=false and without fast math so every
@@ -100,7 +109,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int SERIAL_MAX = 8;  // longest segment part one thread sums
-constexpr int FLOWS_PER_BLOCK = 2048;  // flows a block of a cluster owns
+constexpr int PART_BITS = 11;  // a part: FLOWS_PER_PART = 2^11 flows
+constexpr int FLOWS_PER_PART = 1 << PART_BITS;
+constexpr int MAX_CLUSTER = 8;   // blocks a cell: the portable cluster size
+constexpr int MAX_PARTS = 32;    // parts a cell: a link's mask is 32 bits
+constexpr int MAX_ITEMS = 65536;  // hop items a block: 17-bit head counts
+constexpr int KEY_BITS = 32;      // an item's (key, index) word
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int ERR_SHAPE = -2;  // items or keys do not fit the encoding
 
@@ -125,9 +139,11 @@ __host__ __device__ inline int bit_width(unsigned x) {
 // A cell's geometry and what each block of its cluster holds.
 struct Shape {
   int F, H, L1, n_src, n_sw, C, with_aux;
+  int P, V;            // parts a block owns, parts a cell has (C * P)
   int nf, nl, ns, nw;  // flows, links, sources, switches a block owns
   int N;               // hop items a block sorts: nf * H
   int ib, kb;          // index bits and key bits of an item
+  int sb;              // an item word >> sb: its segment, (key, part)
 };
 
 __host__ __device__ inline Shape make_shape(int F, int H, int L1, int n_src,
@@ -140,13 +156,17 @@ __host__ __device__ inline Shape make_shape(int F, int H, int L1, int n_src,
   s.n_sw = n_sw;
   s.C = C;
   s.with_aux = with_aux;
-  s.nf = C > 1 ? FLOWS_PER_BLOCK : F;
+  s.P = C > 1 ? (F + C * FLOWS_PER_PART - 1) / (C * FLOWS_PER_PART) : 1;
+  if (s.P < 1) s.P = 1;
+  s.V = C * s.P;
+  s.nf = C > 1 ? s.P * FLOWS_PER_PART : F;
   s.nl = (L1 + C - 1) / C;
   s.ns = (n_src + C - 1) / C;
   s.nw = (n_sw + C - 1) / C;
   s.N = s.nf * H;
   s.ib = bit_width(static_cast<unsigned>(s.nf - 1));
   s.kb = bit_width(static_cast<unsigned>(H * L1));
+  s.sb = s.P > 1 ? PART_BITS : s.ib;
   return s;
 }
 
@@ -436,8 +456,9 @@ __device__ __forceinline__ void sort8(int (&x)[SERIAL_MAX]) {
 // in the workspace, so a row pointer is generic; without it every row is
 // in shared memory and its accesses compile to shared loads and stores
 // with 32-bit addresses (generic ones cost the shared layout 15-23% a
-// launch on an H100).
-template <bool WIDE>
+// launch on an H100). MULTI: a block owns more than one part (P > 1);
+// without it every part step below compiles away.
+template <bool WIDE, bool MULTI>
 __global__ void __launch_bounds__(512)
     fabric_step_core_kernel(const Ptrs P, const __grid_constant__ Shape S,
                             const __grid_constant__ Layout Y) {
@@ -462,6 +483,8 @@ __global__ void __launch_bounds__(512)
   const unsigned imask = (1u << ib) - 1u;
   const unsigned maxkey = (1u << S.kb) - 1u;
   const int R = H + 1;  // regions of the sorted items: the hops, left out
+  // parts a block owns and a cell has
+  const int PB = MULTI ? S.P : 1, V = MULTI ? S.V : C;
   const unsigned dmag = 0xffffffffu / static_cast<unsigned>(L1);
 
   // per-cell rows carry their own stride; geometry rows shared by every
@@ -529,20 +552,25 @@ __global__ void __launch_bounds__(512)
   float* ovr = rowf(Y.ovr);      // over factor of the hop
   int* dsw = rowi(Y.ovr);        // dst_sw until caps_eff is formed
   float* smax = rowf(Y.smax);
-  float* srcp = smf + Y.srcp;    // [C][ns] parts of src_load by rank
+  float* srcp = smf + Y.srcp;    // [V][ns] parts of src_load by part
   float* srcl = smf + Y.srcl;
   float* swp = smf + Y.swp;      // [3][nw] hot_q, tot_q, sat by switch
   float* stall = smf + Y.stall;
   int* ssw = rowi(Y.ssw);        // src_sw of every link
-  // buckets: source s is bucket s, switch s bucket n_src + s; a flow's
-  // index and nf + a link's index are its items
-  const int NB = S.n_src + S.n_sw;
+  // buckets: source s of the block's part p is bucket p*n_src + s, switch
+  // s bucket P*n_src + s; a flow's index and nf + a link's index are its
+  // items
+  const int NSB = PB * S.n_src, NB = NSB + S.n_sw;
+  auto bucket_of = [&](int i) {  // a flow's bucket
+    if constexpr (MULTI) return (i >> PART_BITS) * S.n_src + sid[i];
+    else return sid[i];
+  };
   int* boff = rowi(Y.boff);      // counts, then bucket bounds
   int* scr = rowi(Y.scr);        // items by bucket, in placement order
   int* ord = rowi(Y.ord);        // a long bucket's items in index order
-  float* part = rowf(Y.part);    // [C][nl] a hop's load parts by rank
-  float* spart = rowf(Y.spart);  // [C][nl] its served parts
-  unsigned* touch = word(Y.touch);  // ranks that posted a part, by link
+  float* part = rowf(Y.part);    // [V][nl] a hop's load shares by part
+  float* spart = rowf(Y.spart);  // [V][nl] its served shares
+  unsigned* touch = word(Y.touch);  // parts that posted a share, by link
   int* list = rowi(Y.list);      // [2][nl] touched links, by hop parity
 
   // a row of the block that owns it: this block's own, its peer's
@@ -595,7 +623,7 @@ __global__ void __launch_bounds__(512)
 #pragma unroll 1
   for (int i = tid; i <= NB; i += T) boff[i] = 0;
 #pragma unroll 1
-  for (int i = tid; i < C * S.ns; i += T) srcp[i] = 0.0f;
+  for (int i = tid; i < V * S.ns; i += T) srcp[i] = 0.0f;
 #pragma unroll 1
   for (int i = tid; i < 3 * S.nw; i += T) swp[i] = 0.0f;
   if (aux) {
@@ -621,9 +649,9 @@ __global__ void __launch_bounds__(512)
       if (s != 0 && s >= w0 && s < w0 + nw) fn(l, s);
     }
   };
-  my_links([&](int, int s) { atomicAdd(&boff[S.n_src + s + 1], 1); });
+  my_links([&](int, int s) { atomicAdd(&boff[NSB + s + 1], 1); });
 #pragma unroll 1
-  for (int i = tid; i < nf; i += T) atomicAdd(&boff[sid[i] + 1], 1);
+  for (int i = tid; i < nf; i += T) atomicAdd(&boff[bucket_of(i) + 1], 1);
   for (int h = 0; h < H; ++h) {
 #pragma unroll 1
     for (int i = tid; i < nf; i += T) {
@@ -641,19 +669,48 @@ __global__ void __launch_bounds__(512)
   // segments listed ----
   scan_counts(boff + 1, NB, smi + Y.ws);
 #pragma unroll 1
-  for (int i = tid; i < nf; i += T) scr[atomicAdd(&boff[sid[i]], 1)] = i;
+  for (int i = tid; i < nf; i += T)
+    scr[atomicAdd(&boff[bucket_of(i)], 1)] = i;
   my_links([&](int l, int s) {
-    scr[atomicAdd(&boff[S.n_src + s], 1)] = nf + l;
+    scr[atomicAdd(&boff[NSB + s], 1)] = nf + l;
   });
   const unsigned* srt = radix_sort(items, word(Y.tmp), N, ib, S.kb,
                                    smi + Y.ws, smi + Y.ws + 256 * 16);
+  {
+    // an odd number of passes leaves the sorted items in tmp, whose
+    // shared memory a cluster's hop tables reuse: where one of them
+    // overlaps it, the items move back to their own row first
+    auto clash = [&](int off, int words) {
+      return words > 0 && off < Y.total && off < Y.tmp + S.N &&
+             Y.tmp < off + words;
+    };
+    if (C > 1 && srt != items && Y.tmp < Y.total &&
+        (clash(Y.part, V * S.nl) || clash(Y.spart, aux ? V * S.nl : 0) ||
+         clash(Y.touch, S.nl) || clash(Y.list, 2 * S.nl))) {
+#pragma unroll 1
+      for (int i = tid; i < N; i += T) items[i] = srt[i];
+      __syncthreads();
+      srt = items;
+    }
+  }
   auto key_at = [&](int pos) { return srt[pos] >> ib; };
+  // a segment: one key (hop and link) and, with MULTI, one part
+  auto seg_at = [&](int pos) {
+    if constexpr (MULTI) return srt[pos] >> S.sb;
+    else return srt[pos] >> ib;
+  };
+  // the part of the cell a segment starting at pos belongs to
+  auto part_of = [&](int pos) {
+    if constexpr (MULTI)
+      return rank * PB + static_cast<int>((srt[pos] & imask) >> PART_BITS);
+    else return rank;
+  };
   {
     // a head opens a segment; it is long (a warp's) when the item
-    // SERIAL_MAX places on still has its key. Each warp counts its tiles'
-    // heads and long heads (ballots), one scan of the two counts packed
-    // 16 bits apiece places both lists in key order, and each warp writes
-    // its part.
+    // SERIAL_MAX places on is still in its segment. Each warp counts its
+    // tiles' heads and long heads (ballots), one scan of the two counts
+    // packed (heads in the low 17 bits: up to MAX_ITEMS) places both lists
+    // in key order, and each warp writes its part.
     int t0, t1;
     my_tiles(N, t0, t1);
     const unsigned below = (1u << lane) - 1u;
@@ -662,9 +719,11 @@ __global__ void __launch_bounds__(512)
       const bool in = i < N;
       key = in ? key_at(i) : maxkey;
       prev = in && i > 0 ? key_at(i - 1) : ~0u;
-      head = in && (i == 0 || key != prev);
+      head = in && (i == 0 || (MULTI ? seg_at(i) != seg_at(i - 1)
+                                     : key != prev));
       lng = head && key != maxkey && i + SERIAL_MAX < N &&
-            key_at(i + SERIAL_MAX) == key;
+            (MULTI ? seg_at(i + SERIAL_MAX) == seg_at(i)
+                   : key_at(i + SERIAL_MAX) == key);
     };
     int heads = 0, longs = 0;
     for (int t = t0; t < t1; ++t) {
@@ -676,9 +735,9 @@ __global__ void __launch_bounds__(512)
     }
     int total;
     const int ex = block_exclusive_scan(
-        lane == 0 ? heads + (longs << 16) : 0, smi + Y.ws, total);
-    int k = __shfl_sync(FULL, ex, 0) & 0xffff;
-    int g = __shfl_sync(FULL, ex, 0) >> 16;
+        lane == 0 ? heads + (longs << 17) : 0, smi + Y.ws, total);
+    int k = __shfl_sync(FULL, ex, 0) & 0x1ffff;
+    int g = __shfl_sync(FULL, ex, 0) >> 17;
     for (int t = t0; t < t1; ++t) {
       const int i = t * 32 + lane;
       unsigned key, prev;
@@ -702,19 +761,25 @@ __global__ void __launch_bounds__(512)
       }
       if (i == N - 1) {
         const int rg = hop_of(key);
-        reg_hi[rg] = total & 0xffff;
-        long_hi[rg] = total >> 16;
+        reg_hi[rg] = total & 0x1ffff;
+        long_hi[rg] = total >> 17;
       }
       k += __popc(hb);
       g += __popc(lb);
     }
-    if (tid == 0) segs[total & 0xffff] = N;
+    if (tid == 0) segs[total & 0x1ffff] = N;
   }
 
   // ---- 3. NIC and backpressure segment sums, posted to their owners ----
-  auto post_src = [&](int s, float v) {
+  // source bucket k: source s of the block's part p
+  auto post_src = [&](int k, float v) {
+    int p = 0, s = k;
+    if constexpr (MULTI) {
+      p = k / S.n_src;
+      s = k - p * S.n_src;
+    }
     const int o = C == 1 ? 0 : s / S.ns;
-    at(srcp, o)[rank * S.ns + (s - o * S.ns)] = v;
+    at(srcp, o)[(rank * PB + p) * S.ns + (s - o * S.ns)] = v;
   };
   // a switch's sums, whole: this block owns the switch
   auto post_sw = [&](int s, float hot, float tot, float mx) {
@@ -741,7 +806,7 @@ __global__ void __launch_bounds__(512)
 #pragma unroll
     for (int j = 0; j < SERIAL_MAX; ++j) fi[j] = j < n ? scr[lo + j] : INT_MAX;
     if (n > 1) sort8(fi);
-    if (k < S.n_src) {
+    if (k < NSB) {
       float v[SERIAL_MAX];
       gather(r, n, fi, v);
       post_src(k, fold(n, v));
@@ -762,7 +827,7 @@ __global__ void __launch_bounds__(512)
         tot = tot + qv[j];
         mx = maximum(mx, sv[j]);
       }
-    post_sw(k - S.n_src, hot, tot, mx);
+    post_sw(k - NSB, hot, tot, mx);
   }
   __syncthreads();
 #pragma unroll 1
@@ -777,23 +842,23 @@ __global__ void __launch_bounds__(512)
       ord[lo + rk] = id;
     }
     __syncwarp();
-    if (k < S.n_src) {
+    if (k < NSB) {
       const float v = warp_sum(n, [&](int m) { return r[ord[lo + m]]; });
       if (lane == 0) post_src(k, v);
     } else {
       float hot, tot, mx;
       warp_fold3(n, [&](int m) { return ord[lo + m] - nf; }, q_of, s_of, hot,
                  tot, mx);
-      if (lane == 0) post_sw(k - S.n_src, hot, tot, mx);
+      if (lane == 0) post_sw(k - NSB, hot, tot, mx);
     }
   }
   sync_cluster();
 
-  // ---- owners add the ranks' parts of src_load; the stall per switch ----
+  // ---- owners add the parts' shares of src_load; the stall per switch ----
 #pragma unroll 1
   for (int i = tid; i < ns; i += T) {
     float v = srcp[i];
-    for (int c = 1; c < C; ++c) v = v + srcp[c * S.ns + i];
+    for (int c = 1; c < V; ++c) v = v + srcp[c * S.ns + i];
     srcl[i] = v;
   }
 #pragma unroll 1
@@ -892,12 +957,13 @@ __global__ void __launch_bounds__(512)
       __syncthreads();
       continue;
     }
-    // C > 1: (a) parts to the link's owner, which lists the links touched
+    // C > 1: (a) each part's share to the link's owner, which lists the
+    // links touched
     const int par = h & 1;
-    auto post = [&](int l, float v) {
+    auto post = [&](int l, int vp, float v) {
       const int o = l / S.nl, loc = l - o * S.nl;
-      at(part, o)[rank * S.nl + loc] = v;
-      if (atomicOr(at(touch, o) + loc, 1u << rank) == 0u)
+      at(part, o)[vp * S.nl + loc] = v;
+      if (atomicOr(at(touch, o) + loc, 1u << vp) == 0u)
         at(list, o)[par * S.nl + atomicAdd(at(nlist, o) + par, 1)] = loc;
     };
 #pragma unroll 1
@@ -908,17 +974,18 @@ __global__ void __launch_bounds__(512)
       float v[SERIAL_MAX];
       members(srt, st, n, imask, fi);
       gather(r, n, fi, v);
-      post(static_cast<int>(key_at(st)) - koff, fold(n, v));
+      post(static_cast<int>(key_at(st)) - koff, part_of(st), fold(n, v));
     }
 #pragma unroll 1
     for (int j = long_lo[h] + warp; j < long_hi[h]; j += W) {
       const int k = longl[j], st = segs[k], n = segs[k + 1] - st;
       const float v =
           warp_sum(n, [&](int m) { return r[srt[st + m] & imask]; });
-      if (lane == 0) post(static_cast<int>(key_at(st)) - koff, v);
+      if (lane == 0)
+        post(static_cast<int>(key_at(st)) - koff, part_of(st), v);
     }
     cluster.sync();
-    // (b) the owner adds the parts of its touched links in rank order
+    // (b) the owner adds the shares of its touched links in part order
     const int nt = nlist[par];
 #pragma unroll 1
     for (int j = tid; j < nt; j += T) {
@@ -926,7 +993,7 @@ __global__ void __launch_bounds__(512)
       const unsigned m = touch[loc];
       float ld = 0.0f;
       bool first = true;
-      for (int c = 0; c < C; ++c) {
+      for (int c = 0; c < V; ++c) {
         if (!((m >> c) & 1u)) continue;
         const float v = part[c * S.nl + loc];
         ld = first ? v : ld + v;
@@ -939,9 +1006,9 @@ __global__ void __launch_bounds__(512)
     if (tid == 0) nlist[par ^ 1] = 0;
     cluster.sync();
     // (c) each block rescales its flows by the owner's over factor
-    auto post_served = [&](int l, float v) {
+    auto post_served = [&](int l, int vp, float v) {
       const int o = l / S.nl;
-      at(spart, o)[rank * S.nl + (l - o * S.nl)] = v;
+      at(spart, o)[vp * S.nl + (l - o * S.nl)] = v;
     };
 #pragma unroll 1
     for (int k = lo + tid; k < hi; k += T) {
@@ -953,7 +1020,7 @@ __global__ void __launch_bounds__(512)
       members(srt, st, n, imask, fi);
       gather(r, n, fi, v);
       const float sv = rescale(n, fi, v, at(ovr, o)[l - o * S.nl], r);
-      if (aux) post_served(l, sv);
+      if (aux) post_served(l, part_of(st), sv);
     }
 #pragma unroll 1
     for (int j = long_lo[h] + warp; j < long_hi[h]; j += W) {
@@ -969,7 +1036,7 @@ __global__ void __launch_bounds__(512)
         __syncwarp();
         const float sv =
             warp_sum(n, [&](int m) { return r[srt[st + m] & imask]; });
-        if (lane == 0) post_served(l, sv);
+        if (lane == 0) post_served(l, part_of(st), sv);
       }
     }
     if (!aux) {
@@ -977,14 +1044,14 @@ __global__ void __launch_bounds__(512)
       continue;
     }
     cluster.sync();
-    // (d) the owner adds the served parts and clears its touched marks
+    // (d) the owner adds the served shares and clears its touched marks
 #pragma unroll 1
     for (int j = tid; j < nt; j += T) {
       const int loc = list[par * S.nl + j];
       const unsigned m = touch[loc];
       float sv = 0.0f;
       bool first = true;
-      for (int c = 0; c < C; ++c) {
+      for (int c = 0; c < V; ++c) {
         if (!((m >> c) & 1u)) continue;
         const float v = spart[c * S.nl + loc];
         sv = first ? v : sv + v;
@@ -1015,8 +1082,8 @@ __global__ void __launch_bounds__(512)
   if (C > 1) cluster.sync();  // peers may still read this block's rows
 }
 
-// dynamic shared memory each instantiation is allowed so far
-int g_smem_set[2] = {-1, -1};
+// dynamic shared memory each instantiation is allowed so far, by [wide][multi]
+int g_smem_set[2][2] = {{-1, -1}, {-1, -1}};
 
 }  // namespace
 
@@ -1046,19 +1113,24 @@ int fabric_step_core_launch(
   Layout y;
   memcpy(&y, layout, sizeof(Layout));
   const int smem_bytes = 4 * y.total;
-  if (F > cluster * s.nf || s.ib + s.kb > 31 || s.N >= 65536 ||
-      threads % 32 || threads < 64 ||
-      threads > 512 || cluster < 1 || cluster > 8 || y.gtotal < y.total ||
-      (y.gtotal > y.total && workspace == nullptr))
+  if (F > cluster * s.nf || s.ib + s.kb > KEY_BITS || s.kb >= 32 ||
+      s.N > MAX_ITEMS || s.V > MAX_PARTS || threads % 32 || threads < 64 ||
+      threads > 512 || cluster < 1 || cluster > MAX_CLUSTER ||
+      y.gtotal < y.total || (y.gtotal > y.total && workspace == nullptr))
     return ERR_SHAPE;
-  const bool wide = y.gtotal > y.total;
-  void (*kernel)(Ptrs, Shape, Layout) = wide
-      ? fabric_step_core_kernel<true> : fabric_step_core_kernel<false>;
-  if (smem_bytes > g_smem_set[wide]) {
+  const bool wide = y.gtotal > y.total, multi = s.P > 1;
+  using Kernel = void (*)(Ptrs, Shape, Layout);
+  const Kernel kernels[2][2] = {
+      {fabric_step_core_kernel<false, false>,
+       fabric_step_core_kernel<false, true>},
+      {fabric_step_core_kernel<true, false>,
+       fabric_step_core_kernel<true, true>}};
+  const Kernel kernel = kernels[wide][multi];
+  if (smem_bytes > g_smem_set[wide][multi]) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    g_smem_set[wide] = smem_bytes;
+    g_smem_set[wide][multi] = smem_bytes;
   }
   const Ptrs p = {
       static_cast<const int*>(plinks), static_cast<const float*>(inject),

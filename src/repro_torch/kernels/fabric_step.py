@@ -11,12 +11,14 @@ wrapper has the same signature and return dict.
 The kernel runs each cell on a cluster of blocks whose size, like the
 block's thread count and its layout, :func:`launch_config` picks from the
 cell's shapes alone, so the order of every segment sum (the source's
-header note) does not depend on the batch. A cell whose rows do not fit
-a block's shared memory takes the wide layout: the rows that do not fit
-live in a global-memory workspace, one stretch a block, which the wrapper
-allocates for each launch on the current stream. The wrapper only takes CUDA
-tensors and never falls back: a shape or type the kernel does not take
-raises. ``launches`` counts the kernel launches since import (or since a
+header note) does not depend on the batch: a cell's flows fall into
+parts of ``FLOWS_PER_PART``, each part's share of a sum is folded on its
+own, and the shares are added in part order, whichever block owns a
+part. A cell whose rows do not fit a block's shared memory takes the
+wide layout: the rows that do not fit live in a global-memory workspace,
+one stretch a block, which the wrapper allocates for each launch on the
+current stream. The wrapper only takes CUDA tensors and never falls
+back: a shape or type the kernel does not take raises. ``launches`` counts the kernel launches since import (or since a
 caller reset it).
 """
 from __future__ import annotations
@@ -34,18 +36,25 @@ FLAGS = _build.NVCC_FLAGS
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 # the source's constants: the longest segment part one thread sums (a
-# longer one is a warp's), flows a block takes before a cell spreads over
-# a cluster, the cluster sizes (portable ones), the block of a cell and of
-# a small one (at most SMALL_CELL hop items, flows and links a block)
+# longer one is a warp's), the flows of a part (the unit of summation: a
+# cell spreads over a cluster a part a block, and past the largest
+# cluster each block owns several consecutive parts), the cluster sizes
+# (the portable ones: MAX_CLUSTER), the parts a cell may have (a link's
+# mask of the parts that posted to it is 32 bits), the hop items a block
+# may sort (its head counts take 17 bits) and the bits of an item's
+# (key, index) word; the block of a cell and of a small one (at most
+# SMALL_CELL hop items, flows and links a block)
 SERIAL_MAX = 8
-FLOWS_PER_BLOCK = 2048
+FLOWS_PER_PART = 2048
 CLUSTER_SIZES = (1, 2, 4, 8)
+MAX_PARTS = 32
+MAX_ITEMS = 65536
+KEY_BITS = 32
 MAX_THREADS = 512
 SMALL_THREADS = 128
 SMALL_CELL = 1024
-# the most flows a cell may have: a cluster of the largest size of
-# FLOWS_PER_BLOCK flows a block
-MAX_FLOWS = CLUSTER_SIZES[-1] * FLOWS_PER_BLOCK
+# the most flows a cell may have: MAX_PARTS parts
+MAX_FLOWS = MAX_PARTS * FLOWS_PER_PART
 # the fields of the source's `Layout`, in order: a block's rows, then the
 # words of shared memory and the words of shared memory and workspace
 # together (word offsets; the launch passes them). An offset below
@@ -90,13 +99,16 @@ def _load():
 
 class BlockShape(NamedTuple):
     """What one block of a cell's cluster holds (``make_shape`` in the
-    source): flows, links, sources and switches it owns, the hop items it
-    sorts (nf * H), and an item's index and key bits. On a cluster a block
-    owns ``FLOWS_PER_BLOCK`` flows whatever F is, so flow i is block
-    i // 2048's in any cluster: flows appended to a cell (a bucket's
-    padding, which adds only exact zeros) leave every real flow's block,
-    and so every part's order, as they are."""
+    source): flows and parts it owns, links, sources and switches, the
+    hop items it sorts (nf * H), and an item's index and key bits. On a
+    cluster a block owns ``parts`` parts of ``FLOWS_PER_PART`` flows
+    (one up to a cluster's worth of parts, ceil(F / (8 * 2048)) past it)
+    whatever else F is, so flow i is part i // 2048's in any cluster:
+    flows appended to a cell (a bucket's padding, which adds only exact
+    zeros) leave every real flow's part, and so every sum's order, as
+    they are."""
     nf: int
+    parts: int
     nl: int
     ns: int
     nw: int
@@ -109,8 +121,10 @@ def block_shape(F: int, H: int, L1: int, n_src: int, n_sw: int,
                 cluster: int) -> BlockShape:
     def per(n):
         return -(-n // cluster)
-    nf, nl = (FLOWS_PER_BLOCK if cluster > 1 else F), per(L1)
-    return BlockShape(nf, nl, per(n_src), per(n_sw), nf * H,
+    parts = max(1, -(-F // (cluster * FLOWS_PER_PART))) if cluster > 1 \
+        else 1
+    nf = parts * FLOWS_PER_PART if cluster > 1 else F
+    return BlockShape(nf, parts, per(L1), per(n_src), per(n_sw), nf * H,
                       (nf - 1).bit_length(), (H * L1).bit_length())
 
 
@@ -124,6 +138,7 @@ def smem_layout(F: int, H: int, L1: int, n_src: int, n_sw: int,
     shared total, in the block's stretch of the workspace."""
     s = block_shape(F, H, L1, n_src, n_sw, cluster)
     N, nf, nl, C = s.n_items, s.nf, s.nl, cluster
+    V = C * s.parts  # the cell's parts
     cl = C > 1
     kept = (("ws", 256 * 16 + 40),  # sort counts by digit and warp; scans
             ("small", 4 * (H + 1) + 4), ("items", N), ("segs", N + 1),
@@ -133,14 +148,15 @@ def smem_layout(F: int, H: int, L1: int, n_src: int, n_sw: int,
             ("r", nf), ("hcap", nf), ("sid", nf),
             ("q", nl), ("sat", nl), ("ce", nl), ("arr", nl), ("ovr", nl),
             ("smax", nl if with_aux else 0),
-            ("srcp", C * s.ns), ("srcl", s.ns),
+            ("srcp", V * s.ns), ("srcl", s.ns),
             ("swp", 3 * s.nw), ("stall", s.nw))
-    # the block's flows by source and every link of its switches by
-    # switch: up to nf + L1 items
-    grouping = (("tmp", N), ("ssw", L1), ("boff", n_src + n_sw + 1),
+    # the block's flows by part and source and every link of its switches
+    # by switch: up to nf + L1 items
+    grouping = (("tmp", N), ("ssw", L1),
+                ("boff", s.parts * n_src + n_sw + 1),
                 ("scr", nf + L1), ("ord", nf + L1))
-    hops = (("part", C * nl if cl else 0),
-            ("spart", C * nl if cl and with_aux else 0),
+    hops = (("part", V * nl if cl else 0),
+            ("spart", V * nl if cl and with_aux else 0),
             ("touch", nl if cl else 0), ("list", 2 * nl if cl else 0))
     off = {}
 
@@ -172,10 +188,11 @@ class LaunchConfig(NamedTuple):
 
 
 def _encodes(F, H, L1, n_src, n_sw, cluster) -> bool:
-    """A block's hop items fit the kernel's 16-bit counts and 31-bit
-    (key, index) words."""
+    """A block's hop items fit the kernel's counts (at most MAX_ITEMS)
+    and its KEY_BITS-bit (key, index) words."""
     s = block_shape(F, H, L1, n_src, n_sw, cluster)
-    return s.n_items < 65536 and s.ib + s.kb <= 31
+    return s.n_items <= MAX_ITEMS and s.ib + s.kb <= KEY_BITS \
+        and s.kb < 32
 
 
 def _words(F, H, L1, n_src, n_sw, cluster, with_aux, workspace=()) -> int:
@@ -192,17 +209,17 @@ def _cell_config(F, H, L1, n_src, n_sw, with_aux, wide=None):
     would take (its bits are the shared layout's)."""
     if F > MAX_FLOWS:
         raise ValueError(
-            f"fabric_step_core takes at most {MAX_FLOWS} flows a cell (a "
-            f"cluster of {CLUSTER_SIZES[-1]} blocks of {FLOWS_PER_BLOCK}), "
-            f"got F={F}")
-    least = -(-F // FLOWS_PER_BLOCK)
+            f"fabric_step_core takes at most {MAX_FLOWS} flows a cell "
+            f"({MAX_PARTS} parts of {FLOWS_PER_PART}: a link's mask of the "
+            f"parts that posted to it has {MAX_PARTS} bits), got F={F}")
+    least = min(-(-F // FLOWS_PER_PART), CLUSTER_SIZES[-1])
     sizes = [c for c in CLUSTER_SIZES
              if c >= least and _encodes(F, H, L1, n_src, n_sw, c)]
     if not sizes:
         raise ValueError(
             f"fabric_step_core: no cluster of {CLUSTER_SIZES} takes a cell "
-            f"of F={F}, H={H}, L+1={L1} with fewer than 65536 hop items a "
-            f"block and item keys of 31 bits")
+            f"of F={F}, H={H}, L+1={L1} with at most {MAX_ITEMS} hop items "
+            f"a block and (key, index) words of {KEY_BITS} bits")
 
     def fits(c, aux, rows=()):
         return 4 * _words(F, H, L1, n_src, n_sw, c, aux, rows) <= SMEM_LIMIT
@@ -236,8 +253,9 @@ def launch_config(B: int, F: int, H: int, L1: int, n_src: int, n_sw: int,
     """The launch of B cells of these shapes. The cluster and the block
     depend on (F, H, L+1, n_src, n_sw) alone, never on B or ``with_aux``,
     so each segment sum runs in the same order in any batch: the smallest
-    cluster with at most ``FLOWS_PER_BLOCK`` flows a block whose layout
-    fits shared memory with the aux observer (else without it);
+    cluster with at most one part (``FLOWS_PER_PART`` flows) a block, or
+    the largest cluster past that, whose layout fits shared memory with
+    the aux observer (else without it);
     ``MAX_THREADS`` threads a block, ``SMALL_THREADS`` for a small cell
     (the phases are latency-bound, and more warps hide more of it where
     there is work for them).
@@ -252,10 +270,19 @@ def launch_config(B: int, F: int, H: int, L1: int, n_src: int, n_sw: int,
     or its order, so a cell both layouts take gives the same bits in
     both (``wide=True`` forces the wide layout, for that check).
 
-    Raises ValueError for a cell of more than ``MAX_FLOWS`` = 16,384
-    flows (an alltoall over more than 256 nodes), or one whose hop items
-    no cluster of 8 encodes (65,536 or more a block, or item keys and
-    indices over 31 bits)."""
+    A cell of more than 8 parts (16,384 flows: an alltoall over more than
+    256 nodes) runs on a cluster of 8 whose blocks own ceil(F / 16,384)
+    consecutive parts each, and take the wide layout at the paper's
+    shapes (``scale_sweep``'s 512-node alltoall cells: 65,536 flows, four
+    parts a block). Each part's share of a sum is folded on its own and
+    the shares are added in part order, as on a cluster of a part a
+    block, so a cell padded to more parts keeps its bits.
+
+    Raises ValueError for a cell of more than ``MAX_FLOWS`` = 65,536
+    flows (``MAX_PARTS`` parts), or one whose hop items no cluster
+    encodes (more than ``MAX_ITEMS`` = 65,536 a block, e.g. 65,536 flows
+    of more than 8 hops, or (key, index) words over ``KEY_BITS`` = 32
+    bits)."""
     threads, cluster, layout, rows, _ = _cell_config(
         F, H, L1, n_src, n_sw, bool(with_aux), wide)
     total, gtotal = layout[-2], layout[-1]

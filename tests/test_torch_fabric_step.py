@@ -26,6 +26,7 @@ except ImportError:  # pragma: no cover - needs a machine without JAX
 from repro_torch.kernels import fabric_step as tfs  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401  (fixture)
 
 FS_TOL = dict(rtol=2e-4, atol=1.0)
 # (F, H, L, n_src, n_sw) — the reference's kernel-test shapes
@@ -199,9 +200,9 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
             t("caps_finite"), t("src_sw"), t("dst_sw"), *sc)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfs.fabric_step_core(*args, n_src=n_src, n_sw=n_sw)
-    # 2048 flows of 8 hops over 2**21 links: (key, index) over 31 bits on
+    # 2048 flows of 8 hops over 2**21 links: (key, index) over 32 bits on
     # every cluster
-    with pytest.raises(ValueError, match="31 bits"):
+    with pytest.raises(ValueError, match="32 bits"):
         tfs.launch_config(1, 2048, 8, 1 << 21, 64, 64)
     # the rows of a 4096-node LUMI cell go to the workspace, not refused
     cfg = tfs.launch_config(1, 4095, 8, 20000, 4096, 1026, with_aux=True)
@@ -272,7 +273,7 @@ def _fold(vals, op):
 
 
 def _parts(seg, rank, vals, op):
-    """{segment: {rank: part}}, each (segment, rank) group folded in
+    """{segment: {part: share}}, each (segment, part) group folded in
     ascending index order."""
     out = {}
     order = np.lexsort((np.arange(len(seg)), rank, seg))
@@ -285,16 +286,17 @@ def _parts(seg, rank, vals, op):
     return out
 
 
-def _every_rank(parts, cluster, op):
-    """((P_0 op P_1) op ...) op P_{C-1}, a rank without a part giving 0."""
+def _every_rank(parts, n_parts, op):
+    """((S_0 op S_1) op ...) op S_{V-1}, a part without a share giving
+    0."""
     v = parts.get(0, f32(0))
-    for c in range(1, cluster):
+    for c in range(1, n_parts):
         v = op(v, parts.get(c, f32(0)))
     return v
 
 
 def _contributors(parts, op):
-    """The parts of the ranks that contributed, in rank order."""
+    """The shares of the parts that contributed, in part order."""
     ranks = sorted(parts)
     v = parts[ranks[0]]
     for c in ranks[1:]:
@@ -304,18 +306,22 @@ def _contributors(parts, op):
 
 def _order_model(c, sc, n_src, n_sw, with_aux, cluster):
     """The kernel's step core for one cell in numpy float32, every segment
-    summed in the kernel's order on a cluster of ``cluster`` blocks."""
+    summed in the kernel's order on a cluster of ``cluster`` blocks: each
+    part's share (the flows [p * 2048, (p + 1) * 2048) on a cluster, all
+    of them on one block) folded on its own, the shares added in part
+    order."""
     dt, qmax, hf, hs, bj = (f32(x) for x in sc)
     plinks = c["plinks"]
     F, H = plinks.shape
     L1 = len(c["q"])
     sink = L1 - 1
     bs = tfs.block_shape(F, H, L1, n_src, n_sw, cluster)
-    frank = np.arange(F) // bs.nf
+    frank = np.arange(F) // (bs.nf // bs.parts)  # each flow's part
     q, occ, inject = c["q"], c["occ"], c["inject"]
     with np.errstate(all="ignore"):
         src = _parts(c["src_id"], frank, inject, _add)
-        src_load = np.array([_every_rank(src.get(s, {}), cluster, _add)
+        src_load = np.array([_every_rank(src.get(s, {}),
+                                         cluster * bs.parts, _add)
                              for s in range(n_src)], f32)
         sat = np.minimum(np.maximum((occ - hs) / (f32(1) - hs), f32(0)),
                          f32(1))
@@ -452,7 +458,7 @@ def test_order_model_matches_plain_random(shape, with_aux):
 @pytest.mark.parametrize("with_aux", [False, True])
 def test_order_model_on_a_cluster_matches_plain(cluster, with_aux):
     """Parts of a cluster's blocks added in rank order (3000 flows: two
-    blocks of FLOWS_PER_BLOCK hold them, the rest of the cluster none),
+    blocks of FLOWS_PER_PART hold them, the rest of the cluster none),
     with segments long enough for the warp's butterfly (about 150 flows a
     link and hop)."""
     shape = (3000, 3, 20, 9, 4)
@@ -516,8 +522,8 @@ def test_launch_config_depends_on_shapes_only(label):
     assert one.smem <= aux.smem <= tfs.SMEM_LIMIT == 232448
     assert one.threads in (tfs.SMALL_THREADS, tfs.MAX_THREADS)
     # a small cell is one block; cresco8's 16,384 flows spread over eight
-    assert one.cluster == (8 if F > tfs.FLOWS_PER_BLOCK else 1)
-    assert F <= one.cluster * tfs.FLOWS_PER_BLOCK
+    assert one.cluster == (8 if F > tfs.FLOWS_PER_PART else 1)
+    assert F <= one.cluster * tfs.FLOWS_PER_PART
     bs = tfs.block_shape(F, H, L1, n_src, n_sw, one.cluster)
     assert bs.n_items < 65536 and bs.ib + bs.kb <= 31
 
@@ -540,16 +546,36 @@ def test_launch_config_refuses_where_check_smem_refuses():
     assert cfg.workspace and cfg.ws_bytes > 0
 
 
+# (F, H, L+1, n_src, n_sw) of scale_sweep's 512-node alltoall bucket: its
+# four cells padded together (bench.bucket_stack)
+BUCKET_512 = (65536, 8, 40861, 513, 778)
+
+
 @pytest.mark.parametrize("B", [1, 64])
 def test_launch_config_refuses_more_flows_than_a_cluster_holds(B):
-    """A cell of more than MAX_FLOWS = 8 x 2048 flows (an alltoall over
-    more than 256 nodes) raises, though its rows would fit; 16,384 flows
-    run on a cluster of eight."""
-    assert tfs.MAX_FLOWS == 16384
+    """Past eight parts a block of the cluster owns several: the 512-node
+    alltoall bucket (65,536 flows) runs on a cluster of eight blocks of
+    512 threads, four parts (8,192 flows, 65,536 hop items, 32-bit item
+    words) a block, in the wide layout, with and without aux; 16,384
+    flows still run a part a block. A cell of more than MAX_FLOWS = 32 x
+    2048 flows raises, and so does one of more than MAX_ITEMS hop items a
+    block (65,536 flows of 9 hops)."""
+    assert tfs.MAX_FLOWS == 65536
+    for aux in (False, True):
+        cfg = tfs.launch_config(B, *BUCKET_512, with_aux=aux)
+        assert (cfg.grid, cfg.threads, cfg.cluster) == (8 * B, 512, 8)
+        assert cfg.workspace and cfg.ws_bytes > 0
+        assert cfg.smem <= tfs.SMEM_LIMIT
+        bs = tfs.block_shape(*BUCKET_512, cfg.cluster)
+        assert (bs.nf, bs.parts, bs.n_items) == (8192, 4, 65536)
+        assert bs.ib + bs.kb == 32
+    with pytest.raises(ValueError, match="at most 65536 flows"):
+        tfs.launch_config(B, 65537, *BUCKET_512[1:])
+    with pytest.raises(ValueError, match="at most 65536 hop items"):
+        tfs.launch_config(B, 65536, 9, *BUCKET_512[2:])
     dims = dict(H=4, L1=897, n_src=129, n_sw=54)
-    with pytest.raises(ValueError, match="at most 16384 flows"):
-        tfs.launch_config(B, 16385, *dims.values())
     assert tfs.launch_config(B, 16384, *dims.values()).cluster == 8
+    assert tfs.block_shape(16384, *dims.values(), 8).parts == 1
 
 
 def test_smem_layout_is_the_sources_layout():
@@ -574,6 +600,24 @@ def test_smem_layout_is_the_sources_layout():
             assert off["tmp"] == off["part"] <= off["list"] <= off["total"]
             assert off["ord"] < off["total"]
             assert off["ws"] % 4 == 0  # the radix counts are read as int4
+
+
+def test_cluster_and_part_limits_are_the_sources():
+    """The source's largest cluster, part size, parts a cell, hop items a
+    block and item word are the wrapper's, and its launcher refuses a
+    cluster past the wrapper's largest."""
+    code = _c_functions(tfs.SOURCE.read_text())
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", code).group(1)
+    assert int(const("MAX_CLUSTER")) == tfs.CLUSTER_SIZES[-1] == 8
+    assert 1 << int(const("PART_BITS")) == tfs.FLOWS_PER_PART
+    assert const("FLOWS_PER_PART") == "1 << PART_BITS"
+    assert int(const("MAX_PARTS")) == tfs.MAX_PARTS
+    assert int(const("MAX_ITEMS")) == tfs.MAX_ITEMS
+    assert int(const("KEY_BITS")) == tfs.KEY_BITS
+    assert "cluster > MAX_CLUSTER" in code and "s.V > MAX_PARTS" in code
+    assert all(c & (c - 1) == 0 for c in tfs.CLUSTER_SIZES)
 
 
 def _c_functions(src):
@@ -632,11 +676,17 @@ def _needs_card():
 @pytest.mark.cuda
 def test_kernel_launches_bit_equal_and_batch_invariant_on_card():
     """Ten launches bit-equal; each cell alone bit-equal to its row of the
-    batched launch; and the kernel bit-equal to the order model."""
+    batched launch; and the kernel bit-equal to the order model: on one
+    block, on a cluster, with ten parts (20,000 flows, two parts a block
+    of the cluster of eight), and on clusters whose one-pass sort leaves
+    the items in the scratch the hop tables reuse (shared layout)."""
     _needs_card()
     for cells, scalars, n_src, n_sw in (
             _grid_cells(*SLICES["leonardo/64/incast"], seed=100),
-            (*_random_cells((700, 3, 20, 9, 4), 3, 11), 9, 4)):
+            (*_random_cells((700, 3, 20, 9, 4), 3, 11), 9, 4),
+            (*_random_cells((20000, 3, 40, 9, 6), 3, 23), 9, 6),
+            (*_random_cells((3000, 1, 40, 9, 6), 3, 29), 9, 6),
+            (*_random_cells((20000, 1, 40, 9, 6), 3, 31), 9, 6)):
         args, kw = _card_tensors(cells, scalars, n_src, n_sw)
         cfg = tfs.launch_config(len(cells), *args[0].shape[1:],
                                 args[4].shape[1], n_src, n_sw, True)
@@ -734,7 +784,7 @@ def test_launch_config_takes_the_wide_cells(label, with_aux):
     dims = WIDE_DIMS[label]
     cfg = tfs.launch_config(3, *dims, with_aux=with_aux)
     F = dims[0]
-    assert F <= cfg.cluster * tfs.FLOWS_PER_BLOCK
+    assert F <= cfg.cluster * tfs.FLOWS_PER_PART
     assert cfg.grid == 3 * cfg.cluster and cfg.threads == tfs.MAX_THREADS
     assert cfg.smem <= tfs.SMEM_LIMIT and cfg.ws_bytes > 0
     assert cfg.workspace == tfs.WIDE_ROWS[:len(cfg.workspace)]
@@ -849,22 +899,21 @@ def _pad_cell(c, n_src, F_to, n_pad_links):
                 src_sw=links("src_sw", 0), dst_sw=links("dst_sw", 0))
 
 
-@pytest.mark.parametrize("with_aux", [False, True])
-def test_order_model_padded_cell_equals_alone(with_aux):
-    """A cell of 3000 flows alone (a cluster of two) and padded to 16,384
-    flows and 25 more links (a cluster of eight): a flow is block
-    i // FLOWS_PER_BLOCK's on any cluster, so every part of the cell is
-    summed in one order in both and the order model gives the same bits
-    on the cell's flows and links."""
+def _padded_equals_alone(F_to, with_aux, parts):
+    """A cell of 3000 flows alone (a cluster of two) and padded to F_to
+    flows and 25 more links (a cluster of eight, ``parts`` parts a
+    block): the order model's bits on the cell's flows and links."""
     F, H, L, n_src, n_sw = shape = (3000, 3, 40, 9, 6)
     cells, scalars = _random_cells(shape, 1, 17)
     c, sc = cells[0], scalars[0]
     n_pad = 25
-    padded = _pad_cell(c, n_src, tfs.MAX_FLOWS, n_pad)
+    padded = _pad_cell(c, n_src, F_to, n_pad)
     alone_cfg = tfs.launch_config(1, F, H, L + 1, n_src, n_sw, with_aux)
-    pad_cfg = tfs.launch_config(1, tfs.MAX_FLOWS, H, L + n_pad + 1,
+    pad_cfg = tfs.launch_config(1, F_to, H, L + n_pad + 1,
                                 n_src + 1, n_sw, with_aux)
     assert (alone_cfg.cluster, pad_cfg.cluster) == (2, 8)
+    assert tfs.block_shape(F_to, H, L + n_pad + 1, n_src + 1, n_sw,
+                           8).parts == parts
     alone = _order_model(c, sc, n_src, n_sw, with_aux, alone_cfg.cluster)
     got = _order_model(padded, sc, n_src + 1, n_sw, with_aux,
                        pad_cfg.cluster)
@@ -876,6 +925,40 @@ def test_order_model_padded_cell_equals_alone(with_aux):
         np.testing.assert_array_equal(g.view(np.uint32),
                                       alone[k].view(np.uint32), k)
     assert not got["arrival"][L:L + n_pad].any()
+
+
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_padded_cell_equals_alone(with_aux):
+    """A cell of 3000 flows alone (a cluster of two) and padded to 16,384
+    flows and 25 more links (a cluster of eight): a flow is part
+    i // FLOWS_PER_PART's on any cluster, so every part of the cell is
+    summed in one order in both and the order model gives the same bits
+    on the cell's flows and links."""
+    _padded_equals_alone(8 * tfs.FLOWS_PER_PART, with_aux, 1)
+
+
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_padded_to_65536_flows_equals_alone(with_aux):
+    """The same cell padded to 65,536 flows (32 parts, four a block of
+    the cluster of eight): its two parts keep their folds and their
+    order, so the order model gives the bits it gives alone."""
+    _padded_equals_alone(tfs.MAX_FLOWS, with_aux, 4)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("with_aux", [False, True])
+def test_order_model_with_more_than_eight_parts_matches_plain(with_aux):
+    """20,000 flows (ten parts: two a block of the cluster of eight, the
+    last part short), segments long enough for the warp's butterfly: the
+    kernel's order within §13 of the plain version."""
+    shape = (20000, 3, 40, 9, 6)
+    cfg = tfs.launch_config(2, *shape[:2], shape[2] + 1, *shape[3:])
+    assert cfg.cluster == 8
+    assert tfs.block_shape(*shape[:2], shape[2] + 1, *shape[3:],
+                           8).parts == 2
+    cells, scalars = _random_cells(shape, 2, 23)
+    _hold_model_to_plain(cells, scalars, shape[3], shape[4], with_aux,
+                         cfg.cluster)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,10 @@ CASES = [("nanjing_nslb", 8, "alltoall", "alltoall"),
          ("nanjing_ecmp", 8, "alltoall", "alltoall"),
          ("leonardo", 64, "ring_allgather", "incast"),
          ("lumi", 16, "ring_allgather", "alltoall"),
-         ("cresco8", 16, "ring_allgather", "incast")]
+         ("cresco8", 16, "ring_allgather", "incast"),
+         # scale_sweep's 512-node alltoall cells: 65,536 flows
+         ("cresco8", 512, "ring_allgather", "alltoall"),
+         ("haicgu_ib", 512, "ring_allgather", "alltoall")]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}")

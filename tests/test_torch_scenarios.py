@@ -269,24 +269,36 @@ def test_pt_run_accepts_scenarios_and_faults(tmp_path, capsys,
     assert f"winners equal JAX's {winners}" in out
 
 
-def test_scale_sweep_full_ladder_stops_at_256_alltoall_nodes():
-    """The full scale_sweep keeps the reference's registry entry; the
-    driver runs its alltoall ladder to 256 nodes and names the cells it
-    leaves out."""
+def test_scale_sweep_runs_the_full_ladder(monkeypatch, capsys, tmp_path):
+    """pt_new_scenarios runs the reference's full scale_sweep entry as it
+    is, its 512-node alltoall cells included, with no note; and kernel 1
+    takes the bucket those four cells pad into (65,536 flows; geometries
+    only, no engine run)."""
     from benchmarks import pt_new_scenarios
+    from repro_torch.core.fabric import systems
+    from repro_torch.kernels import fabric_step
 
     full = tscen.get("scale_sweep", False)
-    assert any(n == 512 for g in full.grids for _, n in g.cells)
-    run, note = pt_new_scenarios.runnable(full)
-    for g, orig in zip(run.grids, full.grids):
-        if g.aggressor == "alltoall":
-            assert max(n for _, n in g.cells) == 256
-            assert len(g.cells) == len(orig.cells) - 4
-        else:
-            assert g.cells == orig.cells
-    assert "Queue 2 item 6" in note and "('lumi', 512)" in note
-    quick = tscen.get("scale_sweep", True)
-    assert pt_new_scenarios.runnable(quick) == (quick, "")
+    got = []
+    monkeypatch.setattr(pt_new_scenarios, "scenario_rows",
+                        lambda scen, **kw: got.append((scen, kw)) or [])
+    pt_new_scenarios.main(device="cpu", cache_dir=str(tmp_path),
+                          families=("scale_sweep",))
+    (scen, kw), = got
+    assert scen == full and "comment" not in kw
+    assert "# scale_sweep: 0 rows" in capsys.readouterr().out
+    cells = [c for g in scen.grids if g.aggressor == "alltoall"
+             for c in g.cells if c[1] == 512]
+    assert sorted(s for s, _ in cells) == ["cresco8", "haicgu_ib",
+                                           "leonardo", "lumi"]
+    dims, _ = tbench.bucket_stack([
+        tbench.build_case(systems.get_system(s), n, "ring_allgather",
+                          "alltoall").geom for s, n in cells])
+    assert dims.n_flows == fabric_step.MAX_FLOWS == 65536
+    cfg = fabric_step.launch_config(8, dims.n_flows, dims.max_hops,
+                                    dims.n_links + 1, dims.n_src, dims.n_sw,
+                                    with_aux=True)
+    assert cfg.cluster == 8 and cfg.workspace
 
 
 def _small_scenario(scen_mod, cong_mod):
