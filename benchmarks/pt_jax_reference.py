@@ -1,7 +1,7 @@
 """Reference rows for the PyTorch port, computed by the JAX package.
 
 ``PYTHONPATH=src python -m benchmarks.pt_jax_reference [--out PATH]
-[--only fabric|fig7_fig8|scenarios|scale512|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe|dense]``
+[--only fabric|fig7_fig8|scenarios|scale512|fleet_replay|mitigation|whatif|sweep|encdec|lm|train|moe|dense|dryrun]``
 
 ``--only`` takes a comma list of parts.
 
@@ -123,6 +123,15 @@ as ``lm`` keeps them. It needs about 30 GB of host memory.
 full width, 2 layers, float32 (``benchmarks.pt_serve.DENSE_REFERENCE``:
 0.42 B parameters, 1.7 GB; head size 96), the prompts and steps of ``lm``,
 the prefill's cache padded for the decode steps as ``moe`` pads it.
+
+``dryrun`` (only with ``--only dryrun``) writes
+``artifacts/bench_cache_torch/jax_dryrun_reference.json``: the reference's
+``python -m repro.launch.dryrun --smoke`` (reduced config, seq <= 512,
+batch <= 8, its host mesh) in a child process per cell, with
+``REPRO_DRYRUN_DIR`` a temporary directory (the dry run sets 512 host
+devices at import, so it never runs in this process), for ``DRYRUN_CELLS``:
+each cell's ``hlo``, ``memory``, ``roofline`` and ``model_flops``, or, for
+a cell the reference could not run, its exit code and last error line.
 """
 from __future__ import annotations
 
@@ -168,6 +177,11 @@ LM_OUT = os.path.join(os.path.dirname(OUT), "jax_lm_reference.json")
 MOE_OUT = os.path.join(os.path.dirname(OUT), "jax_moe_reference.json")
 DENSE_OUT = os.path.join(os.path.dirname(OUT), "jax_dense_reference.json")
 TRAIN_OUT = os.path.join(os.path.dirname(OUT), "jax_train_reference.json")
+DRYRUN_OUT = os.path.join(os.path.dirname(OUT), "jax_dryrun_reference.json")
+# the reference's smoke dry-run cells the port's are held to: its own
+# fixture cell (tests/test_hlo_stats.py), a prefill, a decode and an MoE
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("phi3-mini-3.8b", "prefill_32k"),
+                ("yi-6b", "decode_32k"), ("grok-1-314b", "prefill_32k"))
 
 
 def _commit() -> str:
@@ -1047,6 +1061,48 @@ def train_reference() -> dict:
             "wall_s": time.time() - t0}
 
 
+def dryrun_reference() -> dict:
+    """The reference's smoke dry-run cells (module docstring), each in a
+    child process."""
+    import sys
+    import tempfile
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    cells, t0 = {}, time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            env = dict(os.environ, REPRO_DRYRUN_DIR=tmp, JAX_PLATFORMS="cpu",
+                       PYTHONPATH=src + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            env.pop("XLA_FLAGS", None)
+            r = subprocess.run(
+                [sys.executable, "-m", "repro.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--smoke"], env=env,
+                capture_output=True, text=True, timeout=900)
+            key = f"{arch}__{shape}__single__smoke"
+            path = os.path.join(tmp, key + ".json")
+            if r.returncode != 0 or not os.path.exists(path):
+                lines = (r.stderr or "").strip().splitlines()
+                errs = [ln for ln in lines if "Error:" in ln] or lines[-1:]
+                cells[key] = {"status": "not_run", "returncode": r.returncode,
+                              "error": errs[-1][:600] if errs else ""}
+                print(f"{key}: the reference could not run it", flush=True)
+                continue
+            with open(path) as f:
+                cell = json.load(f)
+            cells[key] = {k: cell[k] for k in (
+                "arch", "shape", "mesh", "n_devices", "status", "smoke",
+                "hlo", "memory", "roofline", "model_flops") if k in cell}
+    import jax
+    return {"source": "benchmarks/pt_jax_reference.py --only dryrun",
+            "jax_version": jax.__version__, "commit": _commit(),
+            "command": "python -m repro.launch.dryrun --arch A --shape S "
+                       "--mesh single --smoke",
+            "not_run": sorted(k for k, c in cells.items()
+                              if c["status"] == "not_run"),
+            "cells": cells, "wall_s": time.time() - t0}
+
+
 def _write(doc: dict, path: str) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -1063,11 +1119,11 @@ def main() -> None:
     ap.add_argument("--only", default=None,
                     help="comma list of fabric, fig7_fig8, scenarios, "
                          "scale512, fleet_replay, mitigation, whatif, sweep, encdec, "
-                         "lm, train, moe, dense")
+                         "lm, train, moe, dense, dryrun")
     args = ap.parse_args()
     parts = ("fabric", "fig7_fig8", "scenarios", "scale512",
              "fleet_replay", "mitigation", "whatif", "sweep", "encdec", "lm",
-             "train", "moe", "dense")
+             "train", "moe", "dense", "dryrun")
     only = [p for p in (args.only or "").split(",") if p]
     if any(p not in parts for p in only):
         ap.error(f"--only takes a comma list of {parts}")
@@ -1113,6 +1169,8 @@ def main() -> None:
         from benchmarks import pt_serve
         _write(lm_reference(pt_serve.DENSE_REFERENCE, "dense",
                             pad_cache=True), (only and args.out) or DENSE_OUT)
+    if "dryrun" in run:
+        _write(dryrun_reference(), (only and args.out) or DRYRUN_OUT)
 
 if __name__ == "__main__":
     main()

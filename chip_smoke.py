@@ -229,6 +229,25 @@ Builds the port's ten CUDA sources from ``src/repro_torch/csrc`` (into
 28. ``serve_kimi``: kimi-k2 at full width on ``KIMI_LAYERS`` of its 61
    layers (384 experts top-8; kernel 7 at 64/8 heads x 112), served
    likewise;
+28a. ``dryrun_vs_card``: phi3-mini's wave-1 prefill of 27 (the same
+   model drawn again from its seed, full width and depth, bfloat16)
+   counted by the dry run on meta tensors (``launch.steps.lower_cell`` on
+   the host layout, ``hlo_stats.StepCounter``), then run on the card under
+   ``FlopCounterMode`` with kernel 7's FLOPs by the dry run's formula
+   times its launches (32): the two FLOP counts equal, the meta peak of
+   live bytes past the arguments within ``DRYRUN_PEAK_REL`` of the rise of
+   ``max_memory_allocated`` over the prefill; the prefill's device ms
+   beside the H100 roofline bound of the count (``roofline_fraction``);
+28b. ``tp_moe``: grok-1's ``moe_ffn`` at full width (d 6144, f 32768, 8
+   experts top-2, capacity 400 at 1 x 1280 tokens a data shard), bfloat16,
+   on 8 gloo ranks of the card (``spawn_group``, each layout's row and
+   column subgroups): ``2d`` and ``2d_full`` on a (1, 8) data x model
+   layout, ``ep`` on (2, 4); each rank draws only its share of the expert
+   leaves (blocks keyed by leaf, expert and 4,096-column block), holds
+   each to the one-rank TP-1 function of the same weights
+   (``moe.tp_fold`` for ``ep``/``2d``) within ``TP_MOE_REL`` of the
+   largest |output|; µs a call, bytes staged through the host and kernel
+   2's launches in the ring reduce-scatters;
 29. ``timing_dense``: kernel 7 and its backward at the three prefill
    shapes of 27 and 28 (``DENSE_SHAPES``, which ``FA_EDGES`` also holds
    in 9 and 16, and whose float32 runs 9 and 16 make with the D = 96,
@@ -587,6 +606,22 @@ DENSE_REFERENCE = os.path.join(ROOT, "artifacts", "bench_cache_torch",
 DENSE_ARCHS = (("phi3-mini-3.8b", "phi3-mini prefill"),
                ("granite-20b", "granite-20b prefill"))
 KIMI_LAYERS = 1
+# dryrun_vs_card: the meta count's peak of live bytes past the arguments
+# against the card's rise of max_memory_allocated over the same prefill
+DRYRUN_PEAK_REL = 0.10
+# tp_moe: (mode, (data, model) layout) cases of grok-1's moe_ffn on 8 gloo
+# ranks of the card, the tokens of a data shard, the column block its
+# expert leaves are drawn in, the seed, the limit of each case against its
+# one-rank TP-1 function (relative to the largest |output|; measured
+# 0.0087-0.0117 on the H100: the TP sums round each rank's partial to
+# bfloat16, the TP-1 function rounds once), and the timed calls a rank
+# makes
+TP_MOE_CASES = (("2d", (1, 8)), ("2d_full", (1, 8)), ("ep", (2, 4)))
+TP_MOE_TOKENS = 1280
+TP_MOE_BLOCK = 4096
+TP_MOE_SEED = 91
+TP_MOE_REL = 2.0 ** -5
+TP_MOE_CALLS = 3
 # (F, H, L, n_src, n_sw) random shapes, as the reference's kernel tests
 RANDOM_SHAPES = ((7, 3, 13, 4, 5), (130, 5, 300, 33, 17),
                  (256, 4, 255, 8, 8), (1, 1, 2, 1, 2))
@@ -4110,6 +4145,7 @@ class Smoke:
         (``serve_arch``): phi3-mini-3.8b (kernel 7 at G = 1, D = 96), then
         granite-20b (G = 48, D = 128, MQA), each once a layer a prefill,
         all on the wgmma source."""
+        from benchmarks import pt_serve
         from repro_torch.configs import get_config
         self.serve_dense_launches, self.report["serve_dense"] = {}, {}
         for arch, label in DENSE_ARCHS:
@@ -4119,6 +4155,9 @@ class Smoke:
                 f"serve_dense {arch}", cfg, cfg.n_layers, seed=53)
             self.serve_dense_launches[arch] = rep["launches"]
             self.report["serve_dense"][arch] = rep
+            if arch == DENSE_ARCHS[0][0]:  # dryrun_vs_card's prefill
+                self.dense_batch = (cfg, self.frontend_batch(
+                    server, server.done[:pt_serve.MAX_BATCH], 53))
             del server, model
             self.torch.cuda.empty_cache()
 
@@ -4138,6 +4177,176 @@ class Smoke:
         self.report["serve_kimi"] = rep
         del server, model
         self.torch.cuda.empty_cache()
+
+    def dryrun_vs_card(self):
+        """The dry run of phi3-mini's wave-1 prefill against the same
+        prefill on the card (module docstring, 28a)."""
+        torch = self.torch
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import hlo_stats, mesh, roofline
+        from repro_torch.launch.steps import lower_cell
+        from repro_torch.models.api import build_model
+        from repro_torch.models.layers import init_params
+        # serve_dense's model drawn again from its seed (pt_serve.serve's
+        # 0), so serve_dense frees it before granite-20b's peak is read
+        cfg, batch = self.dense_batch
+        model = build_model(cfg, device=self.dev)
+        model.load_params(init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0), None,
+            self.dev))
+        B, S = batch["tokens"].shape
+        shape = ShapeConfig("serve wave 1", S, B, "prefill")
+        layout = mesh.make_host_mesh()
+        t0 = time.time()
+        low = lower_cell(cfg, shape, layout, mesh.rules_for(cfg, layout))
+        counter = hlo_stats.StepCounter(attn_chunk=cfg.attn_chunk,
+                                        records=low.records)
+        with counter:
+            counter.arguments(low.arguments)
+            outs = low.run()
+        meta = counter.result(outs)
+        count_s = time.time() - t0
+        fwd = [c for c in counter.kernel_calls
+               if c["kernel"] == "flash_attention"]
+        # the card: the same prefill under FlopCounterMode, kernel 7 by the
+        # dry run's formula times its launches
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+
+        def run():
+            with FlopCounterMode(display=False,
+                                 custom_mapping=hlo_stats.FLOP_MAPPING) as fc:
+                out = model.prefill(batch)
+            torch.cuda.synchronize()
+            run.aten, run.out = fc.get_total_flops(), out
+            return ("flash_attention",)
+
+        counts = self.path("dryrun_vs_card", run)
+        rise = torch.cuda.max_memory_allocated() - before
+        del run.out
+        H, D = cfg.n_heads, cfg.resolved_head_dim
+        per_call = 4 * hlo_stats.attention_units(B, S, S, H, D,
+                                                 cfg.attn_chunk)
+        card = run.aten + per_call * counts["flash_attention"]
+        self.check(counts["flash_attention"] == cfg.n_layers == len(fwd),
+                   f"dryrun_vs_card: kernel 7 launched "
+                   f"{counts['flash_attention']} times, the count has "
+                   f"{len(fwd)} calls, {cfg.n_layers} layers")
+        self.check(card == meta["flops"], f"dryrun_vs_card: card FLOPs "
+                   f"{card} != the dry run's {meta['flops']}")
+        step_peak = meta["memory"]["peak_per_device_bytes"] \
+            - meta["memory"]["argument_bytes"]
+        peak_rel = abs(step_peak - rise) / rise
+        self.check(peak_rel <= DRYRUN_PEAK_REL, f"dryrun_vs_card: meta peak "
+                   f"{step_peak} B vs the card's rise {rise} B: {peak_rel:.3g}"
+                   f" > {DRYRUN_PEAK_REL}")
+        # device ms of the prefill (CUDA events, median of 5 warm runs)
+        times = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            model.prefill(batch)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = sorted(times)[len(times) // 2]
+        chip = roofline.H100
+        terms = {"compute_s": meta["flops"] / chip.peak_flops,
+                 "memory_s": meta["hbm_bytes"] / chip.hbm_bw,
+                 "collective_s": 0.0}
+        bound_ms = 1e3 * max(terms.values())
+        by = max(terms, key=terms.get)
+        log(f"   phi3-mini prefill B={B} S={S}: FLOPs card {card:.6g} "
+            f"(aten {run.aten:.6g} + kernel 7 {per_call:.6g} x "
+            f"{counts['flash_attention']}) vs meta {meta['flops']:.6g}; "
+            f"peak past the arguments meta {step_peak / 1e9:.4f} GB vs card "
+            f"rise {rise / 1e9:.4f} GB ({peak_rel:.3g}); counted in "
+            f"{count_s:.1f}s; device {ms:.3f} ms vs H100 bound "
+            f"{bound_ms:.3f} ms ({by}), roofline_fraction "
+            f"{bound_ms / ms:.4f}")
+        self.report["dryrun_vs_card"] = {
+            "shape": f"B={B} S={S}", "flops_card": card,
+            "flops_card_aten": run.aten, "flops_meta": meta["flops"],
+            "kernel7_flops_a_call": per_call, "launches": counts,
+            "meta_step_peak_bytes": step_peak, "card_rise_bytes": rise,
+            "peak_rel": peak_rel, "meta_memory": meta["memory"],
+            "hbm_bytes": meta["hbm_bytes"], "count_s": count_s,
+            "device_ms": ms, "device_ms_runs": times,
+            "bound_ms": bound_ms, "bound_by": by,
+            "roofline_fraction": bound_ms / ms, "chip": chip.name}
+        self.dryrun_launches = counts["flash_attention"]
+        del self.dense_batch, model, batch
+        torch.cuda.empty_cache()
+
+    def tp_moe(self):
+        """grok-1's tensor-parallel moe_ffn on 8 gloo ranks of the card
+        against its one-rank TP-1 function (module docstring, 28b)."""
+        torch = self.torch
+        from repro_torch.launch import mesh
+        from repro_torch.models import moe
+        t0 = time.time()
+        ranks = mesh.spawn_group(tp_moe_rank, COLLECTIVE_RANKS,
+                                 backend="gloo", device=self.dev,
+                                 args=(TP_MOE_CASES,))
+        log(f"   {COLLECTIVE_RANKS} ranks: {time.time() - t0:.1f}s with the "
+            "spawn")
+        rep, self.tp_moe_launches = {}, 0
+        for i, (mode, layout) in enumerate(TP_MOE_CASES):
+            cfg = tp_moe_config(mode)
+            tp = layout[1]
+            got = [r[i] for r in ranks]
+            # every TP row's ranks the same bits
+            for r in got:
+                self.check(r["sha"] == got[r["data"] * tp]["sha"],
+                           f"tp_moe {mode}: rank {r['rank']} differs from "
+                           "its row")
+            full = tp_moe_weights(cfg, None, self.dev)
+            one = dataclasses.replace(cfg, d_ff=cfg.d_ff // tp) \
+                if mode in ("ep", "2d") else cfg
+            p = moe.tp_fold(full, cfg, tp)
+            del full
+            errs, tops = [], []
+            for i_data in range(layout[0]):
+                x = tp_moe_tokens(cfg, i_data, self.dev)
+                want, _ = moe.moe_ffn(x, p, one)
+                have = got[i_data * tp]["out"].to(self.dev)
+                errs.append(float((have.float() - want.float()).abs().max()))
+                tops.append(float(want.float().abs().max()))
+            del p
+            torch.cuda.empty_cache()
+            rel = max(errs) / max(tops)
+            share = max(r["held_bytes"] for r in got)
+            whole = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+            k2 = [r["kernel2"] for r in got]
+            staged = [r["staged"] for r in got]
+            us = max(r["us"] for r in got)
+            self.tp_moe_launches += sum(k2)
+            finite = all(r["finite"] for r in got)
+            log(f"   {mode} on {layout}: {rel:.3g} of the largest |output| "
+                f"{max(tops):.3g} from TP 1 (limit {TP_MOE_REL}); {us:.0f} "
+                f"us a call (slowest rank, median of {TP_MOE_CALLS}); staged "
+                f"{max(staged) / 1e6:.1f} MB a rank; kernel 2 {k2[0]} "
+                f"launches a rank; a rank holds {share / 1e9:.3f} GB of "
+                f"{whole / 1e9:.3f} GB of expert leaves; capacity "
+                f"{got[0]['capacity']}")
+            self.check(finite and rel <= TP_MOE_REL,
+                       f"tp_moe {mode}: {rel} of the largest |output| from "
+                       f"TP 1 > {TP_MOE_REL} (finite {finite})")
+            self.check(share * tp <= whole,
+                       f"tp_moe {mode}: a rank holds {share} B of {whole} B")
+            self.check(all(c > 0 for c in k2) == (mode != "2d_full")
+                       and all(c == k2[0] for c in k2),
+                       f"tp_moe {mode}: kernel 2 launches {k2}")
+            rep[mode] = {"layout": layout, "rel": rel, "max_abs_err":
+                         max(errs), "top": max(tops), "us": us,
+                         "us_ranks": [r["us"] for r in got],
+                         "staged_bytes": staged, "kernel2": k2,
+                         "held_bytes": share, "whole_bytes": whole,
+                         "capacity": got[0]["capacity"]}
+        self.report["tp_moe"] = rep
 
     def timing_dense(self):
         """Kernel 7 and its backward at the dense and kimi-k2 prefill
@@ -4459,6 +4668,109 @@ def collective_rank(ctx, sizes):
     return out, counts
 
 
+def tp_moe_config(mode):
+    """grok-1's config with ``moe_sharding`` = mode, bfloat16."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("grok-1-314b"), moe_sharding=mode)
+
+
+def tp_moe_block(key, shape, std, device):
+    """A standard normal block times ``std``, bfloat16, drawn on
+    ``device`` from TP_MOE_SEED and ``key``."""
+    import zlib
+    import torch
+    g = torch.Generator(device=device).manual_seed(
+        TP_MOE_SEED * 1_000_003 + zlib.crc32(repr(key).encode()))
+    return (torch.randn(shape, generator=g, device=device,
+                        dtype=torch.float32) * std).to(torch.bfloat16)
+
+
+def tp_moe_weights(cfg, cut, device):
+    """The MoE leaves (router whole; w1, w3 (E', d, f'), w2 (E', f', d))
+    built from blocks keyed by (leaf, expert, column block): ``cut``
+    (``moe.rank_slices``) keeps one rank's experts and f-blocks, ``None``
+    all of them."""
+    import numpy as np
+    import torch
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    out_std = 0.02 / np.sqrt(2 * max(cfg.n_layers, 1))
+    e_cut, f_cut = (cut["w1"][0], cut["w1"][2]) if cut else (
+        slice(0, E), slice(0, f))
+    blocks = range(f_cut.start // TP_MOE_BLOCK, f_cut.stop // TP_MOE_BLOCK)
+    p = {"router": tp_moe_block(("router",), (d, E), 0.02, device)}
+    for leaf, std in (("w1", 0.02), ("w3", 0.02), ("w2", out_std)):
+        cat = 0 if leaf == "w2" else 1
+        shape = (TP_MOE_BLOCK, d) if leaf == "w2" else (d, TP_MOE_BLOCK)
+        p[leaf] = torch.stack([torch.cat(
+            [tp_moe_block((leaf, e, b), shape, std, device) for b in blocks],
+            dim=cat) for e in range(e_cut.start, e_cut.stop)])
+    return p
+
+
+def tp_moe_tokens(cfg, data_index, device):
+    """Data shard ``data_index``'s (1, TP_MOE_TOKENS, d) bfloat16 tokens."""
+    return tp_moe_block(("x", data_index), (1, TP_MOE_TOKENS, cfg.d_model),
+                        1.0, device)
+
+
+def tp_moe_rank(ctx, cases):
+    """One rank of tp_moe: every case on its layout's subgroups (all made
+    on every rank, in one order), its share of the leaves drawn here; the
+    launch counts and staged bytes read around the checked call, then the
+    wall of TP_MOE_CALLS more calls. Returns per case the rank's output
+    (model index 0 only) and its sha256, the counts and times."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.kernels import fused_reduce
+    from repro_torch.models import moe
+    from repro_torch.models.layers import RankGroups
+    from repro_torch.launch import mesh
+    layouts = {}
+    for layout in sorted({c[1] for c in cases}):
+        layouts[layout] = mesh.layout_groups(layout, ctx.rank)
+    out = []
+    for mode, layout in cases:
+        coords, row, col = layouts[layout]
+        cfg = tp_moe_config(mode)
+        rules = mesh.rules_for(cfg, mesh.RankLayout(("data", "model"),
+                                                     layout))
+        p = tp_moe_weights(cfg, moe.rank_slices(cfg, rules, coords),
+                           ctx.device)
+        x = tp_moe_tokens(cfg, coords["data"], ctx.device)
+        groups = RankGroups(dp=col, ep=col, tp=row)
+        torch.cuda.synchronize()
+        dist.barrier()
+        st0, k0 = collectives.staged_bytes, fused_reduce.launches
+        o, _ = moe.moe_ffn(x, p, cfg, rules=rules, groups=groups)
+        torch.cuda.synchronize()
+        staged = collectives.staged_bytes - st0
+        k2 = fused_reduce.launches - k0
+        times = []
+        for _ in range(TP_MOE_CALLS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            moe.moe_ffn(x, p, cfg, rules=rules, groups=groups)
+            torch.cuda.synchronize()
+            times.append(1e6 * (time.perf_counter() - t0))
+        host = o.cpu()
+        out.append({
+            "rank": ctx.rank, "data": coords["data"],
+            "out": host if coords["model"] == 0 else None,
+            "sha": hashlib.sha256(host.view(torch.int16).numpy()
+                                  .tobytes()).hexdigest(),
+            "finite": bool(torch.isfinite(host.float()).all()),
+            "staged": staged, "kernel2": k2,
+            "us": sorted(times)[len(times) // 2],
+            "held_bytes": sum(p[k].numel() * p[k].element_size()
+                              for k in moe.EXPERT_LEAVES),
+            "capacity": moe.capacity(x.shape[0] * x.shape[1], cfg)})
+        del p, x, o
+        torch.cuda.empty_cache()
+    return out
+
+
 def bits_equal(torch, a, b):
     """Bit for bit, NaN payloads included."""
     if a.shape != b.shape or a.dtype != b.dtype:
@@ -4683,6 +4995,8 @@ def main() -> int:
                      ("dense_vs_jax", s.dense_vs_jax),
                      ("serve_dense", s.serve_dense),
                      ("serve_kimi", s.serve_kimi),
+                     ("dryrun_vs_card", s.dryrun_vs_card),
+                     ("tp_moe", s.tp_moe),
                      ("timing_dense", s.timing_dense)):
         s.phase(name, fn)
     try:  # diagnostic only: a profiler problem fails no check
@@ -4729,7 +5043,8 @@ def main() -> int:
         "max_abs_err": s.fr_main_err, "ms": t2["ms"],
         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],
-        "collectives_launches": s.collective_launches["fused_accumulate"]}, {
+        "collectives_launches": s.collective_launches["fused_accumulate"],
+        "tp_moe_launches": s.tp_moe_launches}, {
         **KERNEL7, "launches": s.serve_launches["flash_attention"],
         "max_abs_err": s.fa_main_err, **pick(s.fa_timing),
         "library_shape": f"B={SERVE_B} S={HYMBA_WINDOW} bfloat16",
@@ -4759,6 +5074,7 @@ def main() -> int:
                                      "flash_attention_sm90")}
             for arch, c in s.serve_dense_launches.items()},
         "serve_kimi_launches": s.serve_kimi_launches["flash_attention"],
+        "dryrun_vs_card_launches": s.dryrun_launches,
         "serve_kimi_sm90_launches":
             s.serve_kimi_launches["flash_attention_sm90"],
         "dense_shapes": {label: {**pick(t), "shape": t["shape"],

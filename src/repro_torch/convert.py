@@ -106,7 +106,7 @@ STACKS = {"layers": "n_layers", "enc_layers": "enc_layers",
 
 
 def lm_params_from_jax(params_np: dict, cfg=None,
-                       expert_slice: Optional[slice] = None) -> dict:
+                       weight_slices: Optional[dict] = None) -> dict:
     """The reference LM's parameter tree as numpy (``embed.{tok,out,ln_f}``;
     ``layers.{ln1,ln2,attn.*,ssm.*,ffn.*}`` with a leading layer axis; an
     encoder-decoder's ``enc_layers.*`` and ``dec_layers.*`` with one and
@@ -114,9 +114,10 @@ def lm_params_from_jax(params_np: dict, cfg=None,
     ``layers.<i>.*``; ``enc_layers.<i>.*``, ``enc_ln_post``,
     ``dec_layers.<i>.*``) of CPU tensors. ``cfg``, when given, must agree
     on the number of layers of each stack.
-    ``expert_slice`` keeps those experts of an MoE's ``ffn.w1``, ``w3``
-    and ``w2`` (``models.moe.expert_slice``: one rank's share under
-    expert parallelism)."""
+    ``weight_slices`` ({leaf: tuple of slices}, ``models.moe.rank_slices``)
+    cuts an MoE's ``ffn.w1``, ``w3`` and ``w2`` down to one rank's share
+    of a (data, model) layout: (E, d, f) -> (E_loc, d_loc, f_loc) for w1
+    and w3, (E, f, d) -> (E_loc, f_loc, d_loc) for w2."""
     def walk(node, path):
         for k, v in node.items():
             if isinstance(v, dict):
@@ -125,17 +126,16 @@ def lm_params_from_jax(params_np: dict, cfg=None,
                 yield path + (k,), v
 
     return lm_params_from_leaves(walk(params_np, ()), cfg,
-                                 expert_slice=expert_slice)
+                                 weight_slices=weight_slices)
 
 
 def lm_params_from_leaves(leaves, cfg=None, *,
-                          expert_slice: Optional[slice] = None,
+                          weight_slices: Optional[dict] = None,
                           device="cpu") -> dict:
     """:func:`lm_params_from_jax` of the tree's leaves ``(path, numpy
     array)`` (``models.layers.numpy_param_leaves``), each moved to
     ``device`` before the next is read."""
-    experts = {("ffn", k) for k in ("w1", "w3", "w2")} \
-        if expert_slice is not None else set()
+    cut = weight_slices or {}
     out = {}
     for path, x in leaves:
         group, name = path[0], ".".join(path[1:])
@@ -148,7 +148,8 @@ def lm_params_from_leaves(leaves, cfg=None, *,
                              f"{want}")
         for i in range(x.shape[0]):
             out[f"{group}.{i}.{name}"] = _tensor(
-                x[i][expert_slice] if tuple(path[-2:]) in experts else x[i],
+                x[i][cut[path[-1]]] if path[-2:-1] == ("ffn",)
+                and path[-1] in cut else x[i],
                 device)
     return out
 

@@ -25,9 +25,16 @@ are; its point-to-point does not, so :func:`ppermute` on a gloo group
 moves a CUDA tensor to the host and back in :func:`stage`, which counts
 the bytes it moves in ``staged_bytes``. On nccl, or for a CPU tensor,
 nothing is staged.
+
+A :class:`StandInGroup` moves nothing: the dry run (``launch/dryrun.py``)
+gives it to one rank's program on meta tensors, and each collective called
+on it records its kind, operand and result bytes and group size, the
+gradient's collective too when a backward runs through it.
 """
 from __future__ import annotations
 
+import os
+import sys
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,6 +46,96 @@ from repro_torch.kernels import ops
 staged_bytes = 0  # bytes staged device -> host -> device since import
 
 
+# the collective a gradient takes through each kind (its transpose)
+_TRANSPOSE = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+              "all-reduce": "all-reduce", "all-to-all": "all-to-all",
+              "collective-permute": "collective-permute"}
+
+
+class StandInGroup:
+    """A group of ``size`` ranks for counting one rank's program: every
+    collective on it appends ``{"kind", "operand_bytes", "result_bytes",
+    "group_size"}`` (the kinds of the reference's ``hlo_stats``) to
+    ``records`` and returns an uninitialised meta tensor of the result's
+    shape. This rank is ``rank``. Meta tensors only."""
+
+    def __init__(self, size: int, rank: int = 0, records=None):
+        self.size, self.rank = int(size), int(rank)
+        self.records = records if records is not None else []
+
+    def record(self, kind: str, operand: torch.Tensor, result_shape):
+        item = operand.element_size()
+        self.records.append({
+            "kind": kind, "operand_bytes": operand.numel() * item,
+            "result_bytes": int(np.prod(result_shape, dtype=np.int64))
+            * item, "group_size": self.size, "site": caller()})
+
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_MODULES: dict = {}  # file -> "models.moe", or "" outside the package
+
+
+def caller(*skip: str) -> str:
+    """``module.function`` of the innermost ``repro_torch`` frame on the
+    stack outside this module and the files ``skip`` (a record's site,
+    ``launch.hlo_stats``' row names); "" if there is none."""
+    f = sys._getframe(1)
+    while f is not None:
+        fn = f.f_code.co_filename
+        mod = _MODULES.get(fn)
+        if mod is None:
+            path = os.path.abspath(fn)
+            mod = (os.path.relpath(path, _PKG)[:-3].replace(os.sep, ".")
+                   if path.startswith(_PKG + os.sep) else "")
+            _MODULES[fn] = mod
+        if mod and fn != __file__ and fn not in skip:
+            return f"{mod}.{f.f_code.co_name}"
+        f = f.f_back
+    return ""
+
+
+class _StandIn(torch.autograd.Function):
+    """A collective on a :class:`StandInGroup`: recorded, nothing moved;
+    its backward records the gradient's collective."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind, shape):
+        if x.device.type != "meta":
+            raise ValueError("a stand-in group moves nothing: meta tensors "
+                             f"only, got {x.device}")
+        group.record(kind, x, shape)
+        ctx.args = (group, kind, tuple(x.shape))
+        return x.new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, kind, shape = ctx.args
+        group.record(_TRANSPOSE[kind], g, shape)
+        return g.new_empty(shape), None, None, None
+
+
+def _stand_in(x, group, kind, shape):
+    return _StandIn.apply(x, group, kind, tuple(shape))
+
+
+def group_size(group) -> int:
+    """The ranks of ``group``; ``None`` is one rank (a model's groups)."""
+    if group is None:
+        return 1
+    if isinstance(group, StandInGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group``; 0 in ``None``."""
+    if group is None:
+        return 0
+    if isinstance(group, StandInGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
 def _fwd(n: int):
     return [(i, (i + 1) % n) for i in range(n)]
 
@@ -48,6 +145,8 @@ def _bwd(n: int):
 
 
 def _size_rank(group):
+    if isinstance(group, StandInGroup):
+        return group.size, group.rank
     return dist.get_world_size(group), dist.get_rank(group)
 
 
@@ -81,6 +180,8 @@ def ppermute(x: torch.Tensor, group, perm) -> torch.Tensor:
     ``perm`` (group ranks), rank src's ``x`` arrives at rank dst. Returns
     what this rank received, zeros where no pair sends to it."""
     n, rank = _size_rank(group)
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "collective-permute", x.shape)
     mine = [(s, d) for s, d in perm if rank in (s, d)]
     if not mine:
         return torch.zeros_like(x)
@@ -110,7 +211,8 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: (n,) + x.shape (the
     one-shot ``jax.lax.all_gather``)."""
     n, _ = _size_rank(group)
-
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "all-gather", (n,) + tuple(x.shape))
     flat = x.reshape(-1).contiguous()
     out = flat.new_empty(n * flat.numel())
     dist.all_gather_into_tensor(out, flat, group=group)
@@ -120,7 +222,8 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """x (n, ...): chunk j goes to rank j; returns (n, ...) whose chunk j
     came from rank j (``jax.lax.all_to_all`` tiled on axis 0)."""
-
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "all-to-all", x.shape)
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
@@ -130,6 +233,8 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 def all_mean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over the group's ranks, summed in rank order (the
     twin of ``jax.lax.pmean``; every rank gets the same bits)."""
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "all-reduce", x.shape)
     parts = all_gather(x, group)
     total = parts[0]
     for i in range(1, parts.shape[0]):
@@ -193,6 +298,8 @@ def ring_reduce_scatter(x: torch.Tensor, group=None,
     n, rank = _size_rank(group)
     if n == 1:
         return x[0]
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "reduce-scatter", x.shape[1:])
     add = add or (lambda a, b: a + b)
     acc = x[(rank - 1) % n]
     for s in range(1, n):
@@ -205,7 +312,37 @@ def ring_all_reduce(x: torch.Tensor, group=None,
                     add: Optional[Callable] = None) -> torch.Tensor:
     """x: (n, d, ...). Returns (n, d, ...) summed over the ranks (RS +
     AG)."""
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "all-reduce", x.shape)
     return ring_all_gather(ring_reduce_scatter(x, group, add), group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the group's ranks, every rank the same bits (the
+    twin of ``jax.lax.psum``): the ring all-reduce of x flattened into n
+    zero-padded chunks, its adds through kernel 2 (:func:`fused_add`)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if isinstance(group, StandInGroup):
+        return _stand_in(x, group, "all-reduce", x.shape)
+    flat = x.reshape(-1)
+    pad = -flat.numel() % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    out = ring_all_reduce(flat.reshape(n, -1), group, add=fused_add)
+    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+def psum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """x summed over the group's ranks and split along ``dim`` into n
+    slices, this rank keeping its own (the twin of ``jax.lax.psum_scatter``
+    tiled): the ring reduce-scatter, its adds through kernel 2."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    parts = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    return ring_reduce_scatter(parts.contiguous(), group, add=fused_add)
 
 
 # --------------------------------------------------------------------------

@@ -11,8 +11,20 @@ for each gradient: ``flash_attention`` and ``fused_selective_scan`` become
 backward runs kernels on the card (the attention backward; the selective
 scan's fused backward) and plain versions on the CPU or under
 ``core="plain"``.
+
+Kernels 7 and 6 and their backwards take meta tensors too (the dry run,
+``launch/dryrun.py``; the plain attention would hold the S x S scores the
+kernel never holds, and the plain scan loops over time): their meta
+branches return outputs of the kernel's shapes and types, allocate what
+the wrapper allocates on the card, and append each call's kind,
+dimensions and bytes moved to the list :func:`record_meta` installs. No
+CPU or CUDA call reaches them; the other kernels raise on meta, as on
+any device but the CPU and CUDA.
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 
@@ -25,6 +37,30 @@ from repro_torch.kernels import ssm_scan as _ss
 
 CORES = ("kernel", "plain")
 pack_scalars = _fs.pack_scalars
+
+
+_meta_calls = None  # the list record_meta installs
+
+
+@contextlib.contextmanager
+def record_meta(calls: list):
+    """Append the meta branches' calls to ``calls`` inside the block:
+    ``{"kernel", "dims", "bytes"}``, dims (B, Sq, Skv, H, KH, D) for
+    ``flash_attention`` and ``flash_attention_bwd``, (B, T, Di, N) for
+    ``fused_selective_scan`` and ``fused_selective_scan_bwd``."""
+    global _meta_calls
+    prev, _meta_calls = _meta_calls, calls
+    try:
+        yield calls
+    finally:
+        _meta_calls = prev
+
+
+def _record(kernel: str, dims: tuple, *tensors):
+    if _meta_calls is not None:
+        _meta_calls.append({"kernel": kernel, "dims": tuple(dims),
+                            "bytes": sum(t.numel() * t.element_size()
+                                         for t in tensors)})
 
 
 def _use_plain(device: torch.device, core: str, name: str) -> bool:
@@ -93,7 +129,41 @@ def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _attention_dims(q, k):
+    B, Sq, H, D = q.shape
+    return B, Sq, k.shape[1], H, k.shape[2], D
+
+
+def _meta_attention(q, k, v, return_lse):
+    """Kernel 7 on meta: its output (and row log-sum-exp)."""
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                      dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    _record("flash_attention", _attention_dims(q, k), q, k, v, out,
+            *([lse] if return_lse else []))
+    return (out, lse) if return_lse else out
+
+
+def _meta_attention_bwd(q, k, v, o, lse, do):
+    """Kernel 7's backward on meta: dq, dk, dv and the float32 workspace
+    the wrapper allocates (delta; in bfloat16 the dK/dV head chunks)."""
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    B, Sq, Skv, H, KH, D = _attention_dims(q, k)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    n_split = math.ceil((H // KH) / _fa.BWD_HEADS_A_BLOCK)
+    part = torch.empty(2 * n_split, B, Skv, KH, D, dtype=torch.float32,
+                       device=q.device) \
+        if q.dtype == torch.bfloat16 and n_split > 1 else None
+    _record("flash_attention_bwd", (B, Sq, Skv, H, KH, D), q, k, v, o, lse,
+            do, *grads)
+    del delta, part
+    return grads
+
+
 def _attention(q, k, v, causal, window, core, return_lse=False):
+    if q.device.type == "meta":
+        return _meta_attention(q, k, v, return_lse)
     if _use_plain(q.device, core, "flash_attention"):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    return_lse=return_lse)
@@ -119,7 +189,9 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window, core = ctx.args
         do = do.contiguous()
-        if _use_plain(q.device, core, "flash_attention_bwd"):
+        if q.device.type == "meta":
+            grads = _meta_attention_bwd(q, k, v, o, lse, do)
+        elif _use_plain(q.device, core, "flash_attention_bwd"):
             grads = ref.flash_attention_bwd(q, k, v, o, lse, do,
                                             causal=causal, window=window)
         else:
@@ -140,6 +212,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _selective_scan(dt, A, B_coef, C_coef, x, h0, core):
+    if dt.device.type == "meta":  # kernel 6's outputs, float32
+        B, T, Di = x.shape
+        N = A.shape[1]
+        y = torch.empty(B, T, Di, dtype=torch.float32, device=dt.device)
+        h_T = torch.empty(B, Di, N, dtype=torch.float32, device=dt.device)
+        _record("fused_selective_scan", (B, T, Di, N), dt, A, B_coef,
+                C_coef, x, h0, y, h_T)
+        return y, h_T
     if _use_plain(dt.device, core, "fused_selective_scan"):
         return ref.fused_selective_scan(dt, A, B_coef, C_coef, x, h0)
     return _ss.fused_selective_scan(dt, A, B_coef, C_coef, x, h0)
@@ -164,6 +244,12 @@ class SelectiveScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_T):
         args = (*ctx.saved_tensors, dy.contiguous(), dh_T.contiguous())
+        if args[0].device.type == "meta":
+            grads = tuple(torch.empty_like(t) for t in args[:6])
+            B, T, Di = args[4].shape
+            _record("fused_selective_scan_bwd", (B, T, Di, args[1].shape[1]),
+                    *args, *grads)
+            return (*grads, None)
         if _use_plain(args[0].device, ctx.core, "fused_selective_scan_bwd"):
             grads = ref.fused_selective_scan_bwd(*args)
         else:

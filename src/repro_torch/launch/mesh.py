@@ -1,13 +1,20 @@
-"""Device meshes and process groups of the port.
+"""Device meshes, rank layouts and process groups of the port.
 
-PyTorch has no mesh object. Two stand-ins are used:
+PyTorch has no mesh object. Three stand-ins are used:
 
 * the sweep launcher's mesh (``make_sweep_mesh``): a tuple of
   ``torch.device``, one entry a shard; a device may appear more than once
   (two shards on one card run one after the other);
-* a 1-D process group (``spawn_group``), the reference's ``shard_map``
-  over one mesh axis: n spawned ranks joined by ``torch.distributed``, on
-  which the collective schedules of ``core/collectives.py`` run.
+* a rank layout (:class:`RankLayout`: axis names and sizes, no device
+  touched), the reference's ``make_production_mesh`` / ``make_host_mesh``;
+  ``rules_for`` derives its ``AxisRules`` as the reference does;
+* a process group (``spawn_group``), the reference's ``shard_map``: n
+  spawned ranks joined by ``torch.distributed``, on which the collective
+  schedules of ``core/collectives.py`` run. Given a (data, model)
+  ``layout`` each rank also gets its row (the ranks of its data index:
+  the TP group) and its column (the ranks of its model index: the data-
+  and expert-parallel group); rank r sits at (r // model, r % model), as
+  the reference's mesh orders its devices.
 
 The transport of a process group is the caller's explicit choice:
 ``"nccl"`` puts rank r on ``cuda:r`` and needs one card per rank;
@@ -30,7 +37,66 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch.models.layers import AxisRules
+
 BACKENDS = ("gloo", "nccl")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """A mesh without devices: axis names and sizes, the first axis
+    major."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    def coords(self, rank: int) -> dict:
+        """{axis: index} of ``rank``."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.shape)):
+            out[name] = rank % n
+            rank //= n
+        return {a: out[a] for a in self.axis_names}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankLayout:
+    """The reference's production layouts: (data 16, model 16), or (pod
+    2, data 16, model 16)."""
+    if multi_pod:
+        return RankLayout(("pod", "data", "model"), (2, 16, 16))
+    return RankLayout(("data", "model"), (16, 16))
+
+
+def make_host_mesh(data: int = 0, model: int = 1) -> RankLayout:
+    """A (data, model) layout over the ranks of the live default group, or
+    one rank without one."""
+    import torch.distributed as dist
+    n = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+    data = data or max(1, n // model)
+    return RankLayout(("data", "model"), (data, model))
+
+
+def rules_for(cfg, layout: RankLayout) -> AxisRules:
+    """AxisRules of an arch config and a layout, as the reference's
+    ``rules_for`` (``repro/launch/mesh.py:53``)."""
+    names = tuple(layout.axis_names)
+    has_pod = "pod" in names
+    dp = ("pod", "data") if has_pod else ("data",)
+    if cfg is not None and cfg.pod_param_sharding == "fsdp" and has_pod:
+        fsdp = ("pod", "data")
+    else:
+        fsdp = ("data",)
+    return AxisRules(dp=dp, fsdp=fsdp, tp="model", ep=fsdp,
+                     kv_seq="model", sizes=layout.sizes)
 
 
 def make_sweep_mesh(n_devices: int = 0, *, device=None
@@ -55,11 +121,31 @@ def make_sweep_mesh(n_devices: int = 0, *, device=None
 @dataclasses.dataclass(frozen=True)
 class Rank:
     """What a spawned rank's function is given: its rank, the group's
-    size and its device."""
+    size and its device; under a (data, model) layout also its place
+    (``coords``) and its ``row`` (TP) and ``col`` (data and expert
+    parallel) subgroups."""
 
     rank: int
     size: int
     device: torch.device
+    coords: dict = None
+    row: object = None
+    col: object = None
+
+
+def layout_groups(layout, rank: int):
+    """({"data": i, "model": j}, row, col) of ``rank`` = i * model + j in
+    a (data, model) layout of the live default group. Every rank must call
+    it with the same layout: it creates every row and column subgroup
+    (``dist.new_group``), rows first, in the same order on every rank."""
+    import torch.distributed as dist
+    data, model = layout
+    rows = [dist.new_group([i * model + j for j in range(model)])
+            for i in range(data)]
+    cols = [dist.new_group([i * model + j for i in range(data)])
+            for j in range(model)]
+    return ({"data": rank // model, "model": rank % model},
+            rows[rank // model], cols[rank % model])
 
 
 def rank_devices(n: int, backend: str, device="cuda"):
@@ -91,7 +177,7 @@ def rank_devices(n: int, backend: str, device="cuda"):
 
 
 def _rank_main(fn, rank, n, backend, device, rendezvous, out, timeout_s,
-               args):
+               args, layout=None):
     """A spawned rank: one ATen thread (the ranks share the cores), its
     device set, the group joined through the rendezvous file, ``fn(Rank,
     *args)`` run, the group torn down; the result or the traceback
@@ -106,8 +192,10 @@ def _rank_main(fn, rank, n, backend, device, rendezvous, out, timeout_s,
             backend, init_method=f"file://{rendezvous}", world_size=n,
             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            res = {"ok": True,
-                   "result": fn(Rank(rank, n, dev), *args)}
+            ctx = Rank(rank, n, dev)
+            if layout is not None:
+                ctx = Rank(rank, n, dev, *layout_groups(layout, rank))
+            res = {"ok": True, "result": fn(ctx, *args)}
         except Exception:
             # written before the group goes down, so that the peers' own
             # failures (a closed connection) come after this one
@@ -129,7 +217,8 @@ def _dump(path, res):
 
 
 def spawn_group(fn: Callable, n: int, *, backend: str, device="cuda",
-                args: tuple = (), timeout_s: float = 600.0) -> list:
+                args: tuple = (), timeout_s: float = 600.0,
+                layout: Tuple[int, int] = None) -> list:
     """Run ``fn(Rank, *args)`` on each of ``n`` spawned ranks of one
     ``torch.distributed`` group over ``backend`` and return the ranks'
     results in rank order. ``fn`` must be a module-level function (it is
@@ -137,7 +226,11 @@ def spawn_group(fn: Callable, n: int, *, backend: str, device="cuda",
     the CPU). The rendezvous is a file in a fresh temporary directory, so
     no port is fixed. A rank that fails stops the others and raises here
     with its traceback; so does a rank still running ``timeout_s`` after
-    the spawn."""
+    the spawn. With ``layout`` (data, model), data * model == n, each
+    rank also gets its coordinates and row and column subgroups
+    (:class:`Rank`)."""
+    if layout is not None and math.prod(layout) != n:
+        raise ValueError(f"layout {layout} does not hold {n} ranks")
     devices = rank_devices(n, backend, device)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_group_") as tmp:
@@ -145,7 +238,7 @@ def spawn_group(fn: Callable, n: int, *, backend: str, device="cuda",
         outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(n)]
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(
             fn, r, n, backend, str(devices[r]), rdv, outs[r], timeout_s,
-            args)) for r in range(n)]
+            args, layout and tuple(layout))) for r in range(n)]
         for p in procs:
             p.start()
         deadline = time.time() + timeout_s

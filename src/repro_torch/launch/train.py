@@ -7,8 +7,9 @@ Runs on the CUDA device unless ``--device`` names another; without a card
 the default fails. ``--reduced`` runs the same launcher with the smoke-scale
 config (``ArchConfig.reduced()``); without it the config's full width and
 depth train on the card. A multi-host launch (``--coordinator``: one
-process group across hosts, with the rest of the reference's
-``launch/mesh.py``) is not ported yet (ROADMAP Queue 1, item 15).
+process group across hosts, data parallelism through ``Trainer``) is not
+ported yet (ROADMAP Queue 1, item 15); the rank layouts it would run on
+are ``launch/mesh.py``'s.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ def main(argv=None):
 
     if args.coordinator:
         raise SystemExit("--coordinator: multi-host training (one process "
-                         "group across hosts) is not ported yet (ROADMAP "
-                         "Queue 1, item 15)")
+                         "group across hosts, data parallelism through "
+                         "Trainer) is not ported yet (ROADMAP Queue 1, "
+                         "item 15)")
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import OptConfig

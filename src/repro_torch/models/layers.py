@@ -2,20 +2,99 @@
 initialisers, norms, RoPE, decode attention over a KV cache, MLP,
 embedding, unembedding and the token cross-entropy.
 
-Mirrors ``repro/models/layers.py`` on one card: the declarations keep the
-reference's shapes, ``init`` and ``std`` but carry no sharding (the
-reference's ``AxisRules`` and sharding constraints have no counterpart on
-one device). Prefill attention is kernel 7 (``kernels.ops.flash_attention``),
-called from ``models/transformer.py``.
+Mirrors ``repro/models/layers.py``: the declarations keep the reference's
+shapes, ``init`` and ``std`` but carry no sharding spec. ``AxisRules``
+maps the parallel roles onto the axes of a rank layout
+(``launch.mesh.rules_for``); the reference's sharding constraints have no
+counterpart, since the port keeps every layer but the MoE's expert leaves
+whole on each rank. Prefill attention is kernel 7
+(``kernels.ops.flash_attention``), called from ``models/transformer.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Mapping, NamedTuple
+from typing import Any, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# --------------------------------------------------------------------------
+# Axis rules
+# --------------------------------------------------------------------------
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """Maps logical parallelism roles onto layout axis names, as the
+    reference's ``AxisRules`` (``repro/models/layers.py:38``)."""
+
+    dp: tuple  # batch axes, e.g. ("pod", "data") or ("data",)
+    fsdp: tuple  # weight input-dim sharding axes
+    tp: Optional[str]  # tensor-parallel axis ("model")
+    ep: tuple  # expert-parallel axes (the MoE's all-to-all group)
+    kv_seq: Optional[str]  # axis of a decode KV cache's sequence split
+    sizes: Mapping[str, int]  # layout axis name -> size
+
+    def axis_size(self, axes) -> int:
+        if axes is None:
+            return 1
+        if isinstance(axes, str):
+            axes = (axes,)
+        return _prod(self.sizes[a] for a in axes)
+
+    @property
+    def dp_size(self) -> int:
+        return self.axis_size(self.dp)
+
+    @property
+    def ep_size(self) -> int:
+        return self.axis_size(self.ep)
+
+    @property
+    def tp_size(self) -> int:
+        return self.axis_size(self.tp) if self.tp else 1
+
+    def tp_if(self, n: int):
+        """TP axis if ``n`` divides evenly, else None (whole)."""
+        return self.tp if (self.tp and n % self.sizes[self.tp] == 0) else None
+
+    def fsdp_if(self, n: int):
+        """FSDP axes if ``n`` divides evenly, else None."""
+        if self.fsdp and n % self.axis_size(self.fsdp) == 0:
+            return self.fsdp
+        return None
+
+    def dp_if(self, n: int):
+        if self.dp and n % self.dp_size == 0:
+            return self.dp
+        return None
+
+
+def single_device_rules(data: int = 1, model: int = 1) -> AxisRules:
+    """The rules of a (data, model) host layout (1 x 1: one device)."""
+    return AxisRules(dp=("data",), fsdp=("data",), tp="model", ep=("data",),
+                     kv_seq="model", sizes={"data": data, "model": model})
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGroups:
+    """The process groups of one rank for the rules' roles: ``dp`` (the
+    batch's ranks, over which losses and aux losses are averaged), ``ep``
+    (the expert-parallel and FSDP ranks: the rules' ``ep`` axes) and
+    ``tp`` (the tensor-parallel ranks). ``None`` is a group of one."""
+
+    dp: Any = None
+    ep: Any = None
+    tp: Any = None
 
 
 class ParamDecl(NamedTuple):
@@ -49,11 +128,11 @@ def embed_decls(cfg) -> dict:
             "ln_f": ParamDecl((d,), init="ones")}
 
 
-def block_decls(cfg, ep: int = 1) -> dict:
+def block_decls(cfg, rules=None) -> dict:
     """One layer's declarations, in the reference's order
     (``transformer.py:build_decoder_lm``); an MoE layer's expert leaves
-    hold E / ``ep`` experts (one rank's share under expert
-    parallelism)."""
+    hold one rank's share under ``rules`` (``moe.expert_dims``; all of
+    them without)."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import ssm as ssm_lib
 
@@ -64,7 +143,7 @@ def block_decls(cfg, ep: int = 1) -> dict:
         block["ssm"] = ssm_lib.ssm_decls(cfg)
     if cfg.d_ff > 0:
         block["ln2"] = ParamDecl((cfg.d_model,), init="ones")
-        block["ffn"] = (moe_lib.moe_decls(cfg, ep) if cfg.n_experts
+        block["ffn"] = (moe_lib.moe_decls(cfg, rules) if cfg.n_experts
                         else mlp_decls(cfg))
     return block
 
@@ -85,7 +164,7 @@ def encdec_decls(cfg) -> dict:
                        "ffn": mlp_decls(cfg)}}
 
 
-def model_decls(cfg, ep: int = 1):
+def model_decls(cfg, rules=None):
     """(group, declarations, layers) of the whole parameter tree in the
     reference's order: ``embed``, then a decoder-only LM's ``layers`` or
     an encoder-decoder's ``enc_layers``, ``enc_ln_post``, ``dec_layers``.
@@ -93,7 +172,7 @@ def model_decls(cfg, ep: int = 1):
     leading layer axis; ``enc_ln_post`` is a single leaf (0)."""
     out = [("embed", embed_decls(cfg), 0)]
     if not cfg.is_encdec:
-        return out + [("layers", block_decls(cfg, ep), cfg.n_layers)]
+        return out + [("layers", block_decls(cfg, rules), cfg.n_layers)]
     enc = encdec_decls(cfg)
     return out + [("enc_layers", enc["enc_layers"], cfg.enc_layers),
                   ("enc_ln_post", enc["enc_ln_post"], 0),

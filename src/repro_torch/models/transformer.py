@@ -16,11 +16,13 @@ frontend embeddings as in the reference, to the embedded tokens: rope
 positions run over patches and text together, so a decode step's position
 counts the patches, and ``loss`` drops the patch positions before the
 unembedding. An MoE layer's FFN is ``models/moe.py::moe_ffn``; ``loss``
-adds the layers' load-balancing losses with the reference's weight. Given a
-``torch.distributed`` group, the model is one data-parallel shard: its
-batch is this rank's, the loss is the group's token mean, and an
-``ep``/``ep_sp`` MoE holds this rank's slice of the experts and
-dispatches over the group (expert parallelism).
+adds the layers' load-balancing losses with the reference's weight. Given
+``torch.distributed`` groups (``layers.RankGroups``: the data-parallel,
+expert-parallel and tensor-parallel ranks of a layout, with its
+``AxisRules``), the model is one rank's program: its batch is this rank's,
+the loss is the data-parallel group's token mean, and an MoE holds this
+rank's share of the expert leaves and dispatches over the groups
+(``moe.moe_ffn``). Every other layer is whole on each rank.
 
 Parameters load without gradients (serving); a trainer turns them on with
 ``model.requires_grad_(True)``. ``loss`` checkpoints each layer as the
@@ -48,8 +50,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
-    block_decls, decode_attention, embed_decls, embed_tokens, mlp_apply,
-    rms_norm, rope, token_nll, token_xent, unembed,
+    RankGroups, block_decls, decode_attention, embed_decls, embed_tokens,
+    mlp_apply, rms_norm, rope, single_device_rules, token_nll, token_xent,
+    unembed,
 )
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
@@ -105,7 +108,7 @@ class DecoderLM(nn.Module):
     draws a set)."""
 
     def __init__(self, cfg, *, device="cuda", dtype=None,
-                 core: str = "kernel", group=None):
+                 core: str = "kernel", groups=None, rules=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r}")
@@ -120,12 +123,15 @@ class DecoderLM(nn.Module):
         self.has_ssm = cfg.ssm_state > 0
         self.has_mlp = cfg.d_ff > 0
         self.is_moe = cfg.n_experts > 0
-        self.group = group  # a data-parallel (and expert-parallel) group
-        self.ep = (torch.distributed.get_world_size(group)
-                   if group is not None and self.is_moe
-                   and cfg.moe_sharding in moe_lib.EP_MODES else 1)
+        self.groups = groups or RankGroups()
+        if rules is None and (self.groups.ep is not None
+                              or self.groups.tp is not None):
+            rules = single_device_rules(
+                collectives.group_size(self.groups.ep),
+                collectives.group_size(self.groups.tp))
+        self.rules = rules
         self.embed = _params(embed_decls(cfg), self.param_dtype)
-        block = block_decls(cfg, self.ep)
+        block = block_decls(cfg, rules)
         self.layers = nn.ModuleList(
             _params(block, self.param_dtype) for _ in range(cfg.n_layers))
 
@@ -204,11 +210,11 @@ class DecoderLM(nn.Module):
         h = rms_norm(x, pl["ln2"], self.cfg.norm_eps)
         if not self.is_moe:
             return mlp_apply(h, pl["ffn"], self.cfg.act), None
+        kw = {"rules": self.rules, "groups": self.groups}
         if h.dim() == 2:  # a decode step: one token a row
-            f, aux = moe_lib.moe_ffn(h[:, None], pl["ffn"], self.cfg,
-                                     group=self.group)
+            f, aux = moe_lib.moe_ffn(h[:, None], pl["ffn"], self.cfg, **kw)
             return f[:, 0], aux
-        return moe_lib.moe_ffn(h, pl["ffn"], self.cfg, group=self.group)
+        return moe_lib.moe_ffn(h, pl["ffn"], self.cfg, **kw)
 
     def _seq_block(self, pl, x, emit_cache: bool = True):
         """(x, the layer's cache, its aux loss or None)."""
@@ -291,14 +297,14 @@ class DecoderLM(nn.Module):
                 x = out
         logits = unembed(self.embed, x[:, n_front:], self.cfg.norm_eps)
         mask = labels >= 0
-        if self.group is None:
+        if self.groups.dp is None:
             ce = token_xent(logits, labels, mask=mask)
         else:
             # the group's masked sum over its count, ranks in order
             m = mask.float()
             parts = collectives.all_gather(torch.stack(
                 [(token_nll(logits, labels) * m).sum(), m.sum()]),
-                self.group)
+                self.groups.dp)
             tot = parts[0]
             for i in range(1, parts.shape[0]):
                 tot = tot + parts[i]

@@ -56,7 +56,10 @@ def test_port_imports_without_jax_or_reference():
               "repro_torch.core.mitigation.agents",
               "repro_torch.runtime.whatif", "repro_torch.launch.sweep",
               "repro_torch.launch.mesh", "repro_torch.core.collectives",
-              "repro_torch.models.moe", "repro_torch.models.encdec"):
+              "repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.models.api", "repro_torch.models.layers",
+              "repro_torch.launch.dryrun", "repro_torch.launch.hlo_stats",
+              "repro_torch.launch.roofline"):
         assert m in mods, m
     drivers = ["benchmarks." + os.path.basename(f)[:-3]
                for f in _driver_files()]
